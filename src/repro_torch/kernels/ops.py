@@ -1,0 +1,156 @@
+"""Public wrappers around the port's CUDA kernels.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty`` and launches on the current CUDA stream. A
+tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
+tensor launches the kernel or raises; nothing falls back.
+
+``LAUNCHES`` counts kernel launches, one per launch and nowhere else (the
+analogue of the reference's ``op_stats``), so a run can show that its
+main path went through the kernels::
+
+    reset_launches()
+    ... drive the path ...
+    assert LAUNCHES["gossip_mix"] == expected
+
+Entry points (all on 2-D ``[rows, cols]`` views of stacked leaves):
+  * ``gossip_mix(x, nbr, w)``              K1, one circulant gossip step.
+  * ``topk_threshold(x, k)``               K4, per-row k-th largest |x|.
+  * ``topk_mask(x, thresh)``               K5, per-row keep-or-zero.
+  * ``choco_topk(x, y, my, d, t, gamma)``  K3, fused CHOCO-TopK step.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import choco_fused as _choco
+from repro_torch.kernels import gossip_mix as _mix
+from repro_torch.kernels import topk as _topk
+
+DTYPES = (torch.float32, torch.bfloat16)
+LAUNCHES: Dict[str, int] = {"gossip_mix": 0, "topk_threshold": 0,
+                            "topk_mask": 0, "choco_topk": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_card(op: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA operands, False for CPU ones; raises on anything else
+    or on a mix of devices."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{op}: operands on several devices {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{op}: unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _check_leaf(op: str, name: str, t: torch.Tensor, shape=None) -> None:
+    if t.dtype not in DTYPES:
+        raise TypeError(f"{op}: {name} has dtype {t.dtype}; kernels take "
+                        "float32 and bfloat16")
+    if t.dim() != 2 or t.shape[0] < 1 or t.shape[1] < 1:
+        raise ValueError(f"{op}: {name} must be a non-empty [rows, cols] "
+                         f"tensor, got {tuple(t.shape)}")
+    if t.shape[0] > 65535:
+        raise ValueError(f"{op}: {t.shape[0]} rows exceed the launch grid")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{op}: {name} must be contiguous")
+
+
+def _check_rows(op: str, name: str, t: torch.Tensor, rows: int, dtype) -> None:
+    if t.dtype != dtype or tuple(t.shape) != (rows,) or not t.is_contiguous():
+        raise ValueError(f"{op}: {name} must be a contiguous [{rows}] {dtype} "
+                         f"tensor, got {tuple(t.shape)} {t.dtype}")
+
+
+def gossip_mix(x: torch.Tensor, nbr: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """K1: ``out[i] = w[i,0] x[i] + sum_k w[i,k+1] x[nbr[i,k]]`` (f32
+    accumulate, leaf dtype out). ``nbr`` [N, deg] int32, ``w`` [N, deg+1]
+    float32."""
+    op = "gossip_mix"
+    on_card = _on_card(op, x, nbr, w)
+    _check_leaf(op, "x", x)
+    rows = x.shape[0]
+    if (nbr.dtype != torch.int32 or nbr.dim() != 2 or nbr.shape[0] != rows
+            or not nbr.is_contiguous()):
+        raise ValueError(f"{op}: nbr must be a contiguous [{rows}, deg] int32 "
+                         f"tensor, got {tuple(nbr.shape)} {nbr.dtype}")
+    deg = nbr.shape[1]
+    if (w.dtype != torch.float32 or tuple(w.shape) != (rows, deg + 1)
+            or not w.is_contiguous()):
+        raise ValueError(f"{op}: w must be a contiguous [{rows}, {deg + 1}] "
+                         f"float32 tensor, got {tuple(w.shape)} {w.dtype}")
+    if not on_card:
+        return _mix.plain(x, nbr, w)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _mix.launch(x, nbr, w, out)
+    LAUNCHES[op] += 1
+    return out
+
+
+def topk_threshold(x: torch.Tensor, k: int) -> torch.Tensor:
+    """K4: per row, the k-th largest |x| in x's dtype (ties inclusive)."""
+    op = "topk_threshold"
+    on_card = _on_card(op, x)
+    _check_leaf(op, "x", x)
+    k = int(k)
+    if not 1 <= k <= x.shape[1]:
+        raise ValueError(
+            f"TopK k={k} out of range for a size-{x.shape[1]} vector")
+    if not on_card:
+        return _topk.threshold_plain(x, k)
+    out = torch.empty(x.shape[0], dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        _topk.launch_threshold(x, k, out)
+    LAUNCHES[op] += 1
+    return out
+
+
+def topk_mask(x: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
+    """K5: ``where(|x| >= thresh[row], x, 0)`` in x's dtype."""
+    op = "topk_mask"
+    on_card = _on_card(op, x, thresh)
+    _check_leaf(op, "x", x)
+    _check_rows(op, "thresh", thresh, x.shape[0], x.dtype)
+    if not on_card:
+        return _topk.mask_plain(x, thresh)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _topk.launch_mask(x, thresh, out)
+    LAUNCHES[op] += 1
+    return out
+
+
+def choco_topk(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,
+               d: torch.Tensor, thresh: torch.Tensor,
+               gamma: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: ``x_new = x + gamma (my - y)`` (f32, cast to the leaf dtype) and
+    ``y_new = y + where(|d| >= thresh[row], d, 0)``; returns both."""
+    op = "choco_topk"
+    on_card = _on_card(op, x, y, my, d, thresh)
+    _check_leaf(op, "x", x)
+    for name, t in (("y", y), ("my", my), ("d", d)):
+        _check_leaf(op, name, t, x.shape)
+        if t.dtype != x.dtype:
+            raise TypeError(f"{op}: {name} is {t.dtype}, x is {x.dtype}")
+    _check_rows(op, "thresh", thresh, x.shape[0], x.dtype)
+    if not on_card:
+        return _choco.plain(x, y, my, d, thresh, gamma)
+    x_out = torch.empty_like(x)
+    y_out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _choco.launch(x, y, my, d, thresh, float(gamma), x_out, y_out)
+    LAUNCHES[op] += 1
+    return x_out, y_out

@@ -1,0 +1,178 @@
+"""Train the paper's CNN with DFL / C-DFL: the port's ``run_dfl_cnn``.
+
+Ported from ``benchmarks/common.py:run_dfl_cnn``, the harness behind the
+paper figures: the same ``RunSpec``, the same numpy data and partitions,
+the same history keys. Run it as::
+
+    python -m repro_torch.launch.cnn_run --flavor cifar --compression top_k \\
+        --frac 0.67 --gamma 0.6 --rounds 10
+
+On the card it turns TF32 off for cuDNN convolutions and cuBLAS matmuls,
+because the reference runs the CNN in f32.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import json
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.core.compression import make_compressor
+from repro_torch.core.dfl import (DFLConfig, average_model, init_state,
+                                  make_round_fn, round_wire_bits)
+from repro_torch.core.topology import (fully_connected, paper_quasi_ring,
+                                       ring)
+from repro_torch.data.images import SyntheticImages, image_batches_for_dfl
+from repro_torch.device import resolve_device
+from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn
+from repro_torch.optim import sgd
+
+TF32_NOTE = ("TF32 off for cuDNN convolutions and cuBLAS matmuls: the "
+             "reference runs the CNN in f32")
+
+
+@functools.lru_cache(maxsize=2)
+def get_data(flavor: str) -> SyntheticImages:
+    """The reference harness's dataset for ``flavor`` (same seed, sizes)."""
+    return SyntheticImages(flavor=flavor, train_size=3000, test_size=600,
+                           seed=7)
+
+
+@dataclasses.dataclass
+class RunSpec:
+    name: str
+    tau1: int = 4
+    tau2: int = 4
+    topology: str = "ring"          # ring | quasi | full
+    compression: str = ""
+    comp_kwargs: Optional[dict] = None
+    gamma: float = 1.0
+    lr: float = 0.05
+    flavor: str = "mnist"
+    nodes: int = 10
+    rounds: int = 40
+    batch: int = 16
+    partition: str = "dirichlet"
+    seed: int = 0
+
+    def topology_obj(self):
+        if self.topology == "ring":
+            return ring(self.nodes)
+        if self.topology == "quasi":
+            return paper_quasi_ring()
+        if self.topology == "full":
+            return fully_connected(self.nodes)
+        raise ValueError(self.topology)
+
+
+def run_dfl_cnn(spec: RunSpec, device="cuda", log_every: int = 5) -> Dict:
+    """Train ``spec`` on ``device``; returns the reference's result dict
+    plus ``round_ms`` (host clock per round, ended by a device sync)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    data = get_data(spec.flavor)
+    parts = data.partition(spec.nodes, scheme=spec.partition, seed=spec.seed)
+    comp = (make_compressor(spec.compression, **(spec.comp_kwargs or {}))
+            if spec.compression else None)
+    cfg = DFLConfig(tau1=spec.tau1, tau2=spec.tau2,
+                    topology=spec.topology_obj(), compression=comp,
+                    gamma=spec.gamma)
+    opt = sgd(spec.lr)
+
+    def loss_fn(params, batch):
+        return cnn_loss(params, batch, flavor=spec.flavor)
+
+    params0 = init_cnn(torch.Generator().manual_seed(spec.seed), spec.flavor,
+                       device=dev)
+    state = init_state(params0, spec.nodes, opt, compressed=cfg.is_compressed)
+    round_fn = make_round_fn(cfg, loss_fn, opt)
+    bits_per_round = round_wire_bits(cfg, params0, engine="sparse")
+
+    test_x = torch.from_numpy(data.test_x).to(dev)
+    test_y = torch.from_numpy(data.test_y).to(dev)
+    gtrain_x = torch.from_numpy(data.train_x[:1000]).to(dev)
+    gtrain_y = torch.from_numpy(data.train_y[:1000]).to(dev)
+    hist: Dict[str, List[float]] = {
+        "round": [], "iteration": [], "loss": [], "global_loss": [],
+        "consensus": [], "test_acc": [], "gbits": [],
+    }
+    round_ms: List[float] = []
+    t0 = time.perf_counter()
+    for r in range(spec.rounds):
+        xs, ys = image_batches_for_dfl(
+            data, parts, spec.tau1, spec.batch, r, seed=spec.seed)
+        batches = (torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev))
+        start = time.perf_counter()
+        state, m = round_fn(state, batches)
+        loss, consensus = float(m["loss"]), float(m["consensus_sq"])
+        round_ms.append((time.perf_counter() - start) * 1e3)
+        if (r + 1) % log_every == 0 or r == spec.rounds - 1:
+            with torch.no_grad():
+                avg = average_model(state.params)
+                acc = float(cnn_accuracy(avg, test_x, test_y, spec.flavor))
+                gloss = float(cnn_loss(avg, (gtrain_x, gtrain_y),
+                                       spec.flavor))
+            hist["round"].append(r + 1)
+            hist["iteration"].append((r + 1) * (spec.tau1 + spec.tau2))
+            hist["loss"].append(loss)
+            hist["global_loss"].append(gloss)
+            hist["consensus"].append(consensus)
+            hist["test_acc"].append(acc)
+            hist["gbits"].append((r + 1) * bits_per_round / 1e9)
+    return {
+        "spec": dataclasses.asdict(spec),
+        "device": str(dev),
+        "tf32": TF32_NOTE if dev.type == "cuda" else None,
+        "bits_per_round": bits_per_round,
+        "zeta": cfg.topology.zeta,
+        "wall_s": time.perf_counter() - t0,
+        "round_ms": round_ms,
+        "history": hist,
+    }
+
+
+def main(argv=None) -> Dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--flavor", default="cifar", choices=("mnist", "cifar"))
+    p.add_argument("--compression", default="", help="'' (DFL) or top_k")
+    p.add_argument("--frac", type=float, default=0.67)
+    p.add_argument("--gamma", type=float, default=0.6)
+    p.add_argument("--topology", default="ring")
+    p.add_argument("--nodes", type=int, default=10)
+    p.add_argument("--tau1", type=int, default=4)
+    p.add_argument("--tau2", type=int, default=4)
+    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--rounds", type=int, default=10)
+    p.add_argument("--log-every", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    kw = {"frac": a.frac} if a.compression == "top_k" else {}
+    spec = RunSpec(name=f"cnn-{a.flavor}-{a.compression or 'dfl'}",
+                   tau1=a.tau1, tau2=a.tau2, topology=a.topology,
+                   compression=a.compression, comp_kwargs=kw,
+                   gamma=a.gamma if a.compression else 1.0, lr=a.lr,
+                   flavor=a.flavor, nodes=a.nodes, rounds=a.rounds,
+                   batch=a.batch, seed=a.seed)
+    out = run_dfl_cnn(spec, device=a.device, log_every=a.log_every)
+    if out["tf32"]:
+        print(out["tf32"])
+    h = out["history"]
+    for i, r in enumerate(h["round"]):
+        print(json.dumps({"round": r, "loss": h["loss"][i],
+                          "consensus": h["consensus"][i],
+                          "global_loss": h["global_loss"][i],
+                          "test_acc": h["test_acc"][i],
+                          "round_ms": out["round_ms"][r - 1]}))
+    return out
+
+
+if __name__ == "__main__":
+    main()

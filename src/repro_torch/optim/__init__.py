@@ -1,0 +1,4 @@
+"""Optimizers on stacked per-node parameters."""
+from repro_torch.optim.optimizers import Optimizer, sgd
+
+__all__ = ["Optimizer", "sgd"]

@@ -1,0 +1,153 @@
+"""K1 gossip_mix in the PyTorch port against the JAX reference.
+
+The port's plain version (what ``repro_torch.kernels.ops.gossip_mix`` runs
+on CPU tensors) is held against the reference's Pallas kernel in interpret
+mode and against the reference ``mix_dense``; the kernel itself is held
+against the plain version on the card by ``chip_smoke.py``. Tolerance:
+1e-5 in f32 and 1e-2 in bf16 (the reference's gossip contract; the two
+frameworks may order or contract the f32 accumulation differently).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import mixing as jmixing
+from repro.core import topology as jtopology
+from repro.kernels import ops as jops
+from repro.kernels.registry import PARITY_SHAPES
+from repro_torch.core import mixing, topology
+from repro_torch.core.substrate import DenseSubstrate
+from repro_torch.kernels import gossip_mix as mix_module
+from repro_torch.kernels import ops
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
+
+
+def _stacked(n, shape, seed):
+    return np.random.default_rng(seed).normal(size=(n,) + shape).astype(
+        np.float32)
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("shape", PARITY_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_matches_reference_kernel_and_mix_dense(shape, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    topo = topology.ring(4)
+    nbr, w = mixing.gossip_table(topo)
+    x = _stacked(4, shape, seed=len(shape) * 1000 + int(np.prod(shape)))
+    xj = jnp.asarray(x).astype(jdt)
+    xt = torch.from_numpy(x).to(tdt)
+    got = ops.gossip_mix(xt.reshape(4, -1), torch.from_numpy(nbr),
+                         torch.from_numpy(w)).reshape(xt.shape)
+    for i in range(4):
+        want = jops.gossip_mix(xj[i], xj[nbr[i]], jnp.asarray(w[i]),
+                               interpret=True)
+        np.testing.assert_allclose(_f32(got[i]), _f32(want), rtol=tol,
+                                   atol=tol)
+    dense = jmixing.mix_dense({"x": xj}, jtopology.ring(4))["x"]
+    np.testing.assert_allclose(_f32(got), _f32(dense), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", ["ring10", "quasi", "full5", "ring2"])
+def test_substrate_mix_matches_reference_mix_dense(name):
+    """The kernel table reproduces mix_dense's out[i] = sum_j C[j,i] x[j];
+    non-circulant C (the paper's quasi-ring) runs mix_dense itself."""
+    make = {"ring10": lambda m: m.ring(10),
+            "quasi": lambda m: m.paper_quasi_ring(),
+            "full5": lambda m: m.fully_connected(5),
+            "ring2": lambda m: m.ring(2)}[name]
+    topo, jtopo = make(topology), make(jtopology)
+    n = topo.num_nodes
+    assert topo.is_shift_structured() == jtopo.is_shift_structured()
+    tree = {"a": _stacked(n, (3, 5, 7), seed=1), "b": _stacked(n, (64,), 2)}
+    got = DenseSubstrate(topo).mix(
+        {k: torch.from_numpy(v) for k, v in tree.items()})
+    want = jmixing.mix_dense({k: jnp.asarray(v) for k, v in tree.items()},
+                             jtopo)
+    for k in tree:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-6)
+    ours = mixing.mix_dense({k: torch.from_numpy(v) for k, v in tree.items()},
+                            topo)
+    for k in tree:
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_gossip_table_follows_shifts():
+    topo = topology.ring(10)
+    nbr, w = mixing.gossip_table(topo)
+    assert nbr.shape == (10, 2) and w.shape == (10, 3)
+    assert nbr.dtype == np.int32 and w.dtype == np.float32
+    c = topo.mixing
+    for i in range(10):
+        assert w[i, 0] == np.float32(c[i, i])
+        for k in range(2):
+            assert w[i, k + 1] == np.float32(c[nbr[i, k], i])
+    with pytest.raises(ValueError, match="not circulant"):
+        mixing.gossip_table(topology.paper_quasi_ring())
+    # C = I: circulant with no shifts, so the kernel runs with deg = 0
+    nbr, w = mixing.gossip_table(topology.disconnected(3))
+    assert nbr.shape == (3, 0) and np.all(w == 1.0)
+
+
+def test_plain_keeps_accumulation_order():
+    """The plain version is the kernel's arithmetic: separate f32 mul and
+    add in the order self, neighbour 0, neighbour 1 (the kernel avoids fma
+    so the two agree bitwise on the card)."""
+    x = torch.from_numpy(_stacked(3, (257,), seed=3))
+    nbr = torch.tensor([[1, 2], [2, 0], [0, 1]], dtype=torch.int32)
+    w = torch.tensor([[0.5, 0.25, 0.25], [0.2, 0.3, 0.5], [1 / 3] * 3],
+                     dtype=torch.float32)
+    got = mix_module.plain(x, nbr, w)
+    xs = x.numpy()
+    for i in range(3):
+        acc = w[i, 0].numpy() * xs[i]
+        for k in range(2):
+            acc = acc + w[i, k + 1].numpy() * xs[nbr[i, k]]
+        assert np.array_equal(got[i].numpy().view(np.uint32),
+                              acc.astype(np.float32).view(np.uint32))
+
+
+def test_masked_shift_weights_matches_reference():
+    shifts = jtopology.ring(6).shifts()
+    for masks in ([1, 1], [0, 1], [0, 0]):
+        jw = jmixing.masked_shift_weights(
+            shifts, 1 / 3, [jnp.asarray(m) for m in masks])
+        tw = mixing.masked_shift_weights(
+            shifts, 1 / 3, [torch.tensor(m) for m in masks])
+        assert np.float32(jw[0]) == tw[0].numpy()
+        for a, b in zip(jw[1], tw[1]):
+            assert np.float32(a) == b.numpy()
+
+
+def test_gossip_copies_per_step_matches_reference():
+    for make in (lambda m: m.ring(10), lambda m: m.paper_quasi_ring(),
+                 lambda m: m.fully_connected(4)):
+        for engine in ("sparse", "dense", "auto"):
+            assert mixing.gossip_copies_per_step(make(topology), engine) == \
+                jmixing.gossip_copies_per_step(make(jtopology), engine)
+
+
+def test_wrapper_rejects_bad_operands():
+    x = torch.zeros(4, 8)
+    nbr, w = (torch.from_numpy(a) for a in mixing.gossip_table(
+        topology.ring(4)))
+    with pytest.raises(TypeError, match="dtype"):
+        ops.gossip_mix(x.double(), nbr, w)
+    with pytest.raises(ValueError, match="nbr"):
+        ops.gossip_mix(x, nbr.long(), w)
+    with pytest.raises(ValueError, match="w must"):
+        ops.gossip_mix(x, nbr, w[:, :2].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.gossip_mix(torch.zeros(8, 4).t(), nbr, w)
+    with pytest.raises(ValueError, match=r"\[rows, cols\]"):
+        ops.gossip_mix(torch.zeros(4), nbr, w)
