@@ -21,7 +21,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    compressor call on the stacked leaves. The launch counts are set to 0
    before each and must rise by exactly what the round predicts. The first
    round of each run is repeated on the CPU (plain versions) and must
-   agree within the stated tolerance.
+   agree within the stated tolerance. Then one round of each split into
+   its local and gossip phases, and profiled for the device's busy time.
 4. Print the kernels line, the card's name and power limit, and the final
    ``{"ok": true, ...}`` line.
 
@@ -105,16 +106,26 @@ class Kernel:
     def __init__(self, name, source, replaces, has_library):
         self.name, self.source, self.replaces = name, source, replaces
         self.max_abs_err = 0.0
-        self.ms = self.plain_ms = self.bound_s = 0.0
+        self.ms = self.plain_ms = 0.0
+        self.bytes_s = self.ops_s = 0.0
         self.library_ms = 0.0 if has_library else None
         self.launches = 0
+
+    def add_bound(self, nbytes, nops):
+        """One launch's work: bytes moved at the memory rate and f32
+        operations at the peak rate; the launch takes at least the larger."""
+        self.bytes_s += nbytes / HBM_BYTES_PER_S
+        self.ops_s += nops / F32_OPS_PER_S
 
     def record(self):
         return {"name": self.name, "route": "cuda", "source": self.source,
                 "replaces": self.replaces, "launches": self.launches,
                 "max_abs_err": self.max_abs_err, "ms": self.ms,
-                "plain_ms": self.plain_ms, "bound_ms": self.bound_s * 1e3,
-                "bound_by": "bytes", "library_ms": self.library_ms}
+                "plain_ms": self.plain_ms,
+                "bound_ms": max(self.bytes_s, self.ops_s) * 1e3,
+                "bound_by": ("bytes" if self.bytes_s >= self.ops_s
+                             else "operations"),
+                "library_ms": self.library_ms}
 
 
 def check_kernels(K, gen):
@@ -198,15 +209,11 @@ def time_kernels(K, gen):
         t = topk.threshold_plain(gap, k)
         xa = x.abs()
         e = n * d
-        K["gossip_mix"].bound_s += max(
-            (8 * e + 4 * nbr.numel() + 4 * w.numel()) / HBM_BYTES_PER_S,
-            (2 * deg + 1) * e / F32_OPS_PER_S)
-        K["topk_threshold"].bound_s += max((4 * e + 4 * n) / HBM_BYTES_PER_S,
-                                           e / F32_OPS_PER_S)
-        K["topk_mask"].bound_s += max((8 * e + 4 * n) / HBM_BYTES_PER_S,
-                                      e / F32_OPS_PER_S)
-        K["choco_topk"].bound_s += max((24 * e + 4 * n) / HBM_BYTES_PER_S,
-                                       5 * e / F32_OPS_PER_S)
+        K["gossip_mix"].add_bound(8 * e + 4 * nbr.numel() + 4 * w.numel(),
+                                  (2 * deg + 1) * e)
+        K["topk_threshold"].add_bound(4 * e + 4 * n, e)
+        K["topk_mask"].add_bound(8 * e + 4 * n, e)
+        K["choco_topk"].add_bound(24 * e + 4 * n, 5 * e)
         row = {"leaf": name, "D": d}
         for kname, kern, plain, lib in (
                 ("gossip_mix", lambda: ops.gossip_mix(x, nbr, w),
@@ -222,9 +229,10 @@ def time_kernels(K, gen):
             kms, pms = device_ms(kern), device_ms(plain)
             K[kname].ms += kms
             K[kname].plain_ms += pms
-            row[kname] = kms
+            row[kname] = {"ms": kms, "plain_ms": pms}
             if lib is not None:
-                K[kname].library_ms += device_ms(lib)
+                row[kname]["library_ms"] = device_ms(lib)
+                K[kname].library_ms += row[kname]["library_ms"]
         per_leaf.append(row)
     for row in per_leaf:
         print("leaf ms " + json.dumps(row))
@@ -248,10 +256,10 @@ def run_main_path(K):
         "dfl": RunSpec(name="smoke-dfl", tau1=4, tau2=4, topology="ring",
                        flavor="cifar", nodes=10, rounds=RUN_ROUNDS, batch=16),
     }
+    leaves = init_cnn(torch.Generator().manual_seed(1), "cifar", "cuda")
     totals = dict.fromkeys(K, 0)
     for label, spec in runs.items():
-        n_leaves = 10
-        steps = spec.tau2 * spec.rounds * n_leaves
+        steps = spec.tau2 * spec.rounds * len(leaves)
         expect = {"gossip_mix": steps, "topk_threshold": 0, "topk_mask": 0,
                   "choco_topk": 0}
         if spec.compression:
@@ -291,16 +299,15 @@ def run_main_path(K):
               f"{CPU_CONSENSUS_RTOL})")
 
     # K5 on the main path: TopK on every node's slice of each stacked leaf
-    params = replicate(init_cnn(torch.Generator().manual_seed(1), "cifar",
-                                "cuda"), 10)
-    params = {k: v + 0.01 * torch.randn_like(v) for k, v in params.items()}
+    params = {k: v + 0.01 * torch.randn_like(v)
+              for k, v in replicate(leaves, 10).items()}
     comp = make_compressor("top_k", frac=0.67)
     ops.reset_launches()
     compressed = {k: comp.per_node(v) for k, v in params.items()}
     torch.cuda.synchronize()
     counts = dict(ops.LAUNCHES)
-    expect = {"gossip_mix": 0, "topk_threshold": 10, "topk_mask": 10,
-              "choco_topk": 0}
+    expect = {"gossip_mix": 0, "topk_threshold": len(leaves),
+              "topk_mask": len(leaves), "choco_topk": 0}
     require(counts == expect, f"top_k compressor: launches {counts}, "
             f"expected {expect}")
     for k, v in params.items():
@@ -315,6 +322,79 @@ def run_main_path(K):
     for key, n in totals.items():
         K[key].launches = n
         require(n > 0, f"{key} was never launched on the main path")
+
+
+def round_breakdown():
+    """Phase 3b: where a main-path round's time goes. After one warm round,
+    3 rounds split into the local phase and the gossip phase (host clock,
+    each phase ended by a device sync), then one round under
+    torch.profiler for the device's busy time and its largest kernels."""
+    from repro_torch.core import dfl
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.core.substrate import DenseSubstrate
+    from repro_torch.core.topology import ring
+    from repro_torch.data.images import image_batches_for_dfl
+    from repro_torch.launch.cnn_run import get_data
+    from repro_torch.models.cnn import cnn_loss, init_cnn
+    from repro_torch.optim import sgd
+    from torch.profiler import ProfilerActivity, profile
+
+    data = get_data("cifar")
+    parts = data.partition(10, seed=0)
+    opt = sgd(0.05)
+
+    def loss_fn(p, b):
+        return cnn_loss(p, b, "cifar")
+
+    for label, comp, gamma in (
+            ("cdfl_topk", make_compressor("top_k", frac=0.67), 0.6),
+            ("dfl", None, 1.0)):
+        cfg = dfl.DFLConfig(4, 4, ring(10), compression=comp, gamma=gamma)
+        sub = DenseSubstrate(cfg.topology)
+        state = dfl.init_state(init_cnn(torch.Generator().manual_seed(0),
+                                        "cifar", "cuda"), 10, opt,
+                               compressed=cfg.is_compressed)
+        params, opt_state, hat = (state.params, state.opt_state,
+                                  state.hat_params)
+        local, gossip = [], []
+        for r in range(5):
+            xs, ys = image_batches_for_dfl(data, parts, 4, 16, r)
+            batches = (torch.from_numpy(xs).cuda(),
+                       torch.from_numpy(ys).cuda())
+            prof = None
+            if r == 4:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, _ = dfl.local_phase(cfg, loss_fn, opt, sub,
+                                                   params, opt_state, batches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, hat = dfl.gossip_phase(cfg, sub, params, hat)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            elif r > 0:
+                local.append((t1 - t0) * 1e3)
+                gossip.append((t2 - t1) * 1e3)
+        # kernels only: an operator's self device time repeats its kernels'
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms_total = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:6]
+        round_ms = sum(local) / len(local) + sum(gossip) / len(gossip)
+        print("round breakdown " + json.dumps({
+            "run": label, "local_ms": local, "gossip_ms": gossip,
+            "round_ms_mean": round_ms,
+            "profiled_round_ms": (t2 - t0) * 1e3,
+            "device_busy_ms": device_ms_total,
+            "device_busy_share": device_ms_total / round_ms,
+            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                              for e in top}}))
 
 
 def main():
@@ -346,6 +426,7 @@ def main():
     check_kernels(K, gen)
     time_kernels(K, gen)
     run_main_path(K)
+    round_breakdown()
     card = card_line()
     print(json.dumps({"kernels": [k.record() for k in K.values()]}))
     print(card)

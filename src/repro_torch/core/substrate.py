@@ -22,7 +22,7 @@ from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.compression import Compressor, TopK
 from repro_torch.core.topology import Topology
 from repro_torch.kernels import ops
-from repro_torch.kernels.choco_fused import gap
+from repro_torch.kernels.choco_fused import gap, move
 
 Params = Dict[str, torch.Tensor]
 
@@ -60,9 +60,8 @@ class NodeSubstrate:
         (x_new, y_new). This is the unfused composition."""
         x_new, y_new = {}, {}
         for name in x:
-            a, b, my = x[name], y[name], mixed_y[name]
-            x_new[name] = (a.float() + gamma * (my.float() - b.float())
-                           ).to(a.dtype)
+            a, b = x[name], y[name]
+            x_new[name] = move(a, b, mixed_y[name], gamma).to(a.dtype)
             y_new[name] = b + comp.per_node(x_new[name] - b)
         return x_new, y_new
 

@@ -11,13 +11,14 @@
 // bit for bit, and no value is ever moved or sorted.
 //
 // Bound: bytes, one read of the row per pass (the data sheet bound counts
-// one). One block per row walks its row with 1024 threads; each pass
-// histograms the digit of the keys that still match the prefix into
-// per-warp shared-memory histograms (lanes with the same digit are first
-// merged with __match_any_sync, so a skewed exponent byte costs one atomic
-// per warp and digit), then one thread scans the 256 bins from the top and
-// fixes the next digit. Later passes reread the row from L2. With N = 10
-// rows only 10 SMs work: the simple first version, measured in PERF.md.
+// one). One block per row walks its row with 1024 threads, each issuing
+// kUnroll loads before counting any; each pass histograms the digit of the
+// keys that still match the prefix into per-warp shared-memory histograms
+// (lanes with the same digit are first merged with __match_any_sync, so a
+// skewed exponent byte costs one atomic per warp and digit), then a
+// 256-wide suffix scan finds the bin holding the wanted rank and fixes the
+// next digit. Later passes reread the row from L2. With N = 10 rows only
+// 10 SMs work: a simple first version, measured in PERF.md.
 //
 // K5 replaces src/repro/kernels/topk.py:topk_mask_2d (_mask_kernel):
 // out = |x| >= t[row] ? x : 0 in the input dtype. Bound: bytes (one read,
@@ -38,6 +39,7 @@ template <> struct Key<__nv_bfloat16> {
 
 constexpr int kSelectThreads = 1024;
 constexpr int kWarps = kSelectThreads / 32;
+constexpr int kUnroll = 8;  // keys loaded per thread before any is counted
 constexpr unsigned kNoBin = 256;
 
 template <typename T>
@@ -45,47 +47,64 @@ __global__ void __launch_bounds__(kSelectThreads)
 topk_threshold_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t cols, int64_t k) {
   using U = typename Key<T>::U;
   __shared__ unsigned int hist[kWarps][256];
+  __shared__ unsigned int at_or_above[256];
   __shared__ uint32_t s_prefix;
   __shared__ int64_t s_k;
   const U* keys = reinterpret_cast<const U*>(x) + (int64_t)blockIdx.x * cols;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int64_t stride = blockDim.x;
   uint32_t prefix = 0, mask = 0;
   int64_t remaining = k;  // rank of the wanted key among those matching the prefix
   for (int pass = Key<T>::kPasses - 1; pass >= 0; --pass) {
     const int shift = pass * 8;
     for (int b = threadIdx.x; b < kWarps * 256; b += blockDim.x) (&hist[0][0])[b] = 0;
     __syncthreads();
-    // base is uniform across the warp, so every lane runs the same trips
-    // and the full-mask __match_any_sync is safe.
-    for (int64_t base = 0; base < cols; base += blockDim.x) {
-      const int64_t i = base + threadIdx.x;
-      unsigned bin = kNoBin;
-      if (i < cols) {
-        const uint32_t key = keys[i] & Key<T>::kAbs;
-        if ((key & mask) == prefix) bin = (key >> shift) & 0xffu;
+    // base is uniform across the block, so every lane of a warp runs the
+    // same trips and the full-mask __match_any_sync is safe. All kUnroll
+    // loads are issued before the first is counted, to keep more bytes in
+    // flight from one SM.
+    for (int64_t base = 0; base < cols; base += kUnroll * stride) {
+      uint32_t key[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t i = base + u * stride + threadIdx.x;
+        key[u] = i < cols ? (uint32_t)(keys[i] & Key<T>::kAbs) : 0u;
       }
-      const unsigned peers = __match_any_sync(0xffffffffu, bin);
-      if (bin != kNoBin && lane == __ffs(peers) - 1) {
-        atomicAdd(&hist[warp][bin], (unsigned)__popc(peers));
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t i = base + u * stride + threadIdx.x;
+        const bool counted = i < cols && (key[u] & mask) == prefix;
+        const unsigned bin = counted ? (key[u] >> shift) & 0xffu : kNoBin;
+        const unsigned peers = __match_any_sync(0xffffffffu, bin);
+        if (counted && lane == __ffs(peers) - 1) {
+          atomicAdd(&hist[warp][bin], (unsigned)__popc(peers));
+        }
       }
     }
     __syncthreads();
-    for (int b = threadIdx.x; b < 256; b += blockDim.x) {
-      unsigned s = 0;
-      for (int w = 0; w < kWarps; ++w) s += hist[w][b];
-      hist[0][b] = s;
+    // per-digit totals, then suffix sums: at_or_above[b] counts the
+    // matching keys whose digit is >= b
+    unsigned total = 0;
+    if (threadIdx.x < 256) {
+      for (int w = 0; w < kWarps; ++w) total += hist[w][threadIdx.x];
+      at_or_above[threadIdx.x] = total;
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      int64_t above = 0;
-      int digit = 255;
-      for (; digit > 0; --digit) {
-        if (above + hist[0][digit] >= remaining) break;
-        above += hist[0][digit];
+    for (int offset = 1; offset < 256; offset <<= 1) {
+      const unsigned add = threadIdx.x + offset < 256 ? at_or_above[threadIdx.x + offset] : 0u;
+      __syncthreads();
+      if (threadIdx.x < 256) at_or_above[threadIdx.x] += add;
+      __syncthreads();
+    }
+    // exactly one digit holds the wanted rank
+    if (threadIdx.x < 256) {
+      const int64_t upto = at_or_above[threadIdx.x];
+      const int64_t above = upto - total;
+      if (above < remaining && remaining <= upto) {
+        s_prefix = prefix | ((uint32_t)threadIdx.x << shift);
+        s_k = remaining - above;
       }
-      s_prefix = prefix | ((uint32_t)digit << shift);
-      s_k = remaining - above;
     }
     __syncthreads();
     prefix = s_prefix;

@@ -134,6 +134,12 @@ def test_make_compressor_names():
             compression.make_compressor(name)
     with pytest.raises(ValueError, match="unknown compressor"):
         compression.make_compressor("nope")
+    x = np.random.default_rng(2).normal(size=(5, 5, 3, 4)).astype(np.float32)
+    got = compression.compress_tree(compression.make_compressor(
+        "top_k", frac=0.3), {"a": torch.from_numpy(x)})
+    want = jcompression.compress_tree(jcompression.make_compressor(
+        "top_k", frac=0.3), {"a": jnp.asarray(x)}, None)
+    assert np.array_equal(_bits(got["a"]), _bits(want["a"]))
     tree = {"a": np.zeros((5, 5, 3, 64)), "b": np.zeros(10)}
     for name, kw in (("identity", {}), ("top_k", {"frac": 0.67})):
         assert compression.tree_wire_bits(
