@@ -6,14 +6,17 @@ compression applied; wire savings are accounted through ``bits_per_value``.
 ``per_node`` applies Q to every node's slice of a stacked ``[N, ...]`` leaf,
 the batch dimension that the reference writes as ``vmap``.
 
-This slice ports ``Identity`` and ``TopK``; TopK's threshold select and mask
-run the K4 and K5 kernels on CUDA tensors (``repro_torch.kernels.ops``).
-QSGD, RandK and RandomizedGossip need the RNG seam and come next (ROADMAP).
+All five of the reference's operators are ported: ``Identity``, ``TopK``,
+``QSGD``, ``RandK`` and ``RandomizedGossip``. The random ones take their
+uniform draws as a tensor (``draw_shape`` says which), which the round
+gets from the RNG seam (``repro_torch.core.rng``). On CUDA tensors TopK's
+threshold select and mask run K4 and K5, QSGD runs K6 and RandK's
+threshold over its scores runs K4 (``repro_torch.kernels.ops``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +27,9 @@ __all__ = [
     "Compressor",
     "Identity",
     "TopK",
+    "RandK",
+    "QSGD",
+    "RandomizedGossip",
     "make_compressor",
     "compress_tree",
     "tree_wire_bits",
@@ -44,13 +50,34 @@ class Compressor:
         """Average wire bits per original coordinate (fp32 baseline = 32)."""
         return 32.0
 
+    def draw_shape(self, d: int) -> Optional[Tuple[int, ...]]:
+        """Shape of the uniform draws Q needs per node for a d-vector, or
+        None when Q draws nothing."""
+        return None
+
+    def draw(self, draws, round_idx: int, step: int, leaf: str,
+             d: int) -> Optional[torch.Tensor]:
+        """This operator's draws ``[N, *draw_shape(d)]`` for one leaf from
+        the seam ``draws`` (``repro_torch.core.rng``), or None."""
+        shape = self.draw_shape(d)
+        if shape is None:
+            return None
+        if draws is None:
+            raise ValueError(f"compressor {self.name!r} draws random numbers; "
+                             "pass the round's draws (DFLState.draws)")
+        return draws.uniform(round_idx, step, leaf, shape)
+
     def __call__(self, x: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return x
+                 draws: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Q on one vector x (any shape), with draws of ``draw_shape``."""
+        if draws is not None:
+            draws = draws.reshape((1,) + self.draw_shape(x.numel()))
+        return self.per_node(x.reshape(1, -1), draws).reshape(x.shape)
 
     def per_node(self, x: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Q applied to each node's slice x[i] of a stacked leaf."""
+                 draws: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Q applied to each node's slice x[i] of a stacked leaf, with
+        ``draws`` ``[N, *draw_shape(x[i].numel())]``."""
         return x
 
 
@@ -79,25 +106,121 @@ class TopK(Compressor):
         k = self._k(d)
         return (32.0 + np.ceil(np.log2(max(d, 2)))) * k / d
 
-    def __call__(self, x, generator=None):
-        return self.per_node(x.reshape(1, -1)).reshape(x.shape)
-
-    def per_node(self, x, generator=None):
+    def per_node(self, x, draws=None):
         rows = x.reshape(x.shape[0], -1)
         thresh = ops.topk_threshold(rows, self._k(rows.shape[1]))
         return ops.topk_mask(rows, thresh).reshape(x.shape)
 
 
-_REGISTRY = {"identity": Identity, "top_k": TopK}
-_NEXT_SLICE = ("qsgd", "rand_k", "rand_gossip")
+def _rows_draws(comp: Compressor, rows: torch.Tensor,
+                draws: Optional[torch.Tensor]) -> torch.Tensor:
+    want = (rows.shape[0],) + comp.draw_shape(rows.shape[1])
+    if draws is None or tuple(draws.shape) != want:
+        got = None if draws is None else tuple(draws.shape)
+        raise ValueError(f"compressor {comp.name!r} needs uniform draws of "
+                         f"shape {want}, got {got}")
+    return draws
+
+
+@dataclasses.dataclass(frozen=True)
+class RandK(Compressor):
+    """Keep k = ceil(frac*d) coordinates chosen by uniform scores: those
+    whose score is at least the k-th largest (K4 on the f32 scores, ties
+    inclusive), as the reference's ``lax.top_k`` threshold. The shared
+    seed means only values travel."""
+
+    name: str = "rand_k"
+    frac: float = 0.5
+
+    def _k(self, d: int) -> int:
+        return max(1, int(np.ceil(self.frac * d)))
+
+    def delta(self, d: int) -> float:
+        return self._k(d) / d
+
+    def bits_per_value(self, d: int) -> float:
+        return 32.0 * self._k(d) / d
+
+    def draw_shape(self, d):
+        return (d,)
+
+    def per_node(self, x, draws=None):
+        rows = x.reshape(x.shape[0], -1)
+        scores = _rows_draws(self, rows, draws)
+        thresh = ops.topk_threshold(scores, self._k(rows.shape[1]))
+        kept = torch.where(scores >= thresh[:, None], rows,
+                           torch.zeros_like(rows))
+        return kept.reshape(x.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class QSGD(Compressor):
+    """Random quantization qsgd_s (paper Sec. V-A), rescaled by 1/c so that
+    Assumption 2 holds with delta = 1/c, c = 1 + min(d/s^2, sqrt(d)/s):
+    the f32 norm of each node's slice, then K6."""
+
+    name: str = "qsgd"
+    levels: int = 16  # s
+
+    def _c(self, d: int) -> float:
+        s = float(self.levels)
+        return 1.0 + min(d / (s * s), np.sqrt(d) / s)
+
+    def delta(self, d: int) -> float:
+        return 1.0 / self._c(d)
+
+    def bits_per_value(self, d: int) -> float:
+        # sign + level index per coordinate + one fp32 norm per vector.
+        return 1.0 + np.ceil(np.log2(self.levels + 1)) + 32.0 / d
+
+    def draw_shape(self, d):
+        return (d,)
+
+    def per_node(self, x, draws=None):
+        rows = x.reshape(x.shape[0], -1)
+        noise = _rows_draws(self, rows, draws)
+        norm = torch.linalg.vector_norm(rows.float(), dim=1)
+        return ops.qsgd_quantize(rows, noise, norm, self.levels,
+                                 self._c(rows.shape[1])).reshape(x.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomizedGossip(Compressor):
+    """Q(x) = x with probability p else 0, per node and leaf: one uniform u
+    each, kept where u < p (the reference's ``bernoulli(key, p)`` is
+    ``uniform(key, ()) < p`` in f32); delta = p."""
+
+    name: str = "rand_gossip"
+    p: float = 0.8
+
+    def delta(self, d: int) -> float:
+        return self.p
+
+    def bits_per_value(self, d: int) -> float:
+        return 32.0 * self.p
+
+    def draw_shape(self, d):
+        return ()
+
+    def per_node(self, x, draws=None):
+        u = _rows_draws(self, x.reshape(x.shape[0], -1), draws)
+        keep = u < float(np.float32(self.p))
+        return torch.where(keep.reshape((-1,) + (1,) * (x.dim() - 1)), x,
+                           torch.zeros_like(x))
+
+
+_REGISTRY = {
+    "identity": Identity,
+    "top_k": TopK,
+    "rand_k": RandK,
+    "qsgd": QSGD,
+    "rand_gossip": RandomizedGossip,
+}
 
 
 def make_compressor(name: str, **kwargs) -> Compressor:
-    """Build a compressor by name: "identity" or "top_k" (``frac``)."""
-    if name in _NEXT_SLICE:
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported yet: it needs the RNG seam "
-            "(ROADMAP.md, modules to port)")
+    """Build a compressor by name: "identity", "top_k" (``frac``),
+    "rand_k" (``frac``), "qsgd" (``levels``), "rand_gossip" (``p``)."""
     try:
         return _REGISTRY[name](**kwargs)
     except KeyError:
@@ -107,10 +230,11 @@ def make_compressor(name: str, **kwargs) -> Compressor:
 
 
 def compress_tree(comp: Compressor, tree: Dict[str, torch.Tensor],
-                  generator: Optional[torch.Generator] = None
+                  draws: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Dict[str, torch.Tensor]:
-    """Apply Q leaf-wise to one node's parameters."""
-    return {name: comp(leaf, generator) for name, leaf in tree.items()}
+    """Apply Q leaf-wise to one node's parameters, with each leaf's draws."""
+    return {name: comp(leaf, None if draws is None else draws[name])
+            for name, leaf in tree.items()}
 
 
 def tree_wire_bits(comp: Compressor, tree) -> float:

@@ -16,6 +16,9 @@ Parameters are ``dict[str, Tensor]`` with every leaf stacked ``[N, ...]``,
 as the reference pytree. Per-node gradients are ``torch.func.vmap`` of
 ``torch.func.grad_and_value`` over the loss. The gossip hooks
 (``DenseSubstrate.mix`` / ``choco_step``) run the CUDA kernels on the card.
+The random compressors draw from the state's RNG seam (``DFLState.draws``,
+``repro_torch.core.rng``) by (round, gossip step, leaf), where the
+reference folds its keys by round, step and node.
 
 Ported from ``repro.core.dfl`` with static taus on the dense engine. The
 executor's dynamic taus, participation masks, ``dense_power`` mixing,
@@ -32,6 +35,7 @@ from torch.func import grad_and_value, vmap
 
 from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.compression import Compressor, Identity, tree_wire_bits
+from repro_torch.core.rng import Draws, GeneratorDraws
 from repro_torch.core.substrate import DenseSubstrate, NodeSubstrate
 from repro_torch.core.topology import Topology
 from repro_torch.optim import Optimizer
@@ -98,6 +102,7 @@ class DFLState(NamedTuple):
     opt_state: Params            # optimizer slots per node
     hat_params: Optional[Params]  # CHOCO shared estimates Y (None for DFL)
     round_idx: int
+    draws: Optional[Draws] = None  # the RNG seam of the random compressors
 
 
 def replicate(params: Params, n: int) -> Params:
@@ -113,14 +118,20 @@ def average_model(params: Params) -> Params:
 
 
 def init_state(params: Params, n: int, opt: Optimizer, stacked: bool = False,
-               compressed: bool = False) -> DFLState:
+               compressed: bool = False, seed: int = 0,
+               draws: Optional[Draws] = None) -> DFLState:
     """Stacked state from one model's params (or pre-stacked ones);
-    ``compressed`` allocates the CHOCO estimates Y = 0 (Alg. 2 l.1)."""
+    ``compressed`` allocates the CHOCO estimates Y = 0 (Alg. 2 l.1).
+    ``draws`` is the RNG seam; by default a ``GeneratorDraws`` from
+    ``seed`` on the parameters' device."""
     stacked_params = params if stacked else replicate(params, n)
     hat = ({name: torch.zeros_like(x) for name, x in stacked_params.items()}
            if compressed else None)
+    if draws is None:
+        device = next(iter(stacked_params.values())).device
+        draws = GeneratorDraws(seed, n, stacked_params.keys(), device)
     return DFLState(params=stacked_params, opt_state=opt.init(stacked_params),
-                    hat_params=hat, round_idx=0)
+                    hat_params=hat, round_idx=0, draws=draws)
 
 
 def local_phase(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
@@ -142,29 +153,33 @@ def local_phase(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
 
 
 def gossip_phase(cfg: DFLConfig, sub: NodeSubstrate, params: Params,
-                 hat: Optional[Params]) -> Tuple[Params, Optional[Params]]:
+                 hat: Optional[Params], draws: Optional[Draws] = None,
+                 round_idx: int = 0) -> Tuple[Params, Optional[Params]]:
     """tau2 gossip steps (Alg. 1 l.6), or tau2 CHOCO-G iterations over
-    (params, hat) under C-DFL (Alg. 2 l.6-11). Returns (params', hat')."""
+    (params, hat) under C-DFL (Alg. 2 l.6-11), step t drawing from
+    ``draws`` at (round_idx, t). Returns (params', hat')."""
     if not cfg.is_compressed:
         for _ in range(cfg.tau2):
             params = sub.mix(params)
         return params, hat
     if hat is None:
         raise ValueError("C-DFL needs init_state(..., compressed=True)")
-    for _ in range(cfg.tau2):
+    for t in range(cfg.tau2):
         params, hat = sub.choco_step(cfg.compression, params, hat,
-                                     sub.mix(hat), cfg.gamma)
+                                     sub.mix(hat), cfg.gamma, draws,
+                                     round_idx, t)
     return params, hat
 
 
 def round_body(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
                sub: NodeSubstrate, params: Params, opt_state: Params,
-               hat: Optional[Params], batches: Batch):
+               hat: Optional[Params], batches: Batch,
+               draws: Optional[Draws] = None, round_idx: int = 0):
     """One DFL / C-DFL round: (params', opt_state', hat', metrics) with
     metrics ``loss`` (mean local loss) and ``consensus_sq``."""
     params, opt_state, mean_loss = local_phase(cfg, loss_fn, opt, sub, params,
                                                opt_state, batches)
-    params, hat = gossip_phase(cfg, sub, params, hat)
+    params, hat = gossip_phase(cfg, sub, params, hat, draws, round_idx)
     metrics = {"loss": mean_loss, "consensus_sq": sub.consensus_sq(params)}
     return params, opt_state, hat, metrics
 
@@ -187,8 +202,9 @@ def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
     def round_fn(state: DFLState, batches: Batch):
         params, opt_state, hat, metrics = round_body(
             cfg, loss_fn, opt, sub, state.params, state.opt_state,
-            state.hat_params, batches)
-        return DFLState(params, opt_state, hat, state.round_idx + 1), metrics
+            state.hat_params, batches, state.draws, state.round_idx)
+        return DFLState(params, opt_state, hat, state.round_idx + 1,
+                        state.draws), metrics
 
     return round_fn
 

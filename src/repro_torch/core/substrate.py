@@ -7,10 +7,13 @@ kernels:
 
   * ``mix``        — one gossip step X <- X C: the gossip kernel (K1) when
                      C is circulant, else the dense product ``mix_dense``.
-  * ``choco_step`` — one CHOCO-G iteration after the mix: for TopK the gap
-                     in the leaf dtype, its per-node threshold (K4) and the
-                     fused move-and-update (K3); for other compressors the
-                     unfused composition.
+  * ``choco_step`` — one CHOCO-G iteration after the mix, per leaf:
+                     TopK: the gap in the leaf dtype, its per-node
+                     threshold (K4) and the fused move-and-update (K3);
+                     QSGD: the gap's per-node f32 norm, the noise from the
+                     RNG seam and the fused move-and-quantize (K2);
+                     any other compressor: the move (K7), Q on the gap
+                     with its draws from the seam, and ``y + q``.
 """
 from __future__ import annotations
 
@@ -19,10 +22,10 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core import mixing as mixing_lib
-from repro_torch.core.compression import Compressor, TopK
+from repro_torch.core.compression import QSGD, Compressor, TopK
 from repro_torch.core.topology import Topology
 from repro_torch.kernels import ops
-from repro_torch.kernels.choco_fused import gap, move
+from repro_torch.kernels.choco_fused import gap
 
 Params = Dict[str, torch.Tensor]
 
@@ -54,15 +57,23 @@ class NodeSubstrate:
         raise NotImplementedError
 
     def choco_step(self, comp: Compressor, x: Params, y: Params,
-                   mixed_y: Params, gamma: float) -> Tuple[Params, Params]:
+                   mixed_y: Params, gamma: float, draws=None,
+                   round_idx: int = 0, step: int = 0
+                   ) -> Tuple[Params, Params]:
         """Consensus move x += gamma (C y - y), compress the gap per node,
         update the estimates y += Q(x_new - y) (Alg. 2 l.6-7, 11); returns
-        (x_new, y_new). This is the unfused composition."""
+        (x_new, y_new). The unfused composition: the move and the gap in
+        one pass (K7), then Q with its draws for gossip step ``step`` of
+        round ``round_idx`` from the seam ``draws``, then the add."""
+        n = self.num_nodes
         x_new, y_new = {}, {}
         for name in x:
-            a, b = x[name], y[name]
-            x_new[name] = move(a, b, mixed_y[name], gamma).to(a.dtype)
-            y_new[name] = b + comp.per_node(x_new[name] - b)
+            shape = x[name].shape
+            a, b, my = (t[name].reshape(n, -1) for t in (x, y, mixed_y))
+            xn, d = ops.choco_move(a, b, my, gamma)
+            u = comp.draw(draws, round_idx, step, name, d.shape[1])
+            x_new[name] = xn.reshape(shape)
+            y_new[name] = (b + comp.per_node(d, u)).reshape(shape)
         return x_new, y_new
 
     def consensus_sq(self, params: Params) -> torch.Tensor:
@@ -112,18 +123,28 @@ class DenseSubstrate(NodeSubstrate):
     def mean_tree(self, tree):
         return {name: x.float().mean(dim=0) for name, x in tree.items()}
 
-    def choco_step(self, comp, x, y, mixed_y, gamma):
-        """TopK runs fused: d = gap in the leaf dtype, t = K4(d), then K3
-        emits (x_new, y_new) in one pass per leaf. Others: unfused."""
-        if not isinstance(comp, TopK):
-            return super().choco_step(comp, x, y, mixed_y, gamma)
+    def choco_step(self, comp, x, y, mixed_y, gamma, draws=None,
+                   round_idx=0, step=0):
+        """TopK and QSGD run fused, one pass per leaf emitting (x_new,
+        y_new): the gap d in the leaf dtype, then K4's threshold and K3, or
+        d's per-node f32 norm and K2 (which recomputes d bitwise). Other
+        compressors: the unfused composition."""
+        if not isinstance(comp, (TopK, QSGD)):
+            return super().choco_step(comp, x, y, mixed_y, gamma, draws,
+                                      round_idx, step)
         n = self.num_nodes
         x_new, y_new = {}, {}
         for name in x:
             shape = x[name].shape
             a, b, my = (t[name].reshape(n, -1) for t in (x, y, mixed_y))
             d = gap(a, b, my, gamma)
-            thresh = ops.topk_threshold(d, comp._k(d.shape[1]))
-            xn, yn = ops.choco_topk(a, b, my, d, thresh, gamma)
+            if isinstance(comp, TopK):
+                thresh = ops.topk_threshold(d, comp._k(d.shape[1]))
+                xn, yn = ops.choco_topk(a, b, my, d, thresh, gamma)
+            else:
+                norm = torch.linalg.vector_norm(d.float(), dim=1)
+                noise = comp.draw(draws, round_idx, step, name, d.shape[1])
+                xn, yn = ops.choco_qsgd(a, b, my, noise, norm, gamma,
+                                        comp.levels, comp._c(d.shape[1]))
             x_new[name], y_new[name] = xn.reshape(shape), yn.reshape(shape)
         return x_new, y_new

@@ -1,13 +1,18 @@
-"""K3 choco_topk: ``csrc/choco_fused.cu`` and its plain PyTorch version.
+"""K2 choco_qsgd and K3 choco_topk: ``csrc/choco_fused.cu`` and their
+plain PyTorch versions, the fused CHOCO-G steps.
 
-Replaces ``repro/kernels/choco_fused.py:choco_topk_2d``. Over stacked
+K3 replaces ``repro/kernels/choco_fused.py:choco_topk_2d``. Over stacked
 ``[N, D]`` leaves, with the gap ``d`` (materialised in the leaf dtype) and
 its per-row TopK threshold ``t`` from K4::
 
     x_new = (x + gamma (my - y)) in f32, cast to the leaf dtype
     y_new = y + where(|d| >= t[row], d, 0) in the leaf dtype
 
-Callers go through ``repro_torch.kernels.ops.choco_topk``.
+K2 replaces ``choco_qsgd_2d``: the same ``x_new``, and ``y_new = y + q``
+with ``q`` the QSGD of the gap (``qsgd.plain``), given each row's f32 norm
+of the gap and f32 uniform noise. K2 recomputes the gap itself.
+
+Callers go through ``repro_torch.kernels.ops.choco_topk`` / ``choco_qsgd``.
 """
 from __future__ import annotations
 
@@ -15,11 +20,14 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, qsgd
 
 _ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_float, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_int64,
                                   ctypes.c_int64, ctypes.c_void_p)
+_QSGD_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_float,) * 3 + (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+    ctypes.c_void_p)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -32,8 +40,8 @@ def move(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,
 def gap(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,
         gamma: float) -> torch.Tensor:
     """The compressed gap (x + gamma (my - y)) - y, computed in f32 and
-    materialised in the leaf dtype: the tensor K4 thresholds and K3 masks
-    (the reference's ``ops._fused_diff``)."""
+    materialised in the leaf dtype: the tensor K4 thresholds and K3 masks,
+    and whose norm K2 takes (the reference's ``ops._fused_diff``)."""
     return (move(x, y, my, gamma) - y.float()).to(x.dtype)
 
 
@@ -51,4 +59,23 @@ def launch(x, y, my, d, thresh, gamma: float, x_out, y_out) -> None:
     err = fn(x.data_ptr(), y.data_ptr(), my.data_ptr(), d.data_ptr(),
              thresh.data_ptr(), gamma, x_out.data_ptr(), y_out.data_ptr(),
              rows, cols, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check("choco_fused", symbol, err)
+
+
+def qsgd_plain(x, y, my, noise, norm, gamma: float, levels: float, sc: float):
+    """K2's arithmetic in PyTorch; returns (x_new, y_new)."""
+    m = move(x, y, my, gamma)
+    d = (m - y.float()).to(x.dtype)
+    return m.to(x.dtype), y + qsgd.plain(d, noise, norm, levels, sc)
+
+
+def launch_qsgd(x, y, my, noise, norm, gamma: float, levels: float,
+                sc: float, x_out, y_out) -> None:
+    symbol = f"choco_qsgd_{_SUFFIX[x.dtype]}"
+    fn = build.kernel("choco_fused", symbol, _QSGD_ARGS)
+    rows, cols = x.shape
+    err = fn(x.data_ptr(), y.data_ptr(), my.data_ptr(), noise.data_ptr(),
+             norm.data_ptr(), gamma, levels, sc, x_out.data_ptr(),
+             y_out.data_ptr(), rows, cols,
+             torch.cuda.current_stream(x.device).cuda_stream)
     build.check("choco_fused", symbol, err)

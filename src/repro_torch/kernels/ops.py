@@ -13,11 +13,17 @@ main path went through the kernels::
     ... drive the path ...
     assert LAUNCHES["gossip_mix"] == expected
 
-Entry points (all on 2-D ``[rows, cols]`` views of stacked leaves):
+Entry points (all on 2-D ``[rows, cols]`` views of stacked leaves), one
+for each of the reference's seven Pallas kernels:
   * ``gossip_mix(x, nbr, w)``              K1, one circulant gossip step.
+  * ``choco_qsgd(x, y, my, noise, norm, gamma, levels, c)``
+                                           K2, fused CHOCO-QSGD step.
+  * ``choco_topk(x, y, my, d, t, gamma)``  K3, fused CHOCO-TopK step.
   * ``topk_threshold(x, k)``               K4, per-row k-th largest |x|.
   * ``topk_mask(x, thresh)``               K5, per-row keep-or-zero.
-  * ``choco_topk(x, y, my, d, t, gamma)``  K3, fused CHOCO-TopK step.
+  * ``qsgd_quantize(x, noise, norm, levels, c)``
+                                           K6, per-row QSGD.
+  * ``choco_move(x, y, my, gamma)``        K7, CHOCO move, (x_new, gap).
 """
 from __future__ import annotations
 
@@ -26,12 +32,16 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import choco_fused as _choco
+from repro_torch.kernels import choco_update as _move
 from repro_torch.kernels import gossip_mix as _mix
+from repro_torch.kernels import qsgd as _qsgd
 from repro_torch.kernels import topk as _topk
 
 DTYPES = (torch.float32, torch.bfloat16)
-LAUNCHES: Dict[str, int] = {"gossip_mix": 0, "topk_threshold": 0,
-                            "topk_mask": 0, "choco_topk": 0}
+LAUNCHES: Dict[str, int] = {"gossip_mix": 0, "choco_qsgd": 0,
+                            "choco_topk": 0, "topk_threshold": 0,
+                            "topk_mask": 0, "qsgd_quantize": 0,
+                            "choco_move": 0}
 
 
 def reset_launches() -> None:
@@ -71,6 +81,20 @@ def _check_rows(op: str, name: str, t: torch.Tensor, rows: int, dtype) -> None:
     if t.dtype != dtype or tuple(t.shape) != (rows,) or not t.is_contiguous():
         raise ValueError(f"{op}: {name} must be a contiguous [{rows}] {dtype} "
                          f"tensor, got {tuple(t.shape)} {t.dtype}")
+
+
+def _check_like(op: str, x: torch.Tensor, **tensors: torch.Tensor) -> None:
+    """Each of ``tensors`` is a leaf of x's shape and dtype."""
+    for name, t in tensors.items():
+        _check_leaf(op, name, t, x.shape)
+        if t.dtype != x.dtype:
+            raise TypeError(f"{op}: {name} is {t.dtype}, x is {x.dtype}")
+
+
+def _check_noise(op: str, noise: torch.Tensor, shape) -> None:
+    if noise.dtype != torch.float32:
+        raise TypeError(f"{op}: noise must be float32, got {noise.dtype}")
+    _check_leaf(op, "noise", noise, shape)
 
 
 def gossip_mix(x: torch.Tensor, nbr: torch.Tensor,
@@ -141,10 +165,7 @@ def choco_topk(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,
     op = "choco_topk"
     on_card = _on_card(op, x, y, my, d, thresh)
     _check_leaf(op, "x", x)
-    for name, t in (("y", y), ("my", my), ("d", d)):
-        _check_leaf(op, name, t, x.shape)
-        if t.dtype != x.dtype:
-            raise TypeError(f"{op}: {name} is {t.dtype}, x is {x.dtype}")
+    _check_like(op, x, y=y, my=my, d=d)
     _check_rows(op, "thresh", thresh, x.shape[0], x.dtype)
     if not on_card:
         return _choco.plain(x, y, my, d, thresh, gamma)
@@ -154,3 +175,66 @@ def choco_topk(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,
         _choco.launch(x, y, my, d, thresh, float(gamma), x_out, y_out)
     LAUNCHES[op] += 1
     return x_out, y_out
+
+
+def qsgd_quantize(x: torch.Tensor, noise: torch.Tensor, norm: torch.Tensor,
+                  levels: int, c: float) -> torch.Tensor:
+    """K6: per row, ``sign(x) norm floor(s |x| / norm + noise) / (s c)`` in
+    f32 (0 where ``norm[row]`` is not > 0), cast to x's dtype. ``noise``
+    float32 of x's shape, ``norm`` [rows] float32, ``s = levels``."""
+    op = "qsgd_quantize"
+    on_card = _on_card(op, x, noise, norm)
+    _check_leaf(op, "x", x)
+    _check_noise(op, noise, x.shape)
+    _check_rows(op, "norm", norm, x.shape[0], torch.float32)
+    sc = _qsgd.scale(levels, c)
+    if not on_card:
+        return _qsgd.plain(x, noise, norm, levels, sc)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _qsgd.launch(x, noise, norm, float(levels), sc, out)
+    LAUNCHES[op] += 1
+    return out
+
+
+def choco_qsgd(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,
+               noise: torch.Tensor, norm: torch.Tensor, gamma: float,
+               levels: int, c: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: ``x_new = x + gamma (my - y)`` (f32, cast to the leaf dtype) and
+    ``y_new = y + q``, ``q`` the QSGD (as K6) of the gap ``x_new - y`` in
+    the leaf dtype, with ``norm`` [rows] float32 the gap's row norms and
+    ``noise`` float32 of x's shape; returns both."""
+    op = "choco_qsgd"
+    on_card = _on_card(op, x, y, my, noise, norm)
+    _check_leaf(op, "x", x)
+    _check_like(op, x, y=y, my=my)
+    _check_noise(op, noise, x.shape)
+    _check_rows(op, "norm", norm, x.shape[0], torch.float32)
+    sc = _qsgd.scale(levels, c)
+    if not on_card:
+        return _choco.qsgd_plain(x, y, my, noise, norm, gamma, levels, sc)
+    x_out = torch.empty_like(x)
+    y_out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _choco.launch_qsgd(x, y, my, noise, norm, float(gamma), float(levels),
+                           sc, x_out, y_out)
+    LAUNCHES[op] += 1
+    return x_out, y_out
+
+
+def choco_move(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,
+               gamma: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: ``x_new = x + gamma (my - y)`` in f32 and ``d = x_new - y`` from
+    the f32 ``x_new``, both cast to the leaf dtype; returns (x_new, d)."""
+    op = "choco_move"
+    on_card = _on_card(op, x, y, my)
+    _check_leaf(op, "x", x)
+    _check_like(op, x, y=y, my=my)
+    if not on_card:
+        return _move.plain(x, y, my, gamma)
+    x_out = torch.empty_like(x)
+    d_out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _move.launch(x, y, my, float(gamma), x_out, d_out)
+    LAUNCHES[op] += 1
+    return x_out, d_out

@@ -7,6 +7,10 @@ the same history keys. Run it as::
     python -m repro_torch.launch.cnn_run --flavor cifar --compression top_k \\
         --frac 0.67 --gamma 0.6 --rounds 10
 
+``--compression`` is one of top_k and rand_k (``--frac``), qsgd
+(``--levels``) and rand_gossip (``--p``), or empty for plain DFL. The
+random compressors draw from a generator seeded by ``--seed``.
+
 On the card it turns TF32 off for cuDNN convolutions and cuBLAS matmuls,
 because the reference runs the CNN in f32.
 """
@@ -24,6 +28,7 @@ import torch
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.dfl import (DFLConfig, average_model, init_state,
                                   make_round_fn, round_wire_bits)
+from repro_torch.core.rng import Draws
 from repro_torch.core.topology import (fully_connected, paper_quasi_ring,
                                        ring)
 from repro_torch.data.images import SyntheticImages, image_batches_for_dfl
@@ -69,9 +74,11 @@ class RunSpec:
         raise ValueError(self.topology)
 
 
-def run_dfl_cnn(spec: RunSpec, device="cuda", log_every: int = 5) -> Dict:
+def run_dfl_cnn(spec: RunSpec, device="cuda", log_every: int = 5,
+                draws: Optional[Draws] = None) -> Dict:
     """Train ``spec`` on ``device``; returns the reference's result dict
-    plus ``round_ms`` (host clock per round, ended by a device sync)."""
+    plus ``round_ms`` (host clock per round, ended by a device sync).
+    ``draws`` replaces the RNG seam seeded by ``spec.seed``."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
@@ -90,7 +97,8 @@ def run_dfl_cnn(spec: RunSpec, device="cuda", log_every: int = 5) -> Dict:
 
     params0 = init_cnn(torch.Generator().manual_seed(spec.seed), spec.flavor,
                        device=dev)
-    state = init_state(params0, spec.nodes, opt, compressed=cfg.is_compressed)
+    state = init_state(params0, spec.nodes, opt, compressed=cfg.is_compressed,
+                       seed=spec.seed, draws=draws)
     round_fn = make_round_fn(cfg, loss_fn, opt)
     bits_per_round = round_wire_bits(cfg, params0, engine="sparse")
 
@@ -140,8 +148,14 @@ def run_dfl_cnn(spec: RunSpec, device="cuda", log_every: int = 5) -> Dict:
 def main(argv=None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--flavor", default="cifar", choices=("mnist", "cifar"))
-    p.add_argument("--compression", default="", help="'' (DFL) or top_k")
-    p.add_argument("--frac", type=float, default=0.67)
+    p.add_argument("--compression", default="",
+                   choices=("", "top_k", "qsgd", "rand_k", "rand_gossip"),
+                   help="'' for plain DFL")
+    p.add_argument("--frac", type=float, default=0.67,
+                   help="top_k and rand_k: kept fraction")
+    p.add_argument("--levels", type=int, default=16, help="qsgd: levels s")
+    p.add_argument("--p", type=float, default=0.8,
+                   help="rand_gossip: keep probability")
     p.add_argument("--gamma", type=float, default=0.6)
     p.add_argument("--topology", default="ring")
     p.add_argument("--nodes", type=int, default=10)
@@ -154,7 +168,9 @@ def main(argv=None) -> Dict:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
-    kw = {"frac": a.frac} if a.compression == "top_k" else {}
+    kw = {"top_k": {"frac": a.frac}, "rand_k": {"frac": a.frac},
+          "qsgd": {"levels": a.levels},
+          "rand_gossip": {"p": a.p}}.get(a.compression, {})
     spec = RunSpec(name=f"cnn-{a.flavor}-{a.compression or 'dfl'}",
                    tau1=a.tau1, tau2=a.tau2, topology=a.topology,
                    compression=a.compression, comp_kwargs=kw,

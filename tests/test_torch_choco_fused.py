@@ -1,14 +1,26 @@
-"""K3 choco_topk (the fused CHOCO-TopK step) in the PyTorch port against
-the JAX reference.
+"""K3 choco_topk and K2 choco_qsgd (the fused CHOCO-TopK and CHOCO-QSGD
+steps) in the PyTorch port against the JAX reference.
 
-The port runs the gap in the leaf dtype, its per-node threshold (K4) and
-the fused move-and-update (K3); on CPU tensors these are the plain
+TopK: the port runs the gap in the leaf dtype, its per-node threshold (K4)
+and the fused move-and-update (K3); on CPU tensors these are the plain
 versions. Contract against the reference's Pallas kernel (interpret mode)
 and its oracle ``ref.choco_topk_ref``: ``x_new`` within 1 f32 ulp (XLA may
 contract ``x + gamma (my - y)`` into an fma where torch rounds twice) and
 ``y_new`` bitwise wherever the two gaps are bitwise equal (the threshold
-is then the same and every keep decision with it). The CUDA kernel is held
-bitwise against the plain version on the card by ``chip_smoke.py``.
+is then the same and every keep decision with it).
+
+QSGD: the port takes the gap's per-node f32 norm with
+``torch.linalg.vector_norm`` and runs K2, with the reference's own uniform
+noise. Against ``choco_qsgd_2d`` (interpret mode) and ``ref.choco_qsgd_ref``:
+``x_new`` within 1 ulp as above; ``y_new`` to the reference's own contract
+(``tests/test_kernels.py``) when handed the reference's norm: the
+quantization level picked identical and the value within 1 ulp (bitwise
+against the eager oracle). With the port's own norm, which may differ in
+the last bit, a coordinate could change level by one step of
+||d||/(s c); the count of such coordinates allowed is ``MAX_LEVEL_FLIPS``
+= 0, and it is 0 at every parity size; the values then agree to
+``NORM_BIT_ULPS``. The CUDA kernels are held bitwise against the plain versions
+on the card by ``chip_smoke.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -30,6 +42,11 @@ from repro_torch.kernels import choco_fused, ops
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 GAMMA = 0.6
+MAX_LEVEL_FLIPS = 0
+# With its own norm, which differs from JAX's in the last bit at most
+# parity sizes, K2's q = sign ||d|| lvl / (s c) carries that relative
+# 2^-23 through two roundings: up to 6 ulps of q, and one more in y + q.
+NORM_BIT_ULPS = 8
 
 
 def _f32(a):
@@ -92,6 +109,73 @@ def test_fused_step_matches_reference_kernel_and_oracle(shape, dtype):
                                   _bits(y_new[i])[same]), name
         # the eager oracle is the port's arithmetic exactly
         assert np.array_equal(_bits(gaps["oracle"]), _bits(d[i]))
+
+
+def _qsgd_level(d, norm, noise, levels):
+    """The QSGD level floor(s |d| / ||d|| + xi), in f32 as the kernels."""
+    safe = np.float32(norm) if norm > 0 else np.float32(1)
+    return np.floor(np.float32(levels) * np.abs(d) / safe + noise)
+
+
+@pytest.mark.parametrize("shape", PARITY_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fused_qsgd_step_matches_reference_kernel_and_oracle(shape, dtype):
+    jdt, tdt = DTYPES[dtype]
+    seed = int(np.prod(shape)) + 29
+    arrs = _inputs(2, shape, seed=seed)
+    keys = jax.random.split(jax.random.key(seed), 2)
+    noise = np.stack([np.asarray(jax.random.uniform(k, shape)) for k in keys])
+    xj, yj, myj = (jnp.asarray(a).astype(jdt) for a in arrs)
+    xt, yt, myt = (torch.from_numpy(a).to(tdt).reshape(2, -1) for a in arrs)
+    x, y, my = (_f32(t) for t in (xt, yt, myt))
+    d_size = int(np.prod(shape))
+    c = 1.0 + min(d_size / 256.0, d_size ** 0.5 / 16.0)
+    d = choco_fused.gap(xt, yt, myt, GAMMA)
+    nt = torch.from_numpy(noise.reshape(2, -1))
+    # the port's own norm, as the substrate takes it, and the reference's
+    norm = torch.linalg.vector_norm(d.float(), dim=1)
+    x_new, y_new = ops.choco_qsgd(xt, yt, myt, nt, norm, GAMMA, 16, c)
+    jit_gap = jax.jit(jops._fused_diff)
+    for i in range(2):
+        gaps = {"kernel": jit_gap(xj[i], yj[i], myj[i], jnp.float32(GAMMA)),
+                "oracle": jops._fused_diff(xj[i], yj[i], myj[i],
+                                           jnp.float32(GAMMA))}
+        nz = jnp.asarray(noise[i])
+        for name, (want_x, want_y) in (
+                ("kernel", jops.choco_qsgd_move(xj[i], yj[i], myj[i], GAMMA,
+                                                nz, levels=16,
+                                                interpret=True)),
+                ("oracle", jref.choco_qsgd_ref(xj[i], yj[i], myj[i], GAMMA,
+                                               nz, levels=16, c=c))):
+            assert _ulp_diff(want_x.reshape(-1), x_new[i], x[i], y[i], my[i],
+                             dtype) <= 1.0, name
+            ref_gap = _f32(gaps[name])
+            ref_norm = np.float32(jnp.linalg.norm(ref_gap))
+            flips = np.sum(_qsgd_level(ref_gap, ref_norm, noise[i].reshape(-1),
+                                       16)
+                           != _qsgd_level(_f32(d[i]), float(norm[i]),
+                                          noise[i].reshape(-1), 16))
+            assert flips <= MAX_LEVEL_FLIPS, (name, flips)
+            # handed the reference's norm, K2 keeps its contract: 1 ulp
+            # against the jitted kernel, bitwise against the eager oracle
+            want_y = _f32(want_y).reshape(-1)
+            _, y_same = ops.choco_qsgd(xt[i:i + 1], yt[i:i + 1], myt[i:i + 1],
+                                       nt[i:i + 1], torch.tensor([ref_norm]),
+                                       GAMMA, 16, c)
+            assert _y_ulps(want_y, y_same[0], y[i], dtype) <= (
+                1.0 if name == "kernel" else 0.0), name
+            assert _y_ulps(want_y, y_new[i], y[i], dtype) <= NORM_BIT_ULPS
+
+
+def _y_ulps(want_y, got_y, y, dtype):
+    """max |want - got| in ulps of the leaf dtype at the largest of |y|,
+    |q| and |y_new|."""
+    got_y = _f32(got_y)
+    scale = np.max([np.abs(y), np.abs(want_y - y), np.abs(want_y),
+                    np.abs(got_y)], axis=0)
+    ulp = np.spacing(scale.astype(np.float32)) * (
+        2.0 ** 16 if dtype == "bfloat16" else 1.0)
+    return np.max(np.abs(want_y - got_y) / ulp, initial=0.0)
 
 
 def test_plain_is_the_kernel_arithmetic():

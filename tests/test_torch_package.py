@@ -11,6 +11,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.convert import params_from_jax
+from repro_torch.core.rng import GeneratorDraws, ReplayDraws
 from repro_torch.kernels import build
 from repro_torch.launch import cnn_run
 from repro_torch.models.cnn import init_cnn
@@ -34,6 +35,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.launch.cnn_run" in mods
     assert "repro_torch.kernels.ops" in mods
+    assert {"repro_torch.core.rng", "repro_torch.kernels.qsgd",
+            "repro_torch.kernels.choco_update"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == []
 
@@ -49,12 +52,19 @@ def test_default_device_raises_without_cuda():
         params_from_jax({"w": np.zeros(3, np.float32)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cnn_run.run_dfl_cnn(cnn_run.RunSpec(name="t", rounds=1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GeneratorDraws(0, 4, ["w"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplayDraws({})
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_kernel_build_plan():
     """Every kernel source is built on its own for sm_90a into the ignored
     build directory, under a name that changes with the source."""
+    assert sorted(build.SOURCES) == sorted(
+        p.stem for p in build.CSRC.glob("*.cu"))
+    assert {"qsgd", "choco_update"} <= set(build.SOURCES)
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
         path = build._library_path(name)

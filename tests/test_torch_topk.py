@@ -129,9 +129,15 @@ def test_wrappers_reject_bad_operands():
 def test_make_compressor_names():
     assert isinstance(compression.make_compressor("identity"),
                       compression.Identity)
-    for name in ("qsgd", "rand_k", "rand_gossip"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compression.make_compressor(name)
+    for name, kw in (("qsgd", {}), ("qsgd", {"levels": 4}), ("rand_k", {}),
+                     ("rand_k", {"frac": 0.67}), ("rand_gossip", {}),
+                     ("rand_gossip", {"p": 0.6})):
+        comp = compression.make_compressor(name, **kw)
+        jcomp = jcompression.make_compressor(name, **kw)
+        assert comp.name == jcomp.name == name
+        for d in (1, 10, 1000, 393216):
+            assert comp.delta(d) == jcomp.delta(d)
+            assert comp.bits_per_value(d) == jcomp.bits_per_value(d)
     with pytest.raises(ValueError, match="unknown compressor"):
         compression.make_compressor("nope")
     x = np.random.default_rng(2).normal(size=(5, 5, 3, 4)).astype(np.float32)
@@ -141,7 +147,9 @@ def test_make_compressor_names():
         "top_k", frac=0.3), {"a": jnp.asarray(x)}, None)
     assert np.array_equal(_bits(got["a"]), _bits(want["a"]))
     tree = {"a": np.zeros((5, 5, 3, 64)), "b": np.zeros(10)}
-    for name, kw in (("identity", {}), ("top_k", {"frac": 0.67})):
+    for name, kw in (("identity", {}), ("top_k", {"frac": 0.67}),
+                     ("qsgd", {}), ("rand_k", {"frac": 0.67}),
+                     ("rand_gossip", {"p": 0.6})):
         assert compression.tree_wire_bits(
             compression.make_compressor(name, **kw), tree) == \
             jcompression.tree_wire_bits(
