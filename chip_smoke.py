@@ -12,10 +12,14 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 2. Hold each of the seven kernels against its plain PyTorch version on the
    card, bitwise, at the CIFAR CNN's stacked leaf shapes [10, D] and the
    reference's parity sizes, in f32 and bf16, with ties, k = D, k = 1,
-   all-zero rows (QSGD norm 0), -0.0 entries and QSGD levels 4 and 16.
+   all-zero rows (QSGD norm 0), -0.0 entries and QSGD levels 4 and 16;
+   K1 and K4 also over whole leaf lists in one call (the CIFAR leaves, the
+   parity sizes), K4 also cut into small chunks, K1 also at N = 1024.
    Then time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, at the main path's shapes
-   (device time from CUDA-graph replay, CUDA events).
+   (device time from CUDA-graph replay, CUDA events): K1 and K4 as the
+   round calls them, one call over all 10 leaves of a gossip step, and at
+   the d1 leaf alone; the others one launch per leaf, summed over a step.
 3. The main path, through ``run_dfl_cnn``: the paper's CIFAR CNN at full
    width on a 10-node ring, tau1 = tau2 = 4, batch 16, gamma 0.6, for 3
    rounds each of C-DFL TopK (frac 0.67), plain DFL, C-DFL QSGD (16
@@ -137,6 +141,59 @@ def qsgd_c(levels, d):
     return QSGD(levels=levels)._c(d)
 
 
+def check_batched(K, gen, cifar_sizes):
+    """Phase 2a, K1 and K4 over leaf lists in one call: the CIFAR leaves and
+    the parity sizes, f32 and bf16, normal data and ties with a zero and a
+    -0.0 row, k = 1, 0.67 D and D; K4 also cut into chunks of 64 keys, so
+    that every row of more than 64 spans several blocks; K1 also on a
+    1024-node ring, where the tile shrinks to fit the slab."""
+    from repro_torch.core.mixing import gossip_table
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import gossip_mix, ops, topk
+
+    def held(name, got, want, what):
+        K[name].max_abs_err = max(K[name].max_abs_err, max_abs_err(got, want))
+        require(same_bits(got, want), f"{name} differs: {what}")
+
+    nbr, w = (torch.from_numpy(a).cuda() for a in gossip_table(ring(10)))
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for sizes in (cifar_sizes, PARITY_SIZES):
+            xs = [torch.randn(10, d, generator=gen, device="cuda").to(dtype)
+                  for d in sizes]
+            ties = [(torch.round(x.float() * 4) / 4).to(dtype) for x in xs]
+            for t in ties:
+                t[2] = 0
+                t[5] = -0.0
+            for got, x in zip(ops.gossip_mix_many(xs, nbr, w), xs):
+                held("gossip_mix", got, gossip_mix.plain(x, nbr, w),
+                     f"list of {len(sizes)}, D {x.shape[1]} {dtype}")
+            for data in (xs, ties):
+                for frac in (0.0, 0.67, 1.0):
+                    ks = [max(1, math.ceil(frac * d)) for d in sizes]
+                    want = [topk.threshold_plain(x, k)
+                            for x, k in zip(data, ks)]
+                    got = ops.topk_threshold_many(data, ks)
+                    small = [torch.empty_like(t) for t in want]
+                    topk.launch_threshold_many(data, ks, small, chunk=64)
+                    for g, sm, t, k in zip(got, small, want, ks):
+                        what = f"list of {len(sizes)}, k {k} {dtype}"
+                        held("topk_threshold", g, t, what)
+                        held("topk_threshold", sm, t, what + ", chunk 64")
+                    cases += 2
+            cases += 1
+        nbr_big, w_big = (torch.from_numpy(a).cuda()
+                          for a in gossip_table(ring(1024)))
+        xs = [torch.randn(1024, d, generator=gen, device="cuda").to(dtype)
+              for d in (10, 64, 1000, 4800)]
+        for got, x in zip(ops.gossip_mix_many(xs, nbr_big, w_big), xs):
+            held("gossip_mix", got, gossip_mix.plain(x, nbr_big, w_big),
+                 f"N 1024, D {x.shape[1]} {dtype}")
+        cases += 1
+    torch.cuda.synchronize()
+    print(f"batched K1 / K4 vs plain: {cases} list calls, all bitwise")
+
+
 def check_kernels(K, gen):
     """Phase 2a: every kernel bitwise against its plain version."""
     from repro_torch.core.mixing import gossip_table
@@ -233,11 +290,14 @@ def check_kernels(K, gen):
     torch.cuda.synchronize()
     print(f"kernels vs plain: {cases} cases over {len(sizes)} sizes x "
           "{f32, bf16}, all bitwise")
+    check_batched(K, gen, [v.numel() for v in leaves.values()])
 
 
 def time_kernels(K, gen):
     """Phase 2b: device times per gossip step over the CIFAR CNN's leaves
-    (each leaf [10, D] f32, one launch per leaf), and the bounds."""
+    (each leaf [10, D] f32): K1 and K4 one call over all leaves, as the
+    round makes it, the others one launch per leaf; and the bounds. K4's
+    library time is the faster of ``torch.topk`` and ``torch.kthvalue``."""
     from repro_torch.core.mixing import gossip_table
     from repro_torch.core.topology import ring
     from repro_torch.kernels import (choco_fused, choco_update, gossip_mix,
@@ -249,7 +309,7 @@ def time_kernels(K, gen):
     nbr, w = (torch.from_numpy(a).cuda() for a in gossip_table(topo))
     deg = nbr.shape[1]
     ct = torch.as_tensor(topo.mixing.T, dtype=torch.float32, device="cuda")
-    per_leaf = []
+    per_leaf, step = [], {"x": [], "k": []}
     for name, leaf in leaves.items():
         n, d = 10, leaf.numel()
         x, y, my = (torch.randn(n, d, generator=gen, device="cuda")
@@ -272,13 +332,18 @@ def time_kernels(K, gen):
         K["choco_qsgd"].add_bound(24 * e + 8 * n, 13 * e)
         K["qsgd_quantize"].add_bound(12 * e + 4 * n, 8 * e)
         K["choco_move"].add_bound(20 * e, 4 * e)
+        step["x"].append(x)
+        step["k"].append(k)
         row = {"leaf": name, "D": d}
+        if name == "d1":
+            row["gossip_mix"] = {"ms": device_ms(
+                lambda: ops.gossip_mix(x, nbr, w))}
+            row["topk_threshold"] = {
+                "ms": device_ms(lambda: ops.topk_threshold(x, k)),
+                "topk_ms": device_ms(lambda: torch.topk(xa, k, dim=1)),
+                "kthvalue_ms": device_ms(
+                    lambda: torch.kthvalue(xa, d - k + 1, dim=1))}
         for kname, kern, plain, lib in (
-                ("gossip_mix", lambda: ops.gossip_mix(x, nbr, w),
-                 lambda: gossip_mix.plain(x, nbr, w), lambda: ct @ x),
-                ("topk_threshold", lambda: ops.topk_threshold(x, k),
-                 lambda: topk.threshold_plain(x, k),
-                 lambda: torch.topk(xa, k, dim=1)),
                 ("topk_mask", lambda: ops.topk_mask(x, t),
                  lambda: topk.mask_plain(x, t), None),
                 ("choco_topk",
@@ -303,6 +368,26 @@ def time_kernels(K, gen):
         per_leaf.append(row)
     for row in per_leaf:
         print("leaf ms " + json.dumps(row))
+    xs, ks = step["x"], step["k"]
+    xas = [x.abs() for x in xs]
+    timed = {"gossip_mix": (
+        lambda: ops.gossip_mix_many(xs, nbr, w),
+        lambda: [gossip_mix.plain(x, nbr, w) for x in xs],
+        {"C.T @ X": lambda: [ct @ x for x in xs]}), "topk_threshold": (
+        lambda: ops.topk_threshold_many(xs, ks),
+        lambda: [topk.threshold_plain(x, k) for x, k in zip(xs, ks)],
+        {"torch.topk": lambda: [torch.topk(xa, k, dim=1)
+                                for xa, k in zip(xas, ks)],
+         "torch.kthvalue": lambda: [
+             torch.kthvalue(xa, xa.shape[1] - k + 1, dim=1)
+             for xa, k in zip(xas, ks)]})}
+    for kname, (kern, plain, libs) in timed.items():
+        K[kname].ms, K[kname].plain_ms = device_ms(kern), device_ms(plain)
+        lib_ms = {lname: device_ms(fn) for lname, fn in libs.items()}
+        K[kname].library_ms = min(lib_ms.values())
+        print("step ms " + json.dumps({
+            "kernel": kname, "leaves": len(xs), "ms": K[kname].ms,
+            "plain_ms": K[kname].plain_ms, "library_ms": lib_ms}))
 
 
 class RecordingDraws:
@@ -319,10 +404,30 @@ class RecordingDraws:
         return out
 
 
-# kernels launched once per leaf and gossip step, beside gossip_mix
-STEP_KERNELS = {"": (), "top_k": ("topk_threshold", "choco_topk"),
-                "qsgd": ("choco_qsgd",), "rand_gossip": ("choco_move",),
-                "rand_k": ("choco_move", "topk_threshold")}
+def select_launches(sizes):
+    """K4 launches of one topk_threshold_many call over f32 leaves of
+    ``sizes`` (at most 32): one per digit when a row spans several
+    chunks, else one."""
+    from repro_torch.kernels import topk
+    passes = len(topk.DIGITS[torch.float32])
+    return passes if max(sizes) > topk.CHUNK else 1
+
+
+def step_launches(compression, sizes):
+    """Kernel launches of one gossip step over the f32 leaves of ``sizes``:
+    K1 once for the whole tree; TopK one K4 call for every leaf's gap, K3
+    per leaf; QSGD K2 per leaf; randomized gossip K7 per leaf; RandK K7
+    and one K4 call per leaf, on its scores."""
+    per_leaf = len(sizes)
+    each = {"": {},
+            "top_k": {"topk_threshold": select_launches(sizes),
+                      "choco_topk": per_leaf},
+            "qsgd": {"choco_qsgd": per_leaf},
+            "rand_gossip": {"choco_move": per_leaf},
+            "rand_k": {"choco_move": per_leaf,
+                       "topk_threshold": sum(select_launches([d])
+                                             for d in sizes)}}[compression]
+    return {"gossip_mix": 1, **each}
 
 
 def run_main_path(K):
@@ -349,13 +454,13 @@ def run_main_path(K):
                                           p=0.8),
             "cdfl_rand_k": make_spec("cdfl_rand_k", "rand_k", frac=0.67)}
     leaves = init_cnn(torch.Generator().manual_seed(1), "cifar", "cuda")
+    sizes = [v.numel() for v in leaves.values()]
     totals = dict.fromkeys(K, 0)
     for label, spec in runs.items():
-        steps = spec.tau2 * spec.rounds * len(leaves)
+        steps = spec.tau2 * spec.rounds
         expect = dict.fromkeys(K, 0)
-        expect["gossip_mix"] = steps
-        for name in STEP_KERNELS[spec.compression]:
-            expect[name] = steps
+        for name, n in step_launches(spec.compression, sizes).items():
+            expect[name] = steps * n
         draws = RecordingDraws(GeneratorDraws(spec.seed, spec.nodes, leaves,
                                               "cuda"))
         ops.reset_launches()
@@ -412,6 +517,9 @@ def run_main_path(K):
         counts = dict(ops.LAUNCHES)
         expect = dict.fromkeys(K, 0)
         expect.update(dict.fromkeys(kernels, len(leaves)))
+        if name == "top_k":
+            expect["topk_threshold"] = sum(select_launches([d])
+                                           for d in sizes)
         require(counts == expect, f"{name} compressor: launches {counts}, "
                 f"expected {expect}")
         for k, v in params.items():

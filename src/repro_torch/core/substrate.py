@@ -5,11 +5,13 @@
 of every leaf, which is how one card holds them. Its two hooks reach the
 kernels:
 
-  * ``mix``        — one gossip step X <- X C: the gossip kernel (K1) when
-                     C is circulant, else the dense product ``mix_dense``.
-  * ``choco_step`` — one CHOCO-G iteration after the mix, per leaf:
-                     TopK: the gap in the leaf dtype, its per-node
-                     threshold (K4) and the fused move-and-update (K3);
+  * ``mix``        — one gossip step X <- X C: the gossip kernel (K1), one
+                     call for every leaf, when C is circulant, else the
+                     dense product ``mix_dense``.
+  * ``choco_step`` — one CHOCO-G iteration after the mix:
+                     TopK: every leaf's gap in the leaf dtype, their
+                     per-node thresholds in one call (K4), then the fused
+                     move-and-update (K3) per leaf;
                      QSGD: the gap's per-node f32 norm, the noise from the
                      RNG seam and the fused move-and-quantize (K2);
                      any other compressor: the move (K7), Q on the gap
@@ -107,12 +109,14 @@ class DenseSubstrate(NodeSubstrate):
     def mix(self, tree):
         if self._table is None:
             return mixing_lib.mix_dense(tree, self.topology)
-        out = {}
-        for name, x in tree.items():
-            nbr, w = self._table_on(x.device)
-            out[name] = ops.gossip_mix(x.reshape(self.num_nodes, -1), nbr,
-                                       w).reshape(x.shape)
-        return out
+        if not tree:
+            return {}
+        names = list(tree)
+        nbr, w = self._table_on(tree[names[0]].device)
+        mixed = ops.gossip_mix_many(
+            [tree[name].reshape(self.num_nodes, -1) for name in names], nbr, w)
+        return {name: m.reshape(tree[name].shape)
+                for name, m in zip(names, mixed)}
 
     def mean_over_nodes(self, x):
         return x.mean(dim=0)
@@ -125,26 +129,32 @@ class DenseSubstrate(NodeSubstrate):
 
     def choco_step(self, comp, x, y, mixed_y, gamma, draws=None,
                    round_idx=0, step=0):
-        """TopK and QSGD run fused, one pass per leaf emitting (x_new,
-        y_new): the gap d in the leaf dtype, then K4's threshold and K3, or
-        d's per-node f32 norm and K2 (which recomputes d bitwise). Other
+        """TopK and QSGD run fused, emitting (x_new, y_new) in one pass per
+        leaf. TopK: every leaf's gap d in the leaf dtype, all their
+        thresholds in one K4 call, then K3 per leaf. QSGD, per leaf: d's
+        per-node f32 norm and K2 (which recomputes d bitwise). Other
         compressors: the unfused composition."""
         if not isinstance(comp, (TopK, QSGD)):
             return super().choco_step(comp, x, y, mixed_y, gamma, draws,
                                       round_idx, step)
         n = self.num_nodes
+        rows = {name: tuple(t[name].reshape(n, -1) for t in (x, y, mixed_y))
+                for name in x}
         x_new, y_new = {}, {}
-        for name in x:
-            shape = x[name].shape
-            a, b, my = (t[name].reshape(n, -1) for t in (x, y, mixed_y))
-            d = gap(a, b, my, gamma)
-            if isinstance(comp, TopK):
-                thresh = ops.topk_threshold(d, comp._k(d.shape[1]))
-                xn, yn = ops.choco_topk(a, b, my, d, thresh, gamma)
-            else:
+        if isinstance(comp, TopK):
+            gaps = [gap(a, b, my, gamma) for a, b, my in rows.values()]
+            threshs = ops.topk_threshold_many(
+                gaps, [comp._k(d.shape[1]) for d in gaps])
+            for (name, (a, b, my)), d, t in zip(rows.items(), gaps, threshs):
+                x_new[name], y_new[name] = ops.choco_topk(a, b, my, d, t,
+                                                          gamma)
+        else:
+            for name, (a, b, my) in rows.items():
+                d = gap(a, b, my, gamma)
                 norm = torch.linalg.vector_norm(d.float(), dim=1)
                 noise = comp.draw(draws, round_idx, step, name, d.shape[1])
-                xn, yn = ops.choco_qsgd(a, b, my, noise, norm, gamma,
-                                        comp.levels, comp._c(d.shape[1]))
-            x_new[name], y_new[name] = xn.reshape(shape), yn.reshape(shape)
-        return x_new, y_new
+                x_new[name], y_new[name] = ops.choco_qsgd(
+                    a, b, my, noise, norm, gamma, comp.levels,
+                    comp._c(d.shape[1]))
+        return ({name: v.reshape(x[name].shape) for name, v in x_new.items()},
+                {name: v.reshape(x[name].shape) for name, v in y_new.items()})

@@ -94,6 +94,12 @@ def kernel(source: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return fn
 
 
+def rows_aligned(t) -> bool:
+    """True when every row of the 2-D tensor ``t`` starts 16-byte aligned,
+    so a kernel may read and write it 16 bytes at a time."""
+    return t.data_ptr() % 16 == 0 and t.shape[1] * t.element_size() % 16 == 0
+
+
 def check(source: str, symbol: str, err: int) -> None:
     """Raise if a launch reported a CUDA error."""
     if err != 0:

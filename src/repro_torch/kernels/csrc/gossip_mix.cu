@@ -1,5 +1,5 @@
-// K1 gossip_mix: one gossip step X <- X C for a circulant C, over the
-// stacked [N, D] leaf.
+// K1 gossip_mix: one gossip step X <- X C for a circulant C, over every
+// stacked [N, D_i] leaf of a tree in one launch.
 //
 // Replaces src/repro/kernels/gossip_mix.py:gossip_mix_2d (_mix_kernel),
 // which mixed one node's (rows, 128) tile with deg received copies. Here
@@ -10,51 +10,147 @@
 //
 // accumulated in f32 in that order and cast once to the leaf dtype. The
 // index table [N, deg] and the per-node weights [N, deg + 1] come from the
-// topology's shifts, so per-node participation weights fit unchanged.
+// topology's shifts and are shared by every leaf.
 //
-// Bound: bytes. Each element is read once per incoming edge plus once for
-// itself and written once (deg + 2 accesses; the data sheet bound counts
-// one read and one write, 8 B per f32 element); 2 (deg + 1) flops per
-// element are far below the card's f32 rate. One thread per element with
-// neighbouring threads on neighbouring columns keeps every access
-// coalesced; the neighbour rows are re-read mostly from L2.
+// Bound: bytes, each element read once and written once (8 B per f32
+// element); 2 (deg + 1) flops per element are far below the card's f32
+// rate. Each block takes one column tile of one leaf and copies the whole
+// [N, tile] slab into shared memory, every node's row of it, with 16-byte
+// asynchronous copies where the rows start 16-byte aligned
+// (D * sizeof(T) % 16 == 0, else element by element). Every output of the tile is then mixed from
+// shared memory, so device memory sees each element read once, not deg + 1
+// times, and written once, 16 bytes at a time where aligned. The tile
+// width comes from N so that the slab fits in 48 KB (gossip_mix.py
+// tile_width). The leaves' descriptors travel by value in the launch
+// parameters (__grid_constant__), so one launch serves the whole tree.
 //
 // __fmul_rn / __fadd_rn keep nvcc from contracting into fma, so the result
 // is bitwise the plain PyTorch version's (separate mul and add kernels).
 #include "common.cuh"
 
-template <typename T>
-__global__ void gossip_mix_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
-                                  const float* __restrict__ w, T* __restrict__ out,
-                                  int64_t cols, int deg) {
-  const int64_t row = blockIdx.y;
-  const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= cols) return;
-  const float* wr = w + row * (deg + 1);
-  float acc = __fmul_rn(wr[0], to_f32(x[row * cols + col]));
-  for (int k = 0; k < deg; ++k) {
-    const int64_t src = nbr[row * deg + k];
-    acc = __fadd_rn(acc, __fmul_rn(wr[k + 1], to_f32(x[src * cols + col])));
-  }
-  out[row * cols + col] = from_f32<T>(acc);
+constexpr int kMaxLeaves = 32;  // leaves per launch; the wrapper splits longer trees
+constexpr int kMixThreads = 256;
+
+struct MixLeaf {
+  const void* x;       // [rows, cols]
+  void* out;           // [rows, cols]
+  int64_t cols;
+  int32_t tile_begin;  // first block of the leaf
+  int32_t vec;         // 1 when every row of x and out starts 16-byte aligned
+};
+
+struct MixPlan {
+  MixLeaf leaf[kMaxLeaves];
+  int32_t num_leaves;
+  int32_t tile;  // columns per block, a multiple of 16 / sizeof(T)
+};
+
+// A 16-byte copy from device to shared memory that does not pass through
+// registers (cp.async), so a thread keeps all its copies in flight at once.
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void wait_async_copies() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 template <typename T>
-static int launch(const void* x, const void* nbr, const void* w, void* out, int64_t rows,
-                  int64_t cols, int deg, void* stream) {
-  gossip_mix_kernel<T><<<elementwise_grid(rows, cols), kElementwiseThreads, 0,
+__device__ __forceinline__ float mix_one(const T* slab, int tile, int r, int c,
+                                         const int32_t* __restrict__ nbr,
+                                         const float* __restrict__ w, int deg) {
+  const float* wr = w + r * (deg + 1);
+  float acc = __fmul_rn(wr[0], to_f32(slab[r * tile + c]));
+  for (int k = 0; k < deg; ++k) {
+    acc = __fadd_rn(acc, __fmul_rn(wr[k + 1], to_f32(slab[nbr[r * deg + k] * tile + c])));
+  }
+  return acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMixThreads)
+gossip_mix_kernel(const __grid_constant__ MixPlan plan, const int32_t* __restrict__ nbr,
+                  const float* __restrict__ w, int rows, int deg) {
+  extern __shared__ uint4 slab_words[];
+  T* slab = reinterpret_cast<T*>(slab_words);
+  int li = 0;
+  while (li + 1 < plan.num_leaves && plan.leaf[li + 1].tile_begin <= (int)blockIdx.x) ++li;
+  const MixLeaf& leaf = plan.leaf[li];
+  const int tile = plan.tile;
+  const int64_t col0 = (int64_t)((int)blockIdx.x - leaf.tile_begin) * tile;
+  const int width = leaf.cols - col0 < tile ? (int)(leaf.cols - col0) : tile;
+  const T* x = static_cast<const T*>(leaf.x) + col0;
+  T* out = static_cast<T*>(leaf.out) + col0;
+  if (leaf.vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int nv = width / V;  // cols and tile are multiples of V here
+    const int n = rows * nv;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int r = i / nv, v = i - r * nv;
+      copy16_async(slab + r * tile + v * V, x + r * leaf.cols + v * V);
+    }
+    wait_async_copies();
+    __syncthreads();
+    // one 16-byte vector of each source row a step, the accumulation
+    // order of every element as in mix_one
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int r = i / nv, v = i - r * nv;
+      const float* wr = w + r * (deg + 1);
+      float acc[V];
+      uint4 q = reinterpret_cast<const uint4*>(slab + r * tile)[v];
+      const T* e = reinterpret_cast<const T*>(&q);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = __fmul_rn(wr[0], to_f32(e[j]));
+      for (int k = 0; k < deg; ++k) {
+        const float wk = wr[k + 1];
+        q = reinterpret_cast<const uint4*>(slab + nbr[r * deg + k] * tile)[v];
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(wk, to_f32(e[j])));
+      }
+      uint4 packed;
+      T* o = reinterpret_cast<T*>(&packed);
+#pragma unroll
+      for (int j = 0; j < V; ++j) o[j] = from_f32<T>(acc[j]);
+      reinterpret_cast<uint4*>(out + r * leaf.cols)[v] = packed;
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
+      const int r = i / width, c = i - r * width;
+      slab[r * tile + c] = x[r * leaf.cols + c];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
+      const int r = i / width, c = i - r * width;
+      out[r * leaf.cols + c] = from_f32<T>(mix_one(slab, tile, r, c, nbr, w, deg));
+    }
+  }
+}
+
+template <typename T>
+static int launch(const void* plan, const void* nbr, const void* w, int rows, int deg,
+                  int64_t blocks, void* stream) {
+  const MixPlan& p = *static_cast<const MixPlan*>(plan);
+  const size_t slab_bytes = (size_t)rows * p.tile * sizeof(T);
+  gossip_mix_kernel<T><<<(unsigned)blocks, kMixThreads, slab_bytes,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const int32_t*>(nbr),
-      static_cast<const float*>(w), static_cast<T*>(out), cols, deg);
+      p, static_cast<const int32_t*>(nbr), static_cast<const float*>(w), rows, deg);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gossip_mix_f32(const void* x, const void* nbr, const void* w, void* out,
-                              int64_t rows, int64_t cols, int deg, void* stream) {
-  return launch<float>(x, nbr, w, out, rows, cols, deg, stream);
+// sizeof(MixPlan) and its leaf limit, for the wrapper's layout check
+extern "C" int gossip_mix_layout(int64_t* out) {
+  out[0] = sizeof(MixPlan);
+  out[1] = kMaxLeaves;
+  return 0;
 }
 
-extern "C" int gossip_mix_bf16(const void* x, const void* nbr, const void* w, void* out,
-                               int64_t rows, int64_t cols, int deg, void* stream) {
-  return launch<__nv_bfloat16>(x, nbr, w, out, rows, cols, deg, stream);
+extern "C" int gossip_mix_f32(const void* plan, const void* nbr, const void* w, int rows,
+                              int deg, int64_t blocks, void* stream) {
+  return launch<float>(plan, nbr, w, rows, deg, blocks, stream);
+}
+
+extern "C" int gossip_mix_bf16(const void* plan, const void* nbr, const void* w, int rows,
+                               int deg, int64_t blocks, void* stream) {
+  return launch<__nv_bfloat16>(plan, nbr, w, rows, deg, blocks, stream);
 }

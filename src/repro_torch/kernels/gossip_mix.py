@@ -1,25 +1,61 @@
 """K1 gossip_mix: ``csrc/gossip_mix.cu`` and its plain PyTorch version.
 
 Replaces ``repro/kernels/gossip_mix.py:gossip_mix_2d``. One gossip step
-over a stacked ``[N, D]`` leaf with a neighbour index table ``[N, deg]``
-int32 and per-node weights ``[N, deg + 1]`` f32 (self weight first)::
+over every stacked ``[N, D_i]`` leaf of a tree, with one neighbour index
+table ``[N, deg]`` int32 and per-node weights ``[N, deg + 1]`` f32 (self
+weight first) for all leaves::
 
     out[i] = w[i, 0] x[i] + sum_k w[i, k + 1] x[nbr[i, k]]
 
-accumulated in f32 in that order and cast to the leaf dtype. Callers go
-through ``repro_torch.kernels.ops.gossip_mix``.
+accumulated in f32 in that order and cast to the leaf dtype. One launch
+mixes up to ``MAX_LEAVES`` leaves: each block copies one ``[N, tile]``
+column slab of one leaf into shared memory and writes its N outputs from
+there. ``mix_plans`` cuts the leaves into those tiles; ``tile_span`` is
+the kernel's own arithmetic for which columns a block owns. Callers go
+through ``repro_torch.kernels.ops.gossip_mix_many``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+from typing import List, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int64, ctypes.c_int64,
-                                  ctypes.c_int, ctypes.c_void_p)
+MAX_LEAVES = 32              # leaves per launch (csrc kMaxLeaves)
+TILE_MAX = 256               # columns per block at most
+SLAB_BYTES = 48 * 1024       # shared memory for one block's [N, tile] slab
+MAX_ROWS = SLAB_BYTES // 16  # N at which the slab holds one 16-byte column
+
+_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                                  ctypes.c_void_p)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+class _CLeaf(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("cols", ctypes.c_int64), ("tile_begin", ctypes.c_int32),
+                ("vec", ctypes.c_int32)]
+
+
+class _CPlan(ctypes.Structure):
+    _fields_ = [("leaf", _CLeaf * MAX_LEAVES), ("num_leaves", ctypes.c_int32),
+                ("tile", ctypes.c_int32)]
+
+
+@dataclasses.dataclass(frozen=True)
+class MixPlan:
+    """One launch. Leaf slot ``j`` is the caller's leaf ``index[j]``, with
+    ``cols[j]`` columns, owning blocks ``tile_begin[j]`` onwards; every
+    block mixes ``tile`` columns (fewer at a leaf's end)."""
+    index: Tuple[int, ...]
+    cols: Tuple[int, ...]
+    tile_begin: Tuple[int, ...]
+    tile: int
+    blocks: int
 
 
 def plain(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -30,12 +66,76 @@ def plain(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
-def launch(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
-           out: torch.Tensor) -> None:
-    symbol = f"gossip_mix_{_SUFFIX[x.dtype]}"
+def tile_width(rows: int, itemsize: int) -> int:
+    """Columns per block: the widest multiple of one 16-byte vector whose
+    ``[rows, tile]`` slab fits in ``SLAB_BYTES``, at most ``TILE_MAX``."""
+    vec = 16 // itemsize
+    tile = min(TILE_MAX, SLAB_BYTES // (rows * itemsize)) // vec * vec
+    if tile < vec:
+        raise ValueError(f"gossip_mix: {rows} nodes exceed the {MAX_ROWS} "
+                         f"whose slab fits in {SLAB_BYTES // 1024} KB of "
+                         "shared memory")
+    return tile
+
+
+def mix_plans(cols: Sequence[int], rows: int, itemsize: int) -> List[MixPlan]:
+    """The launches for leaves of ``cols[i]`` columns: at most
+    ``MAX_LEAVES`` leaves each, every leaf cut into column tiles."""
+    tile = tile_width(rows, itemsize)
+    plans = []
+    for first in range(0, len(cols), MAX_LEAVES):
+        index = tuple(range(first, min(first + MAX_LEAVES, len(cols))))
+        begin, blocks = [], 0
+        for i in index:
+            begin.append(blocks)
+            blocks += -(-cols[i] // tile)
+        plans.append(MixPlan(index, tuple(cols[i] for i in index),
+                             tuple(begin), tile, blocks))
+    return plans
+
+
+def tile_span(plan: MixPlan, block: int) -> Tuple[int, int, int]:
+    """(caller's leaf index, first column, end column) of ``block``, as the
+    kernel computes them."""
+    li = 0
+    while li + 1 < len(plan.index) and plan.tile_begin[li + 1] <= block:
+        li += 1
+    col0 = (block - plan.tile_begin[li]) * plan.tile
+    return plan.index[li], col0, min(col0 + plan.tile, plan.cols[li])
+
+
+@functools.lru_cache(maxsize=None)
+def _checked_layout() -> None:
+    out = (ctypes.c_int64 * 2)()
+    fn = build.kernel("gossip_mix", "gossip_mix_layout",
+                      (ctypes.c_void_p,))
+    build.check("gossip_mix", "gossip_mix_layout", fn(out))
+    if (out[0], out[1]) != (ctypes.sizeof(_CPlan), MAX_LEAVES):
+        raise RuntimeError(f"gossip_mix: the kernel's plan is {out[0]} bytes "
+                           f"for {out[1]} leaves, the wrapper's "
+                           f"{ctypes.sizeof(_CPlan)} for {MAX_LEAVES}")
+
+
+def launch_many(xs: Sequence[torch.Tensor], nbr: torch.Tensor, w: torch.Tensor,
+                outs: Sequence[torch.Tensor]) -> int:
+    """Mix ``xs`` into ``outs``; returns the number of kernel launches."""
+    _checked_layout()
+    dtype = xs[0].dtype
+    symbol = f"gossip_mix_{_SUFFIX[dtype]}"
     fn = build.kernel("gossip_mix", symbol, _ARGS)
-    rows, cols = x.shape
-    err = fn(x.data_ptr(), nbr.data_ptr(), w.data_ptr(), out.data_ptr(),
-             rows, cols, nbr.shape[1],
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check("gossip_mix", symbol, err)
+    rows, deg = nbr.shape
+    stream = torch.cuda.current_stream(xs[0].device).cuda_stream
+    launches = 0
+    cols = [x.shape[1] for x in xs]
+    for plan in mix_plans(cols, rows, xs[0].element_size()):
+        c = _CPlan(num_leaves=len(plan.index), tile=plan.tile)
+        for slot, i in enumerate(plan.index):
+            vec = build.rows_aligned(xs[i]) and build.rows_aligned(outs[i])
+            c.leaf[slot] = _CLeaf(xs[i].data_ptr(), outs[i].data_ptr(),
+                                  plan.cols[slot], plan.tile_begin[slot],
+                                  int(vec))
+        err = fn(ctypes.addressof(c), nbr.data_ptr(), w.data_ptr(), rows, deg,
+                 plan.blocks, stream)
+        build.check("gossip_mix", symbol, err)
+        launches += 1
+    return launches

@@ -15,11 +15,15 @@ main path went through the kernels::
 
 Entry points (all on 2-D ``[rows, cols]`` views of stacked leaves), one
 for each of the reference's seven Pallas kernels:
-  * ``gossip_mix(x, nbr, w)``              K1, one circulant gossip step.
+  * ``gossip_mix_many(xs, nbr, w)``        K1, one circulant gossip step
+                                           over every leaf of a tree;
+                                           ``gossip_mix`` for one leaf.
   * ``choco_qsgd(x, y, my, noise, norm, gamma, levels, c)``
                                            K2, fused CHOCO-QSGD step.
   * ``choco_topk(x, y, my, d, t, gamma)``  K3, fused CHOCO-TopK step.
-  * ``topk_threshold(x, k)``               K4, per-row k-th largest |x|.
+  * ``topk_threshold_many(xs, ks)``        K4, per-row k-th largest |x| of
+                                           every leaf of a list;
+                                           ``topk_threshold`` for one.
   * ``topk_mask(x, thresh)``               K5, per-row keep-or-zero.
   * ``qsgd_quantize(x, noise, norm, levels, c)``
                                            K6, per-row QSGD.
@@ -27,7 +31,7 @@ for each of the reference's seven Pallas kernels:
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -97,15 +101,25 @@ def _check_noise(op: str, noise: torch.Tensor, shape) -> None:
     _check_leaf(op, "noise", noise, shape)
 
 
-def gossip_mix(x: torch.Tensor, nbr: torch.Tensor,
-               w: torch.Tensor) -> torch.Tensor:
-    """K1: ``out[i] = w[i,0] x[i] + sum_k w[i,k+1] x[nbr[i,k]]`` (f32
-    accumulate, leaf dtype out). ``nbr`` [N, deg] int32, ``w`` [N, deg+1]
-    float32."""
+def gossip_mix_many(xs: Sequence[torch.Tensor], nbr: torch.Tensor,
+                    w: torch.Tensor) -> List[torch.Tensor]:
+    """K1 over every leaf of ``xs`` (each ``[N, D_i]``, one dtype):
+    ``out[i] = w[i,0] x[i] + sum_k w[i,k+1] x[nbr[i,k]]`` (f32 accumulate,
+    leaf dtype out). ``nbr`` [N, deg] int32, ``w`` [N, deg+1] float32,
+    shared by all leaves. One launch per ``gossip_mix.MAX_LEAVES`` leaves;
+    on the card N is at most ``gossip_mix.MAX_ROWS``."""
     op = "gossip_mix"
-    on_card = _on_card(op, x, nbr, w)
-    _check_leaf(op, "x", x)
-    rows = x.shape[0]
+    xs = list(xs)
+    if not xs:
+        raise ValueError(f"{op}: no leaves")
+    on_card = _on_card(op, *xs, nbr, w)
+    for x in xs:
+        _check_leaf(op, "x", x)
+        if x.dtype != xs[0].dtype or x.shape[0] != xs[0].shape[0]:
+            raise ValueError(f"{op}: leaves must share dtype and rows, got "
+                             f"{tuple(x.shape)} {x.dtype} and "
+                             f"{tuple(xs[0].shape)} {xs[0].dtype}")
+    rows = xs[0].shape[0]
     if (nbr.dtype != torch.int32 or nbr.dim() != 2 or nbr.shape[0] != rows
             or not nbr.is_contiguous()):
         raise ValueError(f"{op}: nbr must be a contiguous [{rows}, deg] int32 "
@@ -116,30 +130,52 @@ def gossip_mix(x: torch.Tensor, nbr: torch.Tensor,
         raise ValueError(f"{op}: w must be a contiguous [{rows}, {deg + 1}] "
                          f"float32 tensor, got {tuple(w.shape)} {w.dtype}")
     if not on_card:
-        return _mix.plain(x, nbr, w)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _mix.launch(x, nbr, w, out)
-    LAUNCHES[op] += 1
-    return out
+        return [_mix.plain(x, nbr, w) for x in xs]
+    outs = [torch.empty_like(x) for x in xs]
+    with torch.cuda.device(xs[0].device):
+        LAUNCHES[op] += _mix.launch_many(xs, nbr, w, outs)
+    return outs
+
+
+def gossip_mix(x: torch.Tensor, nbr: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """K1 on one leaf ``x`` [N, D]: ``gossip_mix_many([x], nbr, w)``."""
+    return gossip_mix_many([x], nbr, w)[0]
+
+
+def topk_threshold_many(xs: Sequence[torch.Tensor],
+                        ks: Sequence[int]) -> List[torch.Tensor]:
+    """K4: per row of each leaf ``xs[i]`` ([R_i, D_i], one dtype), the
+    ``ks[i]``-th largest |x| in that dtype (ties inclusive); one ``[R_i]``
+    tensor per leaf. On the card, one call of ``topk.launch_threshold_many``
+    per ``topk.MAX_LEAVES`` leaves."""
+    op = "topk_threshold"
+    xs, ks = list(xs), [int(k) for k in ks]
+    if not xs or len(xs) != len(ks):
+        raise ValueError(f"{op}: {len(xs)} leaves and {len(ks)} k values")
+    on_card = _on_card(op, *xs)
+    for x, k in zip(xs, ks):
+        _check_leaf(op, "x", x)
+        if x.dtype != xs[0].dtype:
+            raise TypeError(f"{op}: leaves of {x.dtype} and {xs[0].dtype}")
+        if not 1 <= k <= x.shape[1]:
+            raise ValueError(
+                f"TopK k={k} out of range for a size-{x.shape[1]} vector")
+        if x.shape[1] >= 2 ** 31:
+            raise ValueError(f"{op}: {x.shape[1]} columns exceed the 32-bit "
+                             "counts")
+    if not on_card:
+        return [_topk.threshold_plain(x, k) for x, k in zip(xs, ks)]
+    outs = [torch.empty(x.shape[0], dtype=x.dtype, device=x.device)
+            for x in xs]
+    with torch.cuda.device(xs[0].device):
+        LAUNCHES[op] += _topk.launch_threshold_many(xs, ks, outs)
+    return outs
 
 
 def topk_threshold(x: torch.Tensor, k: int) -> torch.Tensor:
-    """K4: per row, the k-th largest |x| in x's dtype (ties inclusive)."""
-    op = "topk_threshold"
-    on_card = _on_card(op, x)
-    _check_leaf(op, "x", x)
-    k = int(k)
-    if not 1 <= k <= x.shape[1]:
-        raise ValueError(
-            f"TopK k={k} out of range for a size-{x.shape[1]} vector")
-    if not on_card:
-        return _topk.threshold_plain(x, k)
-    out = torch.empty(x.shape[0], dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        _topk.launch_threshold(x, k, out)
-    LAUNCHES[op] += 1
-    return out
+    """K4 on one leaf: ``topk_threshold_many([x], [k])``."""
+    return topk_threshold_many([x], [k])[0]
 
 
 def topk_mask(x: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:

@@ -2,24 +2,133 @@
 PyTorch versions.
 
 K4 replaces ``repro/kernels/topk.py:topk_partials_2d`` and the select after
-it: per row of a ``[R, D]`` tensor, the exact k-th largest ``|x|`` in the
-input dtype (ties inclusive), found by a radix select on the bits of
-``|x|``. K5 replaces ``topk_mask_2d``: ``where(|x| >= t[row], x, 0)`` in
-the input dtype. Callers go through ``repro_torch.kernels.ops``.
+it: per row of each ``[R_i, D_i]`` leaf of a list, the exact k_i-th largest
+``|x|`` in the input dtype (ties inclusive), found by a radix select on the
+bits of ``|x|`` below the sign, one digit of ``DIGITS`` bits a pass, top
+digit first. One call covers up to ``MAX_LEAVES`` leaves: every row is cut
+into chunks of ``CHUNK`` keys, one block each. A row of one chunk is
+selected whole in the first launch; the rows of several chunks take one
+launch per digit (``select_plans``, with ``chunk_span`` the kernel's own
+arithmetic for which keys a block owns). K5 replaces ``topk_mask_2d``:
+``where(|x| >= t[row], x, 0)`` in the input dtype. Callers go through
+``repro_torch.kernels.ops``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-_THRESHOLD_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p)
+CHUNK = 16384          # keys per block
+MAX_LEAVES = 32        # leaves per call (csrc kMaxLeaves)
+MAX_PASSES = 4         # csrc kMaxPasses
+MAX_DIGIT_BITS = 11    # csrc kMaxBins = 2 ** 11
+# digit widths, top digit first, over the bits of |x| below the sign
+DIGITS: Dict[torch.dtype, Tuple[int, ...]] = {torch.float32: (11, 10, 10),
+                                              torch.bfloat16: (8, 7)}
+
+_SELECT_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int64, ctypes.c_void_p)
 _MASK_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_int64,
                                        ctypes.c_void_p)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+class _CLeaf(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("cols", ctypes.c_int64), ("k", ctypes.c_int64),
+                ("chunk_begin", ctypes.c_int32),
+                ("chunks_per_row", ctypes.c_int32),
+                ("seg_begin", ctypes.c_int32), ("vec", ctypes.c_int32)]
+
+
+class _CPlan(ctypes.Structure):
+    _fields_ = [("leaf", _CLeaf * MAX_LEAVES), ("num_leaves", ctypes.c_int32),
+                ("chunk", ctypes.c_int32), ("passes", ctypes.c_int32),
+                ("num_segs", ctypes.c_int32),
+                ("shift", ctypes.c_int32 * MAX_PASSES),
+                ("bits", ctypes.c_int32 * MAX_PASSES)]
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectPlan:
+    """One call's launches. Leaf slot ``j`` is the caller's leaf
+    ``index[j]`` (``rows[j]`` x ``cols[j]``), owning blocks
+    ``chunk_begin[j]`` onwards, ``chunks_per_row[j]`` a row; the slots of
+    several chunks a row come first and own scratch segments
+    ``seg_begin[j]`` onwards (-1 for the others). The first launch runs
+    ``blocks`` blocks, every later one ``multi_blocks``."""
+    index: Tuple[int, ...]
+    rows: Tuple[int, ...]
+    cols: Tuple[int, ...]
+    chunk_begin: Tuple[int, ...]
+    chunks_per_row: Tuple[int, ...]
+    seg_begin: Tuple[int, ...]
+    chunk: int
+    blocks: int
+    multi_blocks: int
+    segments: int
+
+
+def digit_passes(dtype: torch.dtype) -> List[Tuple[int, int]]:
+    """(shift, bits) of each pass, top digit first: the digit of a key is
+    ``(key >> shift) & (2 ** bits - 1)``."""
+    shift = sum(DIGITS[dtype])
+    out = []
+    for bits in DIGITS[dtype]:
+        shift -= bits
+        out.append((shift, bits))
+    return out
+
+
+def select_plans(shapes: Sequence[Tuple[int, int]],
+                 chunk: int = CHUNK) -> List[SelectPlan]:
+    """The calls for leaves of ``shapes[i] = (rows, cols)``: at most
+    ``MAX_LEAVES`` leaves each, every row cut into chunks of ``chunk``."""
+    if chunk < 16 or chunk % 16:
+        raise ValueError(f"topk_threshold: chunk {chunk} is not a positive "
+                         "multiple of 16")
+    plans = []
+    for first in range(0, len(shapes), MAX_LEAVES):
+        group = range(first, min(first + MAX_LEAVES, len(shapes)))
+        order = ([i for i in group if shapes[i][1] > chunk]
+                 + [i for i in group if shapes[i][1] <= chunk])
+        begin, per_row, seg_begin = [], [], []
+        blocks = segments = multi_blocks = 0
+        for i in order:
+            rows, cols = shapes[i]
+            n = -(-cols // chunk)
+            begin.append(blocks)
+            per_row.append(n)
+            blocks += rows * n
+            if n > 1:
+                seg_begin.append(segments)
+                segments += rows
+                multi_blocks = blocks
+            else:
+                seg_begin.append(-1)
+        plans.append(SelectPlan(
+            tuple(order), tuple(shapes[i][0] for i in order),
+            tuple(shapes[i][1] for i in order), tuple(begin), tuple(per_row),
+            tuple(seg_begin), chunk, blocks, multi_blocks, segments))
+    return plans
+
+
+def chunk_span(plan: SelectPlan, block: int) -> Tuple[int, int, int, int]:
+    """(caller's leaf index, row, first key, end key) of ``block``, as the
+    kernel computes them."""
+    li = 0
+    while li + 1 < len(plan.index) and plan.chunk_begin[li + 1] <= block:
+        li += 1
+    local = block - plan.chunk_begin[li]
+    row, c = divmod(local, plan.chunks_per_row[li])
+    start = c * plan.chunk
+    return plan.index[li], row, start, min(start + plan.chunk, plan.cols[li])
 
 
 def threshold_plain(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -31,13 +140,51 @@ def mask_plain(x: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() >= thresh[:, None], x, torch.zeros_like(x))
 
 
-def launch_threshold(x: torch.Tensor, k: int, out: torch.Tensor) -> None:
-    symbol = f"topk_threshold_{_SUFFIX[x.dtype]}"
-    fn = build.kernel("topk", symbol, _THRESHOLD_ARGS)
-    rows, cols = x.shape
-    err = fn(x.data_ptr(), out.data_ptr(), rows, cols, k,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check("topk", symbol, err)
+@functools.lru_cache(maxsize=None)
+def _checked_layout() -> None:
+    out = (ctypes.c_int64 * 4)()
+    fn = build.kernel("topk", "topk_select_layout", (ctypes.c_void_p,))
+    build.check("topk", "topk_select_layout", fn(out))
+    want = (ctypes.sizeof(_CPlan), MAX_LEAVES, MAX_PASSES,
+            2 ** MAX_DIGIT_BITS)
+    if tuple(out) != want:
+        raise RuntimeError(f"topk_threshold: the kernel's plan layout "
+                           f"{tuple(out)} differs from the wrapper's {want}")
+
+
+def launch_threshold_many(xs: Sequence[torch.Tensor], ks: Sequence[int],
+                          outs: Sequence[torch.Tensor],
+                          chunk: int = CHUNK) -> int:
+    """Thresholds of ``xs`` into ``outs``; returns the number of kernel
+    launches."""
+    _checked_layout()
+    dtype = xs[0].dtype
+    passes = digit_passes(dtype)
+    symbol = f"topk_select_{_SUFFIX[dtype]}"
+    fn = build.kernel("topk", symbol, _SELECT_ARGS)
+    device = xs[0].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    launches = 0
+    for plan in select_plans([tuple(x.shape) for x in xs], chunk):
+        c = _CPlan(num_leaves=len(plan.index), chunk=plan.chunk,
+                   passes=len(passes), num_segs=plan.segments)
+        for p, (shift, bits) in enumerate(passes):
+            c.shift[p], c.bits[p] = shift, bits
+        for slot, i in enumerate(plan.index):
+            c.leaf[slot] = _CLeaf(xs[i].data_ptr(), outs[i].data_ptr(),
+                                  plan.cols[slot], ks[i],
+                                  plan.chunk_begin[slot],
+                                  plan.chunks_per_row[slot],
+                                  plan.seg_begin[slot],
+                                  int(build.rows_aligned(xs[i])))
+        words = plan.segments * (2 ** MAX_DIGIT_BITS + len(passes) + 2)
+        scratch = torch.zeros(max(words, 1), dtype=torch.int32, device=device)
+        for p in range(len(passes) if plan.multi_blocks else 1):
+            err = fn(ctypes.addressof(c), scratch.data_ptr(), p,
+                     plan.blocks if p == 0 else plan.multi_blocks, stream)
+            build.check("topk", symbol, err)
+            launches += 1
+    return launches
 
 
 def launch_mask(x: torch.Tensor, thresh: torch.Tensor,

@@ -151,3 +151,100 @@ def test_wrapper_rejects_bad_operands():
         ops.gossip_mix(torch.zeros(8, 4).t(), nbr, w)
     with pytest.raises(ValueError, match=r"\[rows, cols\]"):
         ops.gossip_mix(torch.zeros(4), nbr, w)
+
+
+# --- K1 over every leaf of a tree (gossip_mix_many) -------------------------
+
+CIFAR_SIZES = (4800, 64, 102400, 64, 393216, 384, 73728, 192, 1920, 10)
+MANY_SIZES = CIFAR_SIZES + (64, 1000, 32768, 32769, 21000)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mix_many_matches_reference_and_per_leaf(dtype):
+    """One call over the CIFAR CNN's leaves and the parity sizes equals the
+    per-leaf calls and the plain version bitwise, and the reference's
+    kernel in interpret mode within the gossip tolerance."""
+    jdt, tdt, tol = DTYPES[dtype]
+    topo = topology.ring(4)
+    nbr, w = mixing.gossip_table(topo)
+    nbr_t, w_t = torch.from_numpy(nbr), torch.from_numpy(w)
+    rng = np.random.default_rng(7)
+    xs = [rng.normal(size=(4, d)).astype(np.float32) for d in MANY_SIZES]
+    xts = [torch.from_numpy(x).to(tdt) for x in xs]
+    got = ops.gossip_mix_many(xts, nbr_t, w_t)
+    assert len(got) == len(xs)
+    for x, xt, g in zip(xs, xts, got):
+        assert g.shape == xt.shape and g.dtype == tdt
+        bits = torch.int16 if dtype == "bfloat16" else torch.int32
+        for want in (ops.gossip_mix(xt, nbr_t, w_t),
+                     mix_module.plain(xt, nbr_t, w_t)):
+            assert torch.equal(g.view(bits), want.view(bits))
+        xj = jnp.asarray(x).astype(jdt)
+        want = jops.gossip_mix(xj[0], xj[nbr[0]], jnp.asarray(w[0]),
+                               interpret=True)
+        np.testing.assert_allclose(_f32(g[0]), _f32(want), rtol=tol, atol=tol)
+
+
+def test_mix_many_rejects_bad_trees():
+    nbr, w = (torch.from_numpy(a) for a in mixing.gossip_table(
+        topology.ring(4)))
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="no leaves"):
+        ops.gossip_mix_many([], nbr, w)
+    with pytest.raises(ValueError, match="share dtype and rows"):
+        ops.gossip_mix_many([x, torch.zeros(5, 8)], nbr, w)
+    with pytest.raises(ValueError, match="share dtype and rows"):
+        ops.gossip_mix_many([x, x.bfloat16()], nbr, w)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_mix_plans_cover_every_column_once(itemsize):
+    """Every column of every leaf is in exactly one block's tile; the tile
+    is a whole number of 16-byte vectors and its [N, tile] slab fits the
+    shared memory, for N up to MAX_ROWS; beyond it the plan raises."""
+    cols = list(MANY_SIZES) * 3 + [1, 3, 17]
+    vec = 16 // itemsize
+    for rows in (2, 10, 64, 1000, 1024, mix_module.MAX_ROWS):
+        plans = mix_module.mix_plans(cols, rows, itemsize)
+        assert [len(p.index) for p in plans] == [
+            min(mix_module.MAX_LEAVES, len(cols) - i)
+            for i in range(0, len(cols), mix_module.MAX_LEAVES)]
+        for plan in plans:
+            assert plan.tile % vec == 0 and plan.tile >= vec
+            assert plan.tile <= mix_module.TILE_MAX
+            assert rows * plan.tile * itemsize <= mix_module.SLAB_BYTES
+            seen = {i: np.zeros(cols[i], np.int32) for i in plan.index}
+            for block in range(plan.blocks):
+                i, c0, c1 = mix_module.tile_span(plan, block)
+                assert 0 <= c0 < c1 <= cols[i] and c0 % plan.tile == 0
+                seen[i][c0:c1] += 1
+            assert all(np.all(s == 1) for s in seen.values())
+    assert mix_module.tile_width(10, 4) == mix_module.TILE_MAX
+    with pytest.raises(ValueError, match="exceed"):
+        mix_module.mix_plans(cols, mix_module.MAX_ROWS + 1,
+                                    itemsize)
+
+
+def test_substrate_makes_one_call_per_step(monkeypatch):
+    """DenseSubstrate.mix hands every leaf to one gossip_mix_many call, and
+    the TopK choco_step every leaf's gap to one topk_threshold_many call."""
+    from repro_torch.core.compression import make_compressor
+
+    calls = {"gossip_mix_many": 0, "topk_threshold_many": 0}
+    for name in calls:
+        inner = getattr(ops, name)
+
+        def counted(*args, _inner=inner, _name=name):
+            calls[_name] += 1
+            return _inner(*args)
+
+        monkeypatch.setattr(ops, name, counted)
+    sub = DenseSubstrate(topology.ring(10))
+    rng = np.random.default_rng(3)
+    tree = {k: torch.from_numpy(rng.normal(size=(10,) + s).astype(np.float32))
+            for k, s in (("a", (5, 5, 3, 64)), ("b", (64,)), ("c", (1000,)))}
+    mixed = sub.mix(tree)
+    assert calls == {"gossip_mix_many": 1, "topk_threshold_many": 0}
+    y = {k: 0.5 * v for k, v in tree.items()}
+    sub.choco_step(make_compressor("top_k", frac=0.67), tree, y, mixed, 0.6)
+    assert calls == {"gossip_mix_many": 1, "topk_threshold_many": 1}

@@ -17,7 +17,7 @@ from repro.core import compression as jcompression
 from repro.kernels import ops as jops
 from repro.kernels.registry import PARITY_SHAPES
 from repro_torch.core import compression
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, topk
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -154,3 +154,160 @@ def test_make_compressor_names():
             compression.make_compressor(name, **kw), tree) == \
             jcompression.tree_wire_bits(
                 jcompression.make_compressor(name, **kw), tree)
+
+
+# --- K4 over a list of leaves (topk_threshold_many) -------------------------
+
+CIFAR_SIZES = (4800, 64, 102400, 64, 393216, 384, 73728, 192, 1920, 10)
+MANY_SIZES = CIFAR_SIZES + (64, 1000, 32768, 32769, 21000)
+
+
+def _leaf_list(dtype, kind, seed):
+    """[3, D] leaves of MANY_SIZES: normal data, or values on a grid of
+    quarters (heavy ties) with row 1 all 0 and row 2 all -0.0."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for d in MANY_SIZES:
+        x = rng.normal(size=(3, d)).astype(np.float32)
+        if kind == "ties":
+            x = np.round(x * 4) / 4
+            x[1] = 0.0
+            x[2] = -0.0
+        out.append(_pair(x, dtype))
+    return out
+
+
+@pytest.mark.parametrize("kind,k_of", [("normal", "0.67"), ("ties", "1"),
+                                       ("ties", "D")])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_threshold_many_matches_reference_and_per_leaf(dtype, kind, k_of):
+    leaves = _leaf_list(dtype, kind, seed=len(kind) + len(k_of))
+    ks = [{"0.67": int(np.ceil(0.67 * d)), "1": 1, "D": d}[k_of]
+          for d in MANY_SIZES]
+    got = ops.topk_threshold_many([t for _, t in leaves], ks)
+    assert len(got) == len(leaves)
+    for (xj, xt), k, t in zip(leaves, ks, got):
+        assert t.shape == (3,) and t.dtype == xt.dtype
+        assert np.array_equal(_bits(t), _bits(ops.topk_threshold(xt, k)))
+        want = jops.topk_threshold(xj[0], k, interpret=True)
+        assert np.array_equal(_bits(t[:1]), _bits(want[None]))
+        if kind == "ties":
+            assert _bits(t[1:]).tolist() == [0, 0]
+
+
+def test_threshold_many_rejects_bad_lists():
+    x = torch.ones(2, 10)
+    with pytest.raises(ValueError, match="k values"):
+        ops.topk_threshold_many([x, x], [3])
+    with pytest.raises(ValueError, match="k values"):
+        ops.topk_threshold_many([], [])
+    with pytest.raises(TypeError, match="leaves of"):
+        ops.topk_threshold_many([x, x.bfloat16()], [3, 3])
+    with pytest.raises(ValueError, match="out of range"):
+        ops.topk_threshold_many([x, torch.ones(2, 4)], [3, 5])
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 1024, topk.CHUNK])
+def test_select_plans_cover_every_key_once(chunk):
+    """Every key of every row is in exactly one block's chunk, no chunk
+    crosses a row, the leaves of several chunks a row come first with one
+    scratch segment per row, and lists longer than MAX_LEAVES split."""
+    shapes = [(10, d) for d in MANY_SIZES] * 3 + [(1, 1), (7, 17), (2, 33)]
+    plans = topk.select_plans(shapes, chunk)
+    assert [len(p.index) for p in plans] == [
+        min(topk.MAX_LEAVES, len(shapes) - i)
+        for i in range(0, len(shapes), topk.MAX_LEAVES)]
+    assert sorted(i for p in plans for i in p.index) == list(
+        range(len(shapes)))
+    for plan in plans:
+        seen = {i: np.zeros(shapes[i], np.int32) for i in plan.index}
+        multi = [i for i in plan.index if shapes[i][1] > chunk]
+        assert list(plan.index[:len(multi)]) == multi
+        for block in range(plan.blocks):
+            i, row, start, stop = topk.chunk_span(plan, block)
+            assert 0 <= row < shapes[i][0]
+            assert 0 <= start < stop <= shapes[i][1]
+            assert stop - start <= chunk and start % chunk == 0
+            assert (block < plan.multi_blocks) == (shapes[i][1] > chunk)
+            seen[i][row, start:stop] += 1
+        assert all(np.all(s == 1) for s in seen.values())
+        segs = [(plan.seg_begin[j], plan.rows[j])
+                for j in range(len(plan.index)) if plan.chunks_per_row[j] > 1]
+        starts = np.cumsum([0] + [rows for _, rows in segs])
+        assert [s for s, _ in segs] == list(starts[:-1])
+        assert plan.segments == starts[-1]
+    with pytest.raises(ValueError, match="multiple of 16"):
+        topk.select_plans(shapes, 100)
+
+
+def _emulate_select(xs, ks, chunk):
+    """The kernel's radix select in numpy, block by block as select_plans
+    cuts the rows and digit by digit as digit_passes gives them: every
+    block histograms the keys of its chunk that match the row's prefix, the
+    row's bins are summed, and the bin holding the remaining rank fixes
+    the next digit."""
+    dtype = xs[0].dtype
+    wide = dtype == torch.float32
+    abs_mask = 0x7FFFFFFF if wide else 0x7FFF
+    keys = [(x.view(torch.int32 if wide else torch.int16).numpy()
+             .astype(np.int64) & abs_mask) for x in xs]
+    passes = topk.digit_passes(dtype)
+    assert sum(bits for _, bits in passes) == (31 if wide else 15)
+    assert all(bits <= topk.MAX_DIGIT_BITS for _, bits in passes)
+    assert len(passes) <= topk.MAX_PASSES
+    out = [np.zeros(x.shape[0], np.int64) for x in xs]
+    for plan in topk.select_plans([tuple(x.shape) for x in xs], chunk):
+        state = {(i, r): (0, ks[i]) for i in plan.index
+                 for r in range(xs[i].shape[0])}
+        for shift, bits in passes:
+            fixed = abs_mask & ~((1 << (shift + bits)) - 1)
+            hist = {seg: np.zeros(1 << bits, np.int64) for seg in state}
+            for block in range(plan.blocks):
+                i, r, start, stop = topk.chunk_span(plan, block)
+                k = keys[i][r, start:stop]
+                k = k[(k & fixed) == state[(i, r)][0]]
+                hist[(i, r)] += np.bincount((k >> shift) & ((1 << bits) - 1),
+                                            minlength=1 << bits)
+            for seg, h in hist.items():
+                prefix, rank = state[seg]
+                above = np.cumsum(h[::-1])[::-1] - h  # keys in higher bins
+                digit = np.flatnonzero((above < rank) & (rank <= above + h))
+                assert digit.size == 1
+                state[seg] = (prefix | int(digit[0]) << shift,
+                              rank - int(above[digit[0]]))
+        for (i, r), (prefix, _) in state.items():
+            out[i][r] = prefix
+    return [torch.from_numpy(o.astype(np.int32 if wide else np.int16)).view(
+        dtype) for o in out]
+
+
+@pytest.mark.parametrize("data", ["normal", "ties", "shared_top_digit",
+                                  "zeros_and_tiny"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_digit_schedule_emulation_matches_topk(dtype, data):
+    """The digit schedule and the per-chunk histograms find torch.topk's
+    threshold: on normal data, on heavy ties, on keys that all share their
+    top digit (|x| in [1, 1 + 2^-4): one exponent, one top mantissa
+    prefix), and on zeros, -0.0 and subnormals."""
+    rng = np.random.default_rng(11)
+    shapes = [(3, 1000), (2, 64), (4, 4097), (1, 1), (2, 300)]
+    xs = []
+    for rows, cols in shapes:
+        x = rng.normal(size=(rows, cols)).astype(np.float32)
+        if data == "ties":
+            x = np.round(x * 2) / 2
+        elif data == "shared_top_digit":
+            x = np.sign(x) * (1 + rng.uniform(0, 2 ** -4, size=x.shape))
+            x = x.astype(np.float32)
+        elif data == "zeros_and_tiny":
+            x = np.where(rng.uniform(size=x.shape) < 0.5, x * 1e-40, 0.0)
+            x[0, ::3] = -0.0
+            x = x.astype(np.float32)
+        xs.append(torch.from_numpy(x).to(DTYPES[dtype][1]))
+    for frac in (0.0, 0.1, 0.67, 1.0):
+        ks = [max(1, int(np.ceil(frac * c))) for _, c in shapes]
+        want = [topk.threshold_plain(x, k) for x, k in zip(xs, ks)]
+        for chunk in (16, 256, topk.CHUNK):
+            got = _emulate_select(xs, ks, chunk)
+            for g, w in zip(got, want):
+                assert np.array_equal(_bits(g), _bits(w))
