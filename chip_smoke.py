@@ -13,18 +13,23 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    card, bitwise, at the CIFAR CNN's stacked leaf shapes [10, D] and the
    reference's parity sizes, in f32 and bf16, with ties, k = D, k = 1,
    all-zero rows (QSGD norm 0), -0.0 entries and QSGD levels 4 and 16;
-   K1 and K4 also over whole leaf lists in one call (the CIFAR leaves, the
-   parity sizes), K4 also cut into small chunks, K1 also at N = 1024.
+   K1, K4 and K6 also over whole leaf lists in one call (the CIFAR leaves,
+   the parity sizes), K4 and K6 also cut into small chunks, K1 also at
+   N = 1024, K6 also on a leaf of 70,000 rows; the plan structs of K1, K4
+   and K6 are held against the kernels' own (a ctypes layout check), and
+   K6's registers and spill bytes a thread are printed.
    Then time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, at the main path's shapes
-   (device time from CUDA-graph replay, CUDA events): K1 and K4 as the
-   round calls them, one call over all 10 leaves of a gossip step, and at
-   the d1 leaf alone; the others one launch per leaf, summed over a step.
+   (device time from CUDA-graph replay, CUDA events): K1, K4 and K6 one
+   call over all 10 leaves of a gossip step (K6 also one launch per leaf,
+   summed), and at the d1 leaf alone (K6 in bf16 too); the others one
+   launch per leaf, summed over a step.
 3. The main path, through ``run_dfl_cnn``: the paper's CIFAR CNN at full
    width on a 10-node ring, tau1 = tau2 = 4, batch 16, gamma 0.6, for 3
    rounds each of C-DFL TopK (frac 0.67), plain DFL, C-DFL QSGD (16
    levels), C-DFL randomized gossip (p 0.8) and C-DFL RandK (frac 0.67),
-   then one TopK and one QSGD compressor call on the stacked leaves. The
+   then TopK and QSGD through the substrate's ``compress`` hook on the
+   stacked leaves (QSGD in one K6 launch for the tree). The
    launch counts are set to 0 before each and must rise by exactly what
    the round predicts. The first round of each run is repeated on the CPU
    (plain versions, the card's random draws replayed) and must agree
@@ -142,14 +147,15 @@ def qsgd_c(levels, d):
 
 
 def check_batched(K, gen, cifar_sizes):
-    """Phase 2a, K1 and K4 over leaf lists in one call: the CIFAR leaves and
-    the parity sizes, f32 and bf16, normal data and ties with a zero and a
-    -0.0 row, k = 1, 0.67 D and D; K4 also cut into chunks of 64 keys, so
-    that every row of more than 64 spans several blocks; K1 also on a
-    1024-node ring, where the tile shrinks to fit the slab."""
+    """Phase 2a, K1, K4 and K6 over leaf lists in one call: the CIFAR leaves
+    and the parity sizes, f32 and bf16, normal data and ties with a zero and
+    a -0.0 row, k = 1, 0.67 D and D; K4 and K6 also cut into chunks of 64,
+    so that every row of more than 64 spans several blocks; K1 also on a
+    1024-node ring, where the tile shrinks to fit the slab; K6 with a zero
+    row, -0.0 entries and levels 4 and 16, and on a leaf of 70,000 rows."""
     from repro_torch.core.mixing import gossip_table
     from repro_torch.core.topology import ring
-    from repro_torch.kernels import gossip_mix, ops, topk
+    from repro_torch.kernels import gossip_mix, ops, qsgd, topk
 
     def held(name, got, want, what):
         K[name].max_abs_err = max(K[name].max_abs_err, max_abs_err(got, want))
@@ -182,6 +188,17 @@ def check_batched(K, gen, cifar_sizes):
                         held("topk_threshold", sm, t, what + ", chunk 64")
                     cases += 2
             cases += 1
+            noises = [torch.rand(10, d, generator=gen, device="cuda")
+                      for d in sizes]
+            for x in xs:
+                x[3] = 0
+                x[:, ::5] = -0.0
+            cases += check_quantize_many(K, xs, noises, held)
+        tall = [torch.randn(70000, d, generator=gen, device="cuda").to(dtype)
+                for d in (12, 10)]
+        cases += check_quantize_many(
+            K, tall, [torch.rand(x.shape, generator=gen, device="cuda")
+                      for x in tall], held)
         nbr_big, w_big = (torch.from_numpy(a).cuda()
                           for a in gossip_table(ring(1024)))
         xs = [torch.randn(1024, d, generator=gen, device="cuda").to(dtype)
@@ -191,7 +208,35 @@ def check_batched(K, gen, cifar_sizes):
                  f"N 1024, D {x.shape[1]} {dtype}")
         cases += 1
     torch.cuda.synchronize()
-    print(f"batched K1 / K4 vs plain: {cases} list calls, all bitwise")
+    print(f"batched K1 / K4 / K6 vs plain: {cases} list calls, all bitwise")
+    plan, leaves, leaf = qsgd.checked_layout()
+    print(f"K6 plan struct: {plan} bytes for {leaves} leaves ({leaf} a "
+          "leaf), the kernel's and the wrapper's alike")
+    print("K6 registers and local (spill) bytes a thread "
+          + json.dumps(qsgd.kernel_attributes()))
+
+
+def check_quantize_many(K, xs, noises, held):
+    """K6 over the leaves ``xs`` in one call, and cut into chunks of 64,
+    at levels 4 and 16, against the plain version leaf by leaf."""
+    from repro_torch.kernels import ops, qsgd
+
+    norms = [torch.linalg.vector_norm(x.float(), dim=1) for x in xs]
+    for levels in (4, 16):
+        cs = [qsgd_c(levels, x.shape[1]) for x in xs]
+        scs = [qsgd.scale(levels, c) for c in cs]
+        got = ops.qsgd_quantize_many(xs, noises, norms, levels, cs)
+        small = [torch.empty_like(x) for x in xs]
+        qsgd.launch_many(xs, noises, norms, float(levels), scs, small,
+                         chunk=64)
+        for g, sm, x, noise, norm, sc in zip(got, small, xs, noises, norms,
+                                             scs):
+            want = qsgd.plain(x, noise, norm, levels, sc)
+            what = (f"list of {len(xs)}, {tuple(x.shape)} {x.dtype} levels "
+                    f"{levels}")
+            held("qsgd_quantize", g, want, what)
+            held("qsgd_quantize", sm, want, what + ", chunk 64")
+    return 4
 
 
 def check_kernels(K, gen):
@@ -295,9 +340,10 @@ def check_kernels(K, gen):
 
 def time_kernels(K, gen):
     """Phase 2b: device times per gossip step over the CIFAR CNN's leaves
-    (each leaf [10, D] f32): K1 and K4 one call over all leaves, as the
-    round makes it, the others one launch per leaf; and the bounds. K4's
-    library time is the faster of ``torch.topk`` and ``torch.kthvalue``."""
+    (each leaf [10, D] f32): K1, K4 and K6 one call over all leaves, as the
+    round and the ``compress`` hook make it (K6 also one launch per leaf,
+    summed), the others one launch per leaf; and the bounds. K4's library
+    time is the faster of ``torch.topk`` and ``torch.kthvalue``."""
     from repro_torch.core.mixing import gossip_table
     from repro_torch.core.topology import ring
     from repro_torch.kernels import (choco_fused, choco_update, gossip_mix,
@@ -309,7 +355,8 @@ def time_kernels(K, gen):
     nbr, w = (torch.from_numpy(a).cuda() for a in gossip_table(topo))
     deg = nbr.shape[1]
     ct = torch.as_tensor(topo.mixing.T, dtype=torch.float32, device="cuda")
-    per_leaf, step = [], {"x": [], "k": []}
+    per_leaf, step = [], {"x": [], "k": [], "noise": [], "xnorm": [],
+                          "c": []}
     for name, leaf in leaves.items():
         n, d = 10, leaf.numel()
         x, y, my = (torch.randn(n, d, generator=gen, device="cuda")
@@ -332,8 +379,9 @@ def time_kernels(K, gen):
         K["choco_qsgd"].add_bound(24 * e + 8 * n, 13 * e)
         K["qsgd_quantize"].add_bound(12 * e + 4 * n, 8 * e)
         K["choco_move"].add_bound(20 * e, 4 * e)
-        step["x"].append(x)
-        step["k"].append(k)
+        for key, v in (("x", x), ("k", k), ("noise", noise), ("xnorm", xnorm),
+                       ("c", c)):
+            step[key].append(v)
         row = {"leaf": name, "D": d}
         if name == "d1":
             row["gossip_mix"] = {"ms": device_ms(
@@ -343,6 +391,14 @@ def time_kernels(K, gen):
                 "topk_ms": device_ms(lambda: torch.topk(xa, k, dim=1)),
                 "kthvalue_ms": device_ms(
                     lambda: torch.kthvalue(xa, d - k + 1, dim=1))}
+            xb = x.bfloat16()
+            xbnorm = torch.linalg.vector_norm(xb.float(), dim=1)
+            row["qsgd_quantize_bf16"] = {
+                "ms": device_ms(
+                    lambda: ops.qsgd_quantize(xb, noise, xbnorm, 16, c)),
+                "plain_ms": device_ms(
+                    lambda: qsgd.plain(xb, noise, xbnorm, 16, sc)),
+                "bound_ms": (8 * e + 4 * n) / HBM_BYTES_PER_S * 1e3}
         for kname, kern, plain, lib in (
                 ("topk_mask", lambda: ops.topk_mask(x, t),
                  lambda: topk.mask_plain(x, t), None),
@@ -370,6 +426,8 @@ def time_kernels(K, gen):
         print("leaf ms " + json.dumps(row))
     xs, ks = step["x"], step["k"]
     xas = [x.abs() for x in xs]
+    noises, xnorms, cs = step["noise"], step["xnorm"], step["c"]
+    per_leaf_sum = K["qsgd_quantize"].ms
     timed = {"gossip_mix": (
         lambda: ops.gossip_mix_many(xs, nbr, w),
         lambda: [gossip_mix.plain(x, nbr, w) for x in xs],
@@ -380,14 +438,20 @@ def time_kernels(K, gen):
                                 for xa, k in zip(xas, ks)],
          "torch.kthvalue": lambda: [
              torch.kthvalue(xa, xa.shape[1] - k + 1, dim=1)
-             for xa, k in zip(xas, ks)]})}
+             for xa, k in zip(xas, ks)]}), "qsgd_quantize": (
+        lambda: ops.qsgd_quantize_many(xs, noises, xnorms, 16, cs),
+        lambda: [qsgd.plain(x, noise, xnorm, 16, qsgd.scale(16, c))
+                 for x, noise, xnorm, c in zip(xs, noises, xnorms, cs)], {})}
     for kname, (kern, plain, libs) in timed.items():
         K[kname].ms, K[kname].plain_ms = device_ms(kern), device_ms(plain)
         lib_ms = {lname: device_ms(fn) for lname, fn in libs.items()}
-        K[kname].library_ms = min(lib_ms.values())
-        print("step ms " + json.dumps({
-            "kernel": kname, "leaves": len(xs), "ms": K[kname].ms,
-            "plain_ms": K[kname].plain_ms, "library_ms": lib_ms}))
+        if lib_ms:
+            K[kname].library_ms = min(lib_ms.values())
+        line = {"kernel": kname, "leaves": len(xs), "ms": K[kname].ms,
+                "plain_ms": K[kname].plain_ms, "library_ms": lib_ms}
+        if kname == "qsgd_quantize":
+            line["per_leaf_launches_ms"] = per_leaf_sum
+        print("step ms " + json.dumps(line))
 
 
 class RecordingDraws:
@@ -437,6 +501,8 @@ def run_main_path(K):
     from repro_torch.core.compression import make_compressor
     from repro_torch.core.dfl import replicate
     from repro_torch.core.rng import GeneratorDraws, ReplayDraws
+    from repro_torch.core.substrate import DenseSubstrate
+    from repro_torch.core.topology import ring
     from repro_torch.kernels import ops, qsgd, topk
     from repro_torch.launch.cnn_run import RunSpec, run_dfl_cnn
     from repro_torch.models.cnn import init_cnn
@@ -501,25 +567,26 @@ def run_main_path(K):
               f"{CPU_CONSENSUS_RTOL}), {len(draws.table)} draws replayed")
 
     # K5 and K6 on the main path: TopK and QSGD on every node's slice of
-    # each stacked leaf
+    # each stacked leaf, through the substrate's compress hook (TopK leaf by
+    # leaf, QSGD in one K6 launch for the tree)
     params = {k: v + 0.01 * torch.randn_like(v)
               for k, v in replicate(leaves, 10).items()}
     draws = GeneratorDraws(0, 10, leaves, "cuda")
-    for name, kw, kernels in (("top_k", {"frac": 0.67},
-                               ("topk_threshold", "topk_mask")),
-                              ("qsgd", {"levels": 16}, ("qsgd_quantize",))):
+    sub = DenseSubstrate(ring(10))
+    for name, kw, expect_launches in (
+            ("top_k", {"frac": 0.67},
+             {"topk_threshold": sum(select_launches([d]) for d in sizes),
+              "topk_mask": len(leaves)}),
+            ("qsgd", {"levels": 16}, {"qsgd_quantize": 1})):
         comp = make_compressor(name, **kw)
         noise = {k: comp.draw(draws, 0, 0, k, v[0].numel())
                  for k, v in params.items()}
         ops.reset_launches()
-        compressed = {k: comp.per_node(v, noise[k]) for k, v in params.items()}
+        compressed = sub.compress(comp, params, draws, 0, 0)
         torch.cuda.synchronize()
         counts = dict(ops.LAUNCHES)
         expect = dict.fromkeys(K, 0)
-        expect.update(dict.fromkeys(kernels, len(leaves)))
-        if name == "top_k":
-            expect["topk_threshold"] = sum(select_launches([d])
-                                           for d in sizes)
+        expect.update(expect_launches)
         require(counts == expect, f"{name} compressor: launches {counts}, "
                 f"expected {expect}")
         for k, v in params.items():
@@ -533,7 +600,7 @@ def run_main_path(K):
                     16, qsgd_c(16, rows.shape[1])))
             require(same_bits(compressed[k].reshape(10, -1), want),
                     f"{name} compressor differs from its plain version on {k}")
-        print(f"{name} compressor launches " + json.dumps(counts))
+        print(f"{name} compress launches " + json.dumps(counts))
         for key in totals:
             totals[key] += counts[key]
     for key, n in totals.items():

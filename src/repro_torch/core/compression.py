@@ -12,11 +12,13 @@ uniform draws as a tensor (``draw_shape`` says which), which the round
 gets from the RNG seam (``repro_torch.core.rng``). On CUDA tensors TopK's
 threshold select and mask run K4 and K5, QSGD runs K6 and RandK's
 threshold over its scores runs K4 (``repro_torch.kernels.ops``).
+``per_node_many`` applies Q to every stacked leaf of a tree: leaf by leaf,
+but for QSGD one K6 call for the leaves of each dtype.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +81,12 @@ class Compressor:
         """Q applied to each node's slice x[i] of a stacked leaf, with
         ``draws`` ``[N, *draw_shape(x[i].numel())]``."""
         return x
+
+    def per_node_many(self, xs: Sequence[torch.Tensor],
+                      draws: Sequence[Optional[torch.Tensor]]
+                      ) -> List[torch.Tensor]:
+        """``per_node`` on each stacked leaf ``xs[i]`` with ``draws[i]``."""
+        return [self.per_node(x, u) for x, u in zip(xs, draws)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,11 +185,24 @@ class QSGD(Compressor):
         return (d,)
 
     def per_node(self, x, draws=None):
-        rows = x.reshape(x.shape[0], -1)
-        noise = _rows_draws(self, rows, draws)
-        norm = torch.linalg.vector_norm(rows.float(), dim=1)
-        return ops.qsgd_quantize(rows, noise, norm, self.levels,
-                                 self._c(rows.shape[1])).reshape(x.shape)
+        return self.per_node_many([x], [draws])[0]
+
+    def per_node_many(self, xs, draws):
+        """Every leaf's per-node f32 norm, then one K6 call for the leaves
+        of each dtype (one call for a tree of one dtype)."""
+        rows = [x.reshape(x.shape[0], -1) for x in xs]
+        noises = [_rows_draws(self, r, u) for r, u in zip(rows, draws)]
+        out = [None] * len(rows)
+        for dtype in dict.fromkeys(r.dtype for r in rows):
+            idx = [i for i, r in enumerate(rows) if r.dtype == dtype]
+            qs = ops.qsgd_quantize_many(
+                [rows[i] for i in idx], [noises[i] for i in idx],
+                [torch.linalg.vector_norm(rows[i].float(), dim=1)
+                 for i in idx],
+                self.levels, [self._c(rows[i].shape[1]) for i in idx])
+            for i, q in zip(idx, qs):
+                out[i] = q.reshape(xs[i].shape)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,9 +253,15 @@ def make_compressor(name: str, **kwargs) -> Compressor:
 def compress_tree(comp: Compressor, tree: Dict[str, torch.Tensor],
                   draws: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Dict[str, torch.Tensor]:
-    """Apply Q leaf-wise to one node's parameters, with each leaf's draws."""
-    return {name: comp(leaf, None if draws is None else draws[name])
-            for name, leaf in tree.items()}
+    """Apply Q leaf-wise to one node's parameters, with each leaf's draws
+    (of ``draw_shape``): every leaf a stack of one node, all through one
+    ``per_node_many`` call (under QSGD one K6 call per dtype)."""
+    rows = [leaf.reshape(1, -1) for leaf in tree.values()]
+    us = [None if draws is None
+          else draws[name].reshape((1,) + comp.draw_shape(r.shape[1]))
+          for name, r in zip(tree, rows)]
+    return {name: q.reshape(leaf.shape) for (name, leaf), q in
+            zip(tree.items(), comp.per_node_many(rows, us))}
 
 
 def tree_wire_bits(comp: Compressor, tree) -> float:

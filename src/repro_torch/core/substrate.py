@@ -2,7 +2,7 @@
 
 ``repro_torch.core.dfl`` writes the round once against ``NodeSubstrate``;
 ``DenseSubstrate`` holds all N nodes stacked on a leading ``[N, ...]`` axis
-of every leaf, which is how one card holds them. Its two hooks reach the
+of every leaf, which is how one card holds them. Its hooks reach the
 kernels:
 
   * ``mix``        — one gossip step X <- X C: the gossip kernel (K1), one
@@ -14,8 +14,13 @@ kernels:
                      move-and-update (K3) per leaf;
                      QSGD: the gap's per-node f32 norm, the noise from the
                      RNG seam and the fused move-and-quantize (K2);
-                     any other compressor: the move (K7), Q on the gap
-                     with its draws from the seam, and ``y + q``.
+                     any other compressor: the move (K7), ``compress``
+                     on the gaps, and ``y + q``.
+  * ``compress``   — Q on every node's slice of each leaf of a tree
+                     whose leading axis is the node axis, with its draws
+                     from the seam: QSGD every leaf's per-node norm and one
+                     K6 call for the leaves of each dtype, any other
+                     compressor leaf by leaf.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ class NodeSubstrate:
       * ``mean_over_nodes(x)``   — mean over nodes of per-node values.
       * ``sum_per_node(x)``      — sum an array down to one value per node.
       * ``mean_tree(tree)``      — per-leaf f32 mean over nodes.
+      * ``compress(...)``        — Q on every node's slice of a tree.
       * ``choco_step(...)``      — one CHOCO-G iteration after the mix.
     """
 
@@ -58,6 +64,20 @@ class NodeSubstrate:
     def mean_tree(self, tree: Params) -> Params:
         raise NotImplementedError
 
+    def compress(self, comp: Compressor, tree: Params, draws=None,
+                 round_idx: int = 0, step: int = 0) -> Params:
+        """Q on every node's slice of each leaf of ``tree``, whose leading
+        axis is the node axis (the nodes this substrate holds), each leaf
+        with its draws for gossip step ``step`` of round ``round_idx`` from
+        the seam ``draws``: one ``per_node_many`` call for the tree, which
+        makes one K6 call per dtype under QSGD and goes leaf by leaf for
+        the other compressors."""
+        names = list(tree)
+        us = [comp.draw(draws, round_idx, step, name, tree[name][0].numel())
+              for name in names]
+        return dict(zip(names, comp.per_node_many([tree[name]
+                                                   for name in names], us)))
+
     def choco_step(self, comp: Compressor, x: Params, y: Params,
                    mixed_y: Params, gamma: float, draws=None,
                    round_idx: int = 0, step: int = 0
@@ -65,18 +85,18 @@ class NodeSubstrate:
         """Consensus move x += gamma (C y - y), compress the gap per node,
         update the estimates y += Q(x_new - y) (Alg. 2 l.6-7, 11); returns
         (x_new, y_new). The unfused composition: the move and the gap in
-        one pass (K7), then Q with its draws for gossip step ``step`` of
-        round ``round_idx`` from the seam ``draws``, then the add."""
+        one pass (K7) per leaf, then ``compress`` on every gap with the
+        draws for gossip step ``step`` of round ``round_idx`` from the seam
+        ``draws``, then the add."""
         n = self.num_nodes
-        x_new, y_new = {}, {}
+        x_new, gaps = {}, {}
         for name in x:
-            shape = x[name].shape
             a, b, my = (t[name].reshape(n, -1) for t in (x, y, mixed_y))
-            xn, d = ops.choco_move(a, b, my, gamma)
-            u = comp.draw(draws, round_idx, step, name, d.shape[1])
-            x_new[name] = xn.reshape(shape)
-            y_new[name] = (b + comp.per_node(d, u)).reshape(shape)
-        return x_new, y_new
+            x_new[name], gaps[name] = ops.choco_move(a, b, my, gamma)
+        q = self.compress(comp, gaps, draws, round_idx, step)
+        return ({name: v.reshape(x[name].shape) for name, v in x_new.items()},
+                {name: (y[name].reshape(n, -1) + q[name]).reshape(
+                    x[name].shape) for name in x})
 
     def consensus_sq(self, params: Params) -> torch.Tensor:
         """||X (I - J)||_F^2 / N (Lemma 1's drift), in f32."""

@@ -25,8 +25,10 @@ for each of the reference's seven Pallas kernels:
                                            every leaf of a list;
                                            ``topk_threshold`` for one.
   * ``topk_mask(x, thresh)``               K5, per-row keep-or-zero.
-  * ``qsgd_quantize(x, noise, norm, levels, c)``
-                                           K6, per-row QSGD.
+  * ``qsgd_quantize_many(xs, noises, norms, levels, cs)``
+                                           K6, per-row QSGD of every leaf
+                                           of a tree in one launch;
+                                           ``qsgd_quantize`` for one.
   * ``choco_move(x, y, my, gamma)``        K7, CHOCO move, (x_new, gap).
 """
 from __future__ import annotations
@@ -65,14 +67,17 @@ def _on_card(op: str, *tensors: torch.Tensor) -> bool:
     return dev.type == "cuda"
 
 
-def _check_leaf(op: str, name: str, t: torch.Tensor, shape=None) -> None:
+def _check_leaf(op: str, name: str, t: torch.Tensor, shape=None,
+                grid_rows: bool = True) -> None:
+    """A 2-D float32 or bfloat16 leaf, contiguous, of ``shape`` if given;
+    ``grid_rows``: its rows are a kernel's ``blockIdx.y``, at most 65,535."""
     if t.dtype not in DTYPES:
         raise TypeError(f"{op}: {name} has dtype {t.dtype}; kernels take "
                         "float32 and bfloat16")
     if t.dim() != 2 or t.shape[0] < 1 or t.shape[1] < 1:
         raise ValueError(f"{op}: {name} must be a non-empty [rows, cols] "
                          f"tensor, got {tuple(t.shape)}")
-    if t.shape[0] > 65535:
+    if grid_rows and t.shape[0] > 65535:
         raise ValueError(f"{op}: {t.shape[0]} rows exceed the launch grid")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, "
@@ -95,10 +100,11 @@ def _check_like(op: str, x: torch.Tensor, **tensors: torch.Tensor) -> None:
             raise TypeError(f"{op}: {name} is {t.dtype}, x is {x.dtype}")
 
 
-def _check_noise(op: str, noise: torch.Tensor, shape) -> None:
+def _check_noise(op: str, noise: torch.Tensor, shape,
+                 grid_rows: bool = True) -> None:
     if noise.dtype != torch.float32:
         raise TypeError(f"{op}: noise must be float32, got {noise.dtype}")
-    _check_leaf(op, "noise", noise, shape)
+    _check_leaf(op, "noise", noise, shape, grid_rows)
 
 
 def gossip_mix_many(xs: Sequence[torch.Tensor], nbr: torch.Tensor,
@@ -213,24 +219,44 @@ def choco_topk(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,
     return x_out, y_out
 
 
+def qsgd_quantize_many(xs: Sequence[torch.Tensor],
+                       noises: Sequence[torch.Tensor],
+                       norms: Sequence[torch.Tensor], levels: int,
+                       cs: Sequence[float]) -> List[torch.Tensor]:
+    """K6 over every leaf of ``xs`` (each ``[R_i, D_i]``, one dtype): per
+    row, ``sign(x) norm floor(s |x| / norm + noise) / (s c)`` in f32 (0
+    where ``norm[row]`` is not > 0), cast to x's dtype. ``noises[i]``
+    float32 of ``xs[i]``'s shape, ``norms[i]`` [R_i] float32, ``s =
+    levels`` for all leaves and ``cs[i]`` leaf i's c. One launch per
+    ``qsgd.MAX_LEAVES`` leaves, with no cap on the rows."""
+    op = "qsgd_quantize"
+    xs, noises, norms, cs = list(xs), list(noises), list(norms), list(cs)
+    if not xs or not len(xs) == len(noises) == len(norms) == len(cs):
+        raise ValueError(f"{op}: {len(xs)} leaves, {len(noises)} noises, "
+                         f"{len(norms)} norms and {len(cs)} c values")
+    on_card = _on_card(op, *xs, *noises, *norms)
+    for x, noise, norm in zip(xs, noises, norms):
+        _check_leaf(op, "x", x, grid_rows=False)
+        if x.dtype != xs[0].dtype:
+            raise TypeError(f"{op}: leaves of {x.dtype} and {xs[0].dtype}")
+        _check_noise(op, noise, x.shape, grid_rows=False)
+        _check_rows(op, "norm", norm, x.shape[0], torch.float32)
+    scs = [_qsgd.scale(levels, c) for c in cs]
+    if not on_card:
+        return [_qsgd.plain(x, noise, norm, levels, sc)
+                for x, noise, norm, sc in zip(xs, noises, norms, scs)]
+    outs = [torch.empty_like(x) for x in xs]
+    with torch.cuda.device(xs[0].device):
+        LAUNCHES[op] += _qsgd.launch_many(xs, noises, norms, float(levels),
+                                          scs, outs)
+    return outs
+
+
 def qsgd_quantize(x: torch.Tensor, noise: torch.Tensor, norm: torch.Tensor,
                   levels: int, c: float) -> torch.Tensor:
-    """K6: per row, ``sign(x) norm floor(s |x| / norm + noise) / (s c)`` in
-    f32 (0 where ``norm[row]`` is not > 0), cast to x's dtype. ``noise``
-    float32 of x's shape, ``norm`` [rows] float32, ``s = levels``."""
-    op = "qsgd_quantize"
-    on_card = _on_card(op, x, noise, norm)
-    _check_leaf(op, "x", x)
-    _check_noise(op, noise, x.shape)
-    _check_rows(op, "norm", norm, x.shape[0], torch.float32)
-    sc = _qsgd.scale(levels, c)
-    if not on_card:
-        return _qsgd.plain(x, noise, norm, levels, sc)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _qsgd.launch(x, noise, norm, float(levels), sc, out)
-    LAUNCHES[op] += 1
-    return out
+    """K6 on one leaf: ``qsgd_quantize_many([x], [noise], [norm], levels,
+    [c])``."""
+    return qsgd_quantize_many([x], [noise], [norm], levels, [c])[0]
 
 
 def choco_qsgd(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,
