@@ -36,8 +36,23 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    within the stated tolerance. Then one round each of C-DFL TopK, plain
    DFL and C-DFL QSGD split into its local and gossip phases, and
    profiled for the device's busy time.
-4. Print the kernels line, the total wall time, the card's name and power
-   limit, and the final ``{"ok": true, ...}`` line.
+4. The round executor on the same CNN and ring, plain DFL and C-DFL TopK,
+   maxima (4, 4): a warmup dispatch, the trajectory [[4,4],[2,1],[3,0]]
+   and a uniform K = 3 dispatch at (4, 4), with exact launch counts, no
+   build after the warmup, the state kept in place, the synchronizing CUDA
+   calls inside each dispatch counted and named, and each held against 3
+   sequential rounds on the card; then ms per round one round a dispatch
+   against 3 a dispatch (``benchmarks/bench_round_overhead.py``). One
+   plain-DFL round with ``mixing_impl="dense_power"`` against the iterated
+   round. K1 at ``fully_connected(10)`` (9 shifts), bitwise and timed over
+   the CIFAR leaves.
+5. The quickstart (``repro_torch.examples.quickstart``), 60 rounds of each
+   variant on the card, held against a CPU run (C-DFL QSGD with the card's
+   draws replayed); each paper-figure bench (``repro_torch.benchmarks``)
+   at 2 rounds (Table I at its 8-round floor) on MNIST into a temporary
+   directory, every row finite, Fig. 10's launches exact.
+6. Print the kernels line, the build and total wall times, the card's name
+   and power limit, and the final ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when ``torch.cuda.is_available()`` is
 false or when the ``src`` tree is missing.
@@ -455,15 +470,16 @@ def time_kernels(K, gen):
 
 
 class RecordingDraws:
-    """A run's RNG seam that keeps a host copy of its first round's draws,
-    so that the CPU can replay them (``repro_torch.core.rng``)."""
+    """A run's RNG seam that keeps a host copy of its first round's draws
+    (of every round's with ``every_round``), so that the CPU can replay
+    them (``repro_torch.core.rng``)."""
 
-    def __init__(self, inner):
-        self.inner, self.table = inner, {}
+    def __init__(self, inner, every_round=False):
+        self.inner, self.table, self.every_round = inner, {}, every_round
 
     def uniform(self, round_idx, step, leaf, shape):
         out = self.inner.uniform(round_idx, step, leaf, shape)
-        if round_idx == 0:
+        if round_idx == 0 or self.every_round:
             self.table[(round_idx, step, leaf)] = out.cpu().numpy()
         return out
 
@@ -683,6 +699,308 @@ def round_breakdown():
                               for e in top}}))
 
 
+def add_launches(K, counts):
+    for key, n in counts.items():
+        K[key].launches += n
+
+
+def expect_launches(K, **counts):
+    expect = dict.fromkeys(K, 0)
+    expect.update(counts)
+    return expect
+
+
+def check_full_mix(K, gen):
+    """Phase 4, K1 on ``fully_connected(10)``: 9 shifts, a [10, 9] table
+    and [10, 10] weights, every block a 10-row slab; bitwise against the
+    plain version over the CIFAR leaves in f32 and bf16, then timed per
+    step (one call over all 10 leaves) against its bound and ``C.T @ X``."""
+    from repro_torch.core.mixing import gossip_table
+    from repro_torch.core.topology import fully_connected
+    from repro_torch.kernels import gossip_mix, ops
+    from repro_torch.models.cnn import init_cnn
+
+    topo = fully_connected(10)
+    nbr, w = (torch.from_numpy(a).cuda() for a in gossip_table(topo))
+    require(tuple(nbr.shape) == (10, 9) and tuple(w.shape) == (10, 10),
+            f"full(10) table {tuple(nbr.shape)}, weights {tuple(w.shape)}")
+    leaves = init_cnn(torch.Generator().manual_seed(0), "cifar", "cuda")
+    xs = [torch.randn(10, v.numel(), generator=gen, device="cuda")
+          for v in leaves.values()]
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = [x.to(dtype) for x in xs]
+        for got, x in zip(ops.gossip_mix_many(xd, nbr, w), xd):
+            want = gossip_mix.plain(x, nbr, w)
+            K["gossip_mix"].max_abs_err = max(K["gossip_mix"].max_abs_err,
+                                              max_abs_err(got, want))
+            require(same_bits(got, want),
+                    f"gossip_mix differs on full(10), D {x.shape[1]} {dtype}")
+    deg = nbr.shape[1]
+    nbytes = sum(8 * x.numel() + 4 * nbr.numel() + 4 * w.numel() for x in xs)
+    nops = (2 * deg + 1) * sum(x.numel() for x in xs)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / F32_OPS_PER_S * 1e3
+    ct = torch.as_tensor(topo.mixing.T, dtype=torch.float32, device="cuda")
+    print("step ms " + json.dumps({
+        "kernel": "gossip_mix", "topology": "fully_connected(10)",
+        "shifts": deg, "leaves": len(xs), "bitwise": "f32, bf16",
+        "ms": device_ms(lambda: ops.gossip_mix_many(xs, nbr, w)),
+        "plain_ms": device_ms(lambda: [gossip_mix.plain(x, nbr, w)
+                                       for x in xs]),
+        "library_ms": {"C.T @ X": device_ms(lambda: [ct @ x for x in xs])},
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}))
+
+
+def close(a, b, rtol):
+    return abs(a - b) <= rtol * abs(b)
+
+
+def clone_state(state):
+    from repro_torch.core.tree import tree_map
+    return state._replace(params=tree_map(torch.clone, state.params),
+                          opt_state=tree_map(torch.clone, state.opt_state),
+                          hat_params=tree_map(torch.clone, state.hat_params))
+
+
+def run_executor_phase(K):
+    """Phase 4, the round executor on the CIFAR CNN at full width, 10-node
+    ring, maxima (4, 4), plain DFL and C-DFL TopK (frac 0.67, gamma 0.6):
+    one warmup dispatch at the default (1, 0), which gossips nothing, so
+    that the first gossip step's set-up falls inside a measured dispatch,
+    then the trajectory [[4,4],[2,1],[3,0]], then a uniform
+    K = 3 dispatch at (4, 4), each with exact launch counts and its
+    synchronizing CUDA calls counted; no build after the warmup; the state
+    kept in place. Each dispatch is held against 3 sequential static rounds
+    on the card from the same state and batches (loss rtol 1e-4, consensus
+    1e-3), with cuDNN held to its deterministic algorithms, since its
+    backward otherwise varies from run to run and early rounds amplify it.
+    Then ms per round, one round a dispatch against three, over a
+    re-planned 12-round schedule, with cuDNN's defaults."""
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.core import (RoundExecutor, consensus_distance,
+                                  make_round_fn)
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+
+    traj = [(4, 4), (2, 1), (3, 0)]
+    for label, compression in (("dfl", ""), ("cdfl_topk", "top_k")):
+        s = bro.cnn_setup(compression, rounds=12, device="cuda")
+        ex = RoundExecutor(s.cfg(4, 4), s.loss_fn, s.opt)
+        state = s.fresh()
+        sizes = [v[0].numel() for v in state.params.values()]
+
+        def stacked(r0):
+            return tuple(torch.stack([s.batches[r][j]
+                                      for r in range(r0, r0 + 3)])
+                         for j in (0, 1))
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            ex.warmup(state, stacked(0))
+            builds = ex.compile_count
+            ptrs = [t.data_ptr() for t in tree_leaves(state)
+                    if torch.is_tensor(t)]
+            worst = dict.fromkeys(("loss", "consensus_sq"), 0.0)
+            for what, run, rows, r0 in (
+                    ("trajectory", lambda st: ex.dispatch_trajectory(
+                        st, stacked(0), traj), traj, 0),
+                    ("uniform", lambda st: ex.dispatch(st, stacked(3), 4, 4),
+                     [(4, 4)] * 3, 3)):
+                ref = clone_state(state)
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                (state, m), syncs = bro.syncs_in_dispatch(lambda: run(state))
+                torch.cuda.synchronize()
+                counts = dict(ops.LAUNCHES)
+                steps = sum(t2 for _, t2 in rows)
+                expect = expect_launches(K, gossip_mix=steps)
+                if compression:
+                    expect.update(
+                        topk_threshold=steps * select_launches(sizes),
+                        choco_topk=steps * len(sizes))
+                require(counts == expect, f"executor {label} {what}: "
+                        f"launches {counts}, expected {expect}")
+                add_launches(K, counts)
+                require(m["tau1"].tolist() == [t1 for t1, _ in rows]
+                        and m["tau2"].tolist() == [t2 for _, t2 in rows],
+                        f"executor {label} {what}: realized taus "
+                        f"{m['tau1'].tolist()} {m['tau2'].tolist()}")
+                print(f"executor {label} {what} " + json.dumps({
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "syncs_in_dispatch": len(syncs), "sync_sites": syncs,
+                    "loss": m["loss"].tolist(),
+                    "consensus": m["consensus_sq"].tolist()}))
+                for k, (t1, t2) in enumerate(rows):
+                    xs, ys = s.batches[r0 + k]
+                    ref, mr = make_round_fn(s.cfg(t1, t2), s.loss_fn, s.opt)(
+                        ref, (xs[:t1], ys[:t1]))
+                    for key, rtol in (("loss", CPU_LOSS_RTOL),
+                                      ("consensus_sq", CPU_CONSENSUS_RTOL)):
+                        a, b = float(m[key][k]), float(mr[key])
+                        worst[key] = max(worst[key], abs(a - b) / abs(b))
+                        require(close(a, b, rtol), f"executor {label} "
+                                f"{what} round {k}: {key} {a} vs {b} "
+                                f"sequentially, beyond rtol {rtol}")
+                a, b = (float(consensus_distance(x.params))
+                        for x in (state, ref))
+                require(close(a, b, CPU_CONSENSUS_RTOL), f"executor {label} "
+                        f"{what}: final consensus {a} vs {b} sequentially")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        require(ex.compile_count == builds, f"executor {label}: "
+                f"{ex.compile_count - builds} builds after the warmup")
+        require([t.data_ptr() for t in tree_leaves(state)
+                 if torch.is_tensor(t)] == ptrs,
+                f"executor {label}: the state did not stay in place")
+        print(f"executor {label}: both dispatches match 3 sequential rounds "
+              f"each (loss rtol {CPU_LOSS_RTOL}, consensus "
+              f"{CPU_CONSENSUS_RTOL}); largest relative differences "
+              f"{json.dumps(worst)}; builds {ex.compile_count}")
+        timing = bro.bench(s, bro.replan_schedule(12, 3), 3)
+        print(f"executor {label} ms per round " + json.dumps({
+            mode: {k: v for k, v in timing[mode].items()
+                   if k in ("ms_per_round", "dispatches",
+                            "builds_after_warmup", "builds")}
+            for mode in ("legacy", "executor_round", "executor_superstep")}
+            | {"superstep_vs_round": timing["superstep_vs_round"],
+               "schedule": "(4,4) x6 then (2,1) x6"}))
+
+
+def run_dense_power(K):
+    """Phase 4, one plain-DFL CIFAR round with ``mixing_impl="dense_power"``
+    (one C^4 product, no K1) against the iterated round (4 K1 launches)."""
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.core import make_round_fn
+    from repro_torch.kernels import ops
+
+    s = bro.cnn_setup("", rounds=1, device="cuda")
+    out = {}
+    for impl, k1 in (("dense_power", 0), ("dense", 4)):
+        cfg = dataclasses.replace(s.cfg(4, 4), mixing_impl=impl)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        _, m = make_round_fn(cfg, s.loss_fn, s.opt)(s.fresh(), s.batches[0])
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        require(counts == expect_launches(K, gossip_mix=k1),
+                f"{impl} round: launches {counts}")
+        add_launches(K, counts)
+        out[impl] = {k: float(v) for k, v in m.items()}
+    a, b = out["dense_power"]["consensus_sq"], out["dense"]["consensus_sq"]
+    require(close(a, b, 1e-4), f"dense_power consensus {a} vs iterated {b}")
+    print("dense_power round vs iterated " + json.dumps(out))
+
+
+def run_quickstart(K):
+    """Phase 5, the quickstart's three variants, 60 rounds each on the card
+    (K1 every gossip step, K2 every C-DFL QSGD step), each held against a
+    CPU run: loss and |w - w*| rtol 1e-4, consensus 1e-3; C-DFL QSGD with
+    the card's draws replayed, its consensus to rtol 1e-2: a gap within an
+    ulp of a level boundary can quantize to the next level on one device
+    and not on the other, and the final consensus (about 5e-6) is a
+    residual of nearly equal models, which one such flip moves by parts in
+    a thousand."""
+    from repro_torch.core.rng import GeneratorDraws, ReplayDraws
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.kernels import ops
+
+    rounds = 60
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    card = []
+    for label, cfg in qs.variants():
+        draws = (RecordingDraws(GeneratorDraws(1, qs.N, ["w"], "cuda"),
+                                every_round=True)
+                 if cfg.is_compressed else None)
+        card.append((qs.train(cfg, rounds, label, "cuda", draws), draws))
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    variants = qs.variants()
+    expect = expect_launches(
+        K, gossip_mix=rounds * sum(c.tau2 for _, c in variants),
+        choco_qsgd=rounds * sum(c.tau2 for _, c in variants
+                                if c.is_compressed))
+    require(counts == expect, f"quickstart: launches {counts}, expected "
+            f"{expect}")
+    add_launches(K, counts)
+    for (label, cfg), (got, draws) in zip(variants, card):
+        cpu = qs.train(cfg, rounds, label, "cpu",
+                       ReplayDraws(draws.table, "cpu") if draws else None)
+        pairs = {"loss": (got["losses"][-1], cpu["losses"][-1], 1e-4),
+                 "err": (got["err"], cpu["err"], 1e-4),
+                 "consensus": (got["consensus"][-1], cpu["consensus"][-1],
+                               1e-2 if draws else CPU_CONSENSUS_RTOL)}
+        for key, (a, b, rtol) in pairs.items():
+            require(math.isfinite(a) and close(a, b, rtol),
+                    f"quickstart {label}: {key} {a} on the card vs {b} on "
+                    f"the CPU, beyond rtol {rtol}")
+        worst = {key: max(abs(a - b) / abs(b) for a, b in zip(got[key],
+                                                             cpu[key]))
+                 for key in ("losses", "consensus")}
+        print(f"quickstart {' '.join(label.split())} card vs CPU "
+              + json.dumps({k: v for k, v in pairs.items()}
+                           | {"largest_relative_difference": worst}))
+    print("quickstart launches " + json.dumps(
+        {k: v for k, v in counts.items() if v}))
+
+
+def run_figures(K):
+    """Phase 5, every paper-figure bench on the card at 2 rounds (Table I
+    at its 8-round floor), MNIST, results into a temporary directory: every
+    row finite; Fig. 10's launches exact (its TopK runs: K4 and K3)."""
+    import tempfile
+
+    from repro_torch.benchmarks import (fig7_tau2, fig8_tau1, fig9_zeta,
+                                        fig10_cdfl, table1_methods)
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import init_cnn
+
+    sizes = [v.numel() for v in init_cnn(torch.Generator().manual_seed(0),
+                                         "mnist", "cuda").values()]
+    steps = 4 * 2  # tau2 x rounds of each Fig. 10 run
+    n_topk = sum(c == "top_k" for _, c, _ in fig10_cdfl.VARIANTS)
+    n_gossip = sum(c == "rand_gossip" for _, c, _ in fig10_cdfl.VARIANTS)
+    fig10_expect = expect_launches(
+        K, gossip_mix=steps * len(fig10_cdfl.VARIANTS),
+        topk_threshold=steps * n_topk * select_launches(sizes),
+        choco_topk=steps * n_topk * len(sizes),
+        choco_move=steps * n_gossip * len(sizes))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run in (
+                ("fig7", lambda: fig7_tau2.run(rounds=2, device="cuda",
+                                               results_dir=tmp)),
+                ("fig8", lambda: fig8_tau1.run(rounds=2, device="cuda",
+                                               results_dir=tmp)),
+                ("fig9", lambda: fig9_zeta.run(rounds=2, device="cuda",
+                                               results_dir=tmp)),
+                ("fig10", lambda: fig10_cdfl.run(rounds=2, device="cuda",
+                                                 results_dir=tmp)),
+                ("table1", lambda: table1_methods.run(
+                    budget_iters=16, device="cuda", results_dir=tmp))):
+            files = len(os.listdir(tmp))
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            rows = run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = dict(ops.LAUNCHES)
+            for row in rows:
+                for key, v in row.items():
+                    if key == "consensus" or isinstance(v, float):
+                        require(math.isfinite(float(v)),
+                                f"{name}: {key} = {v} in {row}")
+            if name == "fig10":
+                require(counts == fig10_expect, f"fig10: launches {counts}, "
+                        f"expected {fig10_expect}")
+            require(len(os.listdir(tmp)) == files + 1,
+                    f"{name}: wrote no result file")
+            add_launches(K, counts)
+            print(f"{name}: {len(rows)} rows in {dt:.2f} s, launches "
+                  + json.dumps({k: v for k, v in counts.items() if v}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -696,8 +1014,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = t0 = time.perf_counter()
     libs = build.build_all()
-    print(f"build: {len(libs)} libraries in "
-          f"{time.perf_counter() - t0:.2f} s -> {build.BUILD_DIR}")
+    t_build = time.perf_counter() - t0
+    print(f"build: {len(libs)} libraries in {t_build:.2f} s -> "
+          f"{build.BUILD_DIR}")
 
     K = {k.name: k for k in (
         Kernel("gossip_mix", "src/repro_torch/kernels/csrc/gossip_mix.cu",
@@ -719,7 +1038,13 @@ def main():
     time_kernels(K, gen)
     run_main_path(K)
     round_breakdown()
-    print(f"wall: {time.perf_counter() - t_start:.1f} s from the build on")
+    run_executor_phase(K)
+    run_dense_power(K)
+    check_full_mix(K, gen)
+    run_quickstart(K)
+    run_figures(K)
+    print(f"wall: {time.perf_counter() - t_start:.1f} s from the build on "
+          f"({t_build:.2f} s of it the build)")
     card = card_line()
     print(json.dumps({"kernels": [k.record() for k in K.values()]}))
     print(card)

@@ -2,13 +2,16 @@
 
 Every leaf carries a leading node dimension N; one gossip step is X <- X C
 along it. ``mix_dense`` is the literal matrix form, correct for any doubly
-stochastic C (a plain product, as the reference leaves it to XLA). The
-circulant case runs the gossip kernel through ``gossip_table`` and
-``repro_torch.kernels.ops.gossip_mix`` (``core.substrate.DenseSubstrate``).
+stochastic C (a plain product, as the reference leaves it to XLA), with an
+optional edge mask (``masked_mixing_matrix``); ``mix_dense_power`` folds
+tau2 plain steps into one product with C^tau2. The circulant case runs the
+gossip kernel through ``gossip_table`` and
+``repro_torch.kernels.ops.gossip_mix_many``
+(``core.substrate.DenseSubstrate``).
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,23 +22,77 @@ Params = Dict[str, torch.Tensor]
 
 __all__ = [
     "mix_dense",
+    "mix_dense_power",
+    "masked_mixing_matrix",
     "gossip_table",
     "masked_shift_weights",
     "gossip_copies_per_step",
+    "mixing_bytes_per_step",
 ]
 
 
-def mix_dense(params: Params, topology: Topology) -> Params:
+def _edge_tables(topology: Topology) -> Tuple[np.ndarray, np.ndarray]:
+    """(has_edge [N, N] bool, eidx [N, N] int64) over ``topology.edges()``."""
+    n = topology.num_nodes
+    has_edge = np.zeros((n, n), dtype=bool)
+    eidx = np.zeros((n, n), dtype=np.int64)
+    for e, (a, b) in enumerate(topology.edges()):
+        has_edge[a, b] = has_edge[b, a] = True
+        eidx[a, b] = eidx[b, a] = e
+    return has_edge, eidx
+
+
+def masked_mixing_matrix(topology: Topology, edge_mask: torch.Tensor,
+                         dtype) -> torch.Tensor:
+    """The confusion matrix of a round with masked edges, on
+    ``edge_mask``'s device. ``edge_mask`` is an [E] 0/1 vector over
+    ``topology.edges()``; a masked edge carries no gossip, and its weight
+    moves onto both endpoints' diagonals, so the matrix stays symmetric
+    doubly stochastic. At all-ones masks every term is an exact ``* 1`` or
+    ``+ 0`` and the matrix is bitwise ``topology.mixing``."""
+    dev = edge_mask.device
+    cm = torch.as_tensor(topology.mixing, dtype=dtype, device=dev)
+    if topology.num_edges == 0:
+        return cm
+    has_edge, eidx = (torch.from_numpy(a).to(dev)
+                      for a in _edge_tables(topology))
+    one = torch.ones((), dtype=dtype, device=dev)
+    gate = torch.where(has_edge, edge_mask.to(dtype)[eidx], one)
+    # removed[i] = sum_j C[j, i] (1 - gate[j, i]): the weight node i no
+    # longer receives, returned to its self loop
+    removed = torch.sum(cm * (one - gate), dim=0)
+    return cm * gate + torch.diag(removed)
+
+
+def mix_dense(params: Params, topology: Topology,
+              edge_mask: Optional[torch.Tensor] = None) -> Params:
     """One gossip step as a dense contraction over the node axis: every
     leaf [N, ...] -> [N, ...] with out[i] = sum_j C[j, i] leaf[j], in the
-    leaf dtype promoted to at least f32."""
+    leaf dtype promoted to at least f32. ``edge_mask`` ([E] over
+    ``topology.edges()``) replaces C with ``masked_mixing_matrix``, bitwise
+    the same at all ones."""
 
     def mix_leaf(x: torch.Tensor) -> torch.Tensor:
         dtype = torch.promote_types(x.dtype, torch.float32)
-        cm = torch.as_tensor(topology.mixing, dtype=dtype, device=x.device)
+        if edge_mask is None:
+            cm = torch.as_tensor(topology.mixing, dtype=dtype, device=x.device)
+        else:
+            cm = masked_mixing_matrix(topology, edge_mask.to(x.device), dtype)
         return torch.einsum("ji,j...->i...", cm, x.to(dtype)).to(x.dtype)
 
     return {name: mix_leaf(x) for name, x in params.items()}
+
+
+def mix_dense_power(params: Params, topology: Topology, tau2: int) -> Params:
+    """tau2 plain gossip steps as one contraction with C^tau2, the power
+    taken in float64 by numpy as the reference does. Equal to tau2
+    ``mix_dense`` steps up to rounding; plain DFL only, since C-DFL
+    compresses between steps."""
+    cpow = np.linalg.matrix_power(topology.mixing, int(tau2))
+    topo_pow = Topology(name=f"{topology.name}^{int(tau2)}", mixing=cpow,
+                        neighbors=topology.neighbors,  # unused by mix_dense
+                        self_weights=np.diag(cpow).copy())
+    return mix_dense(params, topo_pow)
 
 
 def gossip_table(topology: Topology) -> Tuple[np.ndarray, np.ndarray]:
@@ -91,3 +148,11 @@ def gossip_copies_per_step(topology: Topology, engine: str) -> int:
     if engine == "dense":
         return max(topology.num_nodes - 1, 0)
     raise ValueError(f"unknown engine {engine!r}")
+
+
+def mixing_bytes_per_step(topology: Topology, param_bytes: int,
+                          sparse: bool) -> int:
+    """Bytes each node receives per gossip step: ``param_bytes`` times
+    ``gossip_copies_per_step`` of the sparse or the dense engine."""
+    engine = "sparse" if sparse else "dense"
+    return gossip_copies_per_step(topology, engine) * param_bytes

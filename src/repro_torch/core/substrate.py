@@ -31,6 +31,7 @@ import torch
 from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.compression import QSGD, Compressor, TopK
 from repro_torch.core.topology import Topology
+from repro_torch.device import to_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.choco_fused import gap
 
@@ -120,10 +121,11 @@ class DenseSubstrate(NodeSubstrate):
         self._tables_on = {}
 
     def _table_on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The gossip table on ``device``, copied there at its first mix
+        without blocking the host."""
         if device not in self._tables_on:
-            nbr, w = self._table
-            self._tables_on[device] = (torch.from_numpy(nbr).to(device),
-                                       torch.from_numpy(w).to(device))
+            self._tables_on[device] = tuple(
+                to_device(torch.from_numpy(a), device) for a in self._table)
         return self._tables_on[device]
 
     def mix(self, tree):

@@ -37,6 +37,15 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert "repro_torch.kernels.ops" in mods
     assert {"repro_torch.core.rng", "repro_torch.kernels.qsgd",
             "repro_torch.kernels.choco_update"} <= set(mods)
+    assert {"repro_torch.core.executor", "repro_torch.core.metrics",
+            "repro_torch.optim.schedules", "repro_torch.examples.quickstart",
+            "repro_torch.benchmarks.common", "repro_torch.benchmarks.run",
+            "repro_torch.benchmarks.fig7_tau2",
+            "repro_torch.benchmarks.fig8_tau1",
+            "repro_torch.benchmarks.fig9_zeta",
+            "repro_torch.benchmarks.fig10_cdfl",
+            "repro_torch.benchmarks.table1_methods",
+            "repro_torch.benchmarks.bench_round_overhead"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == []
 
