@@ -23,7 +23,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    (device time from CUDA-graph replay, CUDA events): K1, K4 and K6 one
    call over all 10 leaves of a gossip step (K6 also one launch per leaf,
    summed), and at the d1 leaf alone (K6 in bf16 too); the others one
-   launch per leaf, summed over a step.
+   launch per leaf, summed over a step. The RNG seam's draws on the card
+   bitwise the CPU's (``check_seam``).
 3. The main path, through ``run_dfl_cnn``: the paper's CIFAR CNN at full
    width on a 10-node ring, tau1 = tau2 = 4, batch 16, gamma 0.6, for 3
    rounds each of C-DFL TopK (frac 0.67), plain DFL, C-DFL QSGD (16
@@ -48,14 +49,48 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the CIFAR leaves.
 5. The quickstart (``repro_torch.examples.quickstart``), 60 rounds of each
    variant on the card, held against a CPU run (C-DFL QSGD with the card's
-   draws replayed); each paper-figure bench (``repro_torch.benchmarks``)
+   draws replayed, as a whole run within ``QSGD_RUN_RTOL``, which a
+   control run with K2 perturbed must break, and round by round from the
+   card's state); each paper-figure bench (``repro_torch.benchmarks``)
    at 2 rounds (Table I at its 8-round floor) on MNIST into a temporary
    directory, every row finite, Fig. 10's launches exact.
-6. Print the kernels line, the build and total wall times, the card's name
-   and power limit, and the final ``{"ok": true, ...}`` line.
+6. Sporadic participation at full width (``run_participation_phase``):
+   the CIFAR CNN, 10-node ring, tau1 = tau2 = 4, 6 rounds of a fault plan
+   (node 3 crashed over rounds 1-2, edges (0, 1) and (4, 5) out over
+   rounds 2-4, sporadic participation over rounds 3-5) in two K = 3
+   dispatches of ``RoundExecutor(participation=True)``, for plain DFL,
+   C-DFL TopK and C-DFL QSGD: all-ones rows bitwise the unmasked
+   executor, node 3's parameters and step bitwise frozen, exact launches
+   (K1 once per gossip step), no synchronizing call in a dispatch; each
+   round held against the CPU from the card's state, the 6 rounds against
+   the CPU's run of the same rows (``CIFAR_RUN_RTOL``), both with the
+   card's draws. 6b: the quickstart's convex problem under a 60-round
+   fault plan, plain DFL, C-DFL TopK and QSGD, each whole run on the card
+   against the CPU's (``MASKED_RUN_RTOL``), which a control run with K1
+   perturbed must break.
+7. The node-batched engine at full width (``run_batched_phase``): the
+   CIFAR CNN over V = 1000 virtual nodes, sampled cohorts of 10, 3 rounds
+   of plain DFL and C-DFL QSGD: rows outside the cohorts bitwise
+   untouched, the population kept in place, peak device memory; an
+   identity cohort at V = C = 10 bitwise the dense executor.
+8. ``bench_faults --smoke --check``, ``bench_megascale --smoke --check``
+   and the quadratic ``dispatch`` measurement of
+   ``bench_round_overhead`` (its superstep over legacy ratio printed, its
+   2x bar not applied).
+9. ``run_dfl_cnn`` twice under ``deterministic=True``: bitwise equal
+   histories; once more with ``deterministic=False`` for the switch's
+   cost in round time.
+10. Print the kernels line, the build and total wall times, the card's
+   name and power limit, and the final ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when ``torch.cuda.is_available()`` is
 false or when the ``src`` tree is missing.
+
+``python3 chip_smoke.py --calibrate-qsgd`` prints, after the build and the
+seam check, the readings behind the whole-run limits of phases 5, 6 and
+6b (``calibrate_qsgd``, ``run_masked_quickstart`` over seeds and
+controls, ``cifar_sensitivity``, phase 6 with controls), holding none of
+them, and exits.
 """
 import dataclasses
 import json
@@ -477,11 +512,39 @@ class RecordingDraws:
     def __init__(self, inner, every_round=False):
         self.inner, self.table, self.every_round = inner, {}, every_round
 
-    def uniform(self, round_idx, step, leaf, shape):
-        out = self.inner.uniform(round_idx, step, leaf, shape)
-        if round_idx == 0 or self.every_round:
-            self.table[(round_idx, step, leaf)] = out.cpu().numpy()
-        return out
+    def uniform(self, round_idx, step, leaf, shape, node_ids=None):
+        return self.uniform_many(round_idx, step, [leaf], [shape],
+                                 node_ids)[0]
+
+    def uniform_many(self, round_idx, step, leaves, shapes, node_ids=None):
+        outs = self.inner.uniform_many(round_idx, step, leaves, shapes,
+                                       node_ids)
+        if node_ids is None and (round_idx == 0 or self.every_round):
+            for leaf, out in zip(leaves, outs):
+                self.table[(round_idx, step, leaf)] = out.cpu().numpy()
+        return outs
+
+
+def check_seam():
+    """The RNG seam's draws on the card are bitwise the CPU's: every CIFAR
+    leaf, for every node of a 10-node seam and for id sets of a
+    1000-node population."""
+    from repro_torch.core.rng import GeneratorDraws
+    from repro_torch.models.cnn import init_cnn
+
+    params = init_cnn(torch.Generator().manual_seed(0), "cifar", "cpu")
+    for nodes, key, ids in ((10, (0, 0), None), (10, (3, 2), None),
+                            (1000, (5, 3), [999, 3, 42]),
+                            (1000, (2, 1), range(10))):
+        card, host = (GeneratorDraws(7, nodes, params, dev)
+                      for dev in ("cuda", "cpu"))
+        for name, v in params.items():
+            a = card.uniform(*key, name, tuple(v.shape), ids)
+            b = host.uniform(*key, name, tuple(v.shape), ids)
+            require(same_bits(a.cpu(), b), f"seam: {name} at {key}, ids "
+                    f"{ids}: the card's draws differ from the CPU's")
+    print("seam: the card's draws bitwise the CPU's (10 CIFAR leaves, 4 "
+          "id sets)")
 
 
 def select_launches(sizes):
@@ -892,15 +955,156 @@ def run_dense_power(K):
     print("dense_power round vs iterated " + json.dumps(out))
 
 
+def replay_rounds(round_fn, cpu_round_fn, state, batches, extra, draws,
+                  cpu_draws):
+    """Rounds of ``round_fn`` on the card from ``state`` (``batches[r]`` and
+    the host arguments ``extra[r]`` of round r), each repeated on the CPU
+    by ``cpu_round_fn`` from a host copy of the card's state before it,
+    with ``cpu_draws``: (final card state, card metrics, CPU metrics and
+    outputs, round by round). The card's draws come from ``draws``."""
+    from repro_torch.core.tree import tree_map
+
+    card, cpu = [], []
+    state = state._replace(draws=draws)
+    for b, args in zip(batches, extra):
+        host = to_cpu_state(state, cpu_draws)
+        state, m = round_fn(state, b, *args)
+        card.append({k: float(v) for k, v in m.items()})
+        out, mc = cpu_round_fn(host, tree_map(lambda t: t.cpu(), b), *args)
+        cpu.append(({k: float(v) for k, v in mc.items()}, out))
+    return state, card, cpu
+
+
+# C-DFL QSGD's 60-round quickstart, card against CPU with the same draws:
+# a gap within an ulp of a level boundary quantizes to the next level on one
+# device and not on the other, and those flips carry the two runs apart by
+# parts in ten thousand whatever the draws. The limits sit between the
+# largest difference over the seam's seeds and a control run whose K2 has
+# ``x_new`` shifted by 1e-5 (QSGD_CONTROL), which must break them (readings:
+# ``python3 chip_smoke.py --calibrate-qsgd``, PERF.md).
+QSGD_RUN_RTOL = {"loss": 1e-3, "err": 1e-3, "largest_loss": 1e-3,
+                 "consensus": 1e-2}
+QSGD_CONTROL = ("choco_qsgd", "x_shift", 1e-5)
+
+
+def whole_run_diffs(got, cpu):
+    """Relative differences of a quickstart run on the card from one on the
+    CPU: final loss, |w - w*|, final consensus, and the largest loss
+    difference over the rounds."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    return {"loss": rel(got["losses"][-1], cpu["losses"][-1]),
+            "err": rel(got["err"], cpu["err"]),
+            "consensus": rel(got["consensus"][-1], cpu["consensus"][-1]),
+            "largest_loss": max(rel(a, b) for a, b in zip(got["losses"],
+                                                         cpu["losses"]))}
+
+
+def within_run_rtol(diffs):
+    return all(math.isfinite(diffs[k]) and diffs[k] <= v
+               for k, v in QSGD_RUN_RTOL.items())
+
+
+class perturbed:
+    """Inside the block, kernel ``op`` of ``ops`` is perturbed on the card:
+    ``("x_scale", e)`` writes its ``x_new`` (K2: ``choco_qsgd``) or every
+    output leaf (K1: ``gossip_mix_many``) times 1 + e, ``("x_shift", e)``
+    adds e to it, ``("noise", e)`` shifts K2's noise up by e (clamped below
+    1), a quantizer that rounds up too often. A small bias every gossip
+    step: the controls that a whole-run check must catch. The CPU's plain
+    version is left alone."""
+
+    def __init__(self, op, kind, eps):
+        self.op, self.kind, self.eps = op, kind, eps
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.orig = ops, getattr(ops, self.op)
+        op, kind, eps, orig = self.op, self.kind, self.eps, self.orig
+
+        def bias(t):
+            return t * (1 + eps) if kind == "x_scale" else t + eps
+
+        def wrapped(x, *args):
+            on_card = (x[0] if op == "gossip_mix_many" else x).is_cuda
+            if not on_card:
+                return orig(x, *args)
+            if kind == "noise":
+                y, my, noise, *rest = args
+                noise = (noise + eps).clamp_(max=1 - 2.0 ** -24)
+                return orig(x, y, my, noise, *rest)
+            out = orig(x, *args)
+            if op == "gossip_mix_many":
+                return [bias(t) for t in out]
+            return (bias(out[0]), *out[1:])
+        setattr(ops, op, wrapped)
+
+    def __exit__(self, *exc):
+        setattr(self.ops, self.op, self.orig)
+
+
+def quickstart_qsgd_runs(cfg, label, seed, rounds=60):
+    """C-DFL QSGD's quickstart on the card under seam seed ``seed`` and on
+    the CPU with the card's draws replayed: (card history, CPU history,
+    the card's draw table)."""
+    from repro_torch.core.rng import GeneratorDraws, ReplayDraws
+    from repro_torch.examples import quickstart as qs
+
+    draws = RecordingDraws(GeneratorDraws(seed, qs.N, ["w"], "cuda"),
+                           every_round=True)
+    got = qs.train(cfg, rounds, label, "cuda", draws)
+    cpu = qs.train(cfg, rounds, label, "cpu", ReplayDraws(draws.table, "cpu"))
+    return got, cpu, draws.table
+
+
+def quickstart_round_by_round(cfg, table, seed, rounds=60):
+    """The card's C-DFL QSGD loop again under seam seed ``seed``, each round
+    repeated on the CPU from the card's state before it with the draws of
+    ``table``: (card metrics a round, the largest relative differences a
+    round, |w - w*| on the card and on the CPU after the last round)."""
+    import numpy as np
+
+    from repro_torch.core import init_state, make_round_fn
+    from repro_torch.core.rng import GeneratorDraws, ReplayDraws
+    from repro_torch.device import deterministic_algorithms
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.optim import sgd
+
+    opt = sgd(qs.LR)
+    rng = np.random.default_rng(qs.DATA_SEED)
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in qs.make_batches(rng, cfg.tau1).items()}
+               for _ in range(rounds)]
+    start = init_state({"w": torch.zeros(qs.DIM, device="cuda")}, qs.N, opt,
+                       compressed=True, seed=seed)
+    with deterministic_algorithms():
+        final, cm, cpu_rounds = replay_rounds(
+            make_round_fn(cfg, qs.loss_fn, opt),
+            make_round_fn(cfg, qs.loss_fn, opt), start, batches,
+            [()] * rounds, GeneratorDraws(seed, qs.N, ["w"], "cuda"),
+            ReplayDraws(table, "cpu"))
+    w_star = torch.from_numpy(qs.TRUE_W)
+    errs = [float(torch.linalg.norm(t.params["w"].float().mean(0).cpu()
+                                    - w_star))
+            for t in (final, cpu_rounds[-1][1])]
+    per_round = [{key: abs(a[key] - b[key]) / abs(b[key])
+                  for key in ("loss", "consensus_sq")}
+                 for a, (b, _) in zip(cm, cpu_rounds)]
+    return cm, per_round, errs
+
+
 def run_quickstart(K):
     """Phase 5, the quickstart's three variants, 60 rounds each on the card
-    (K1 every gossip step, K2 every C-DFL QSGD step), each held against a
-    CPU run: loss and |w - w*| rtol 1e-4, consensus 1e-3; C-DFL QSGD with
-    the card's draws replayed, its consensus to rtol 1e-2: a gap within an
-    ulp of a level boundary can quantize to the next level on one device
-    and not on the other, and the final consensus (about 5e-6) is a
-    residual of nearly equal models, which one such flip moves by parts in
-    a thousand."""
+    (K1 every gossip step, K2 every C-DFL QSGD step). C-SGD and DFL are
+    held against a CPU run of the 60 rounds: loss and |w - w*| rtol 1e-4,
+    consensus 1e-3. C-DFL QSGD, with the card's draws replayed on the CPU,
+    is held twice: its 60-round run against the CPU's within
+    ``QSGD_RUN_RTOL`` (final loss, |w - w*|, the largest loss difference
+    over the rounds, final consensus), and round by round, each round
+    repeated on the CPU from the card's state before it (loss and |w - w*|
+    rtol 1e-4, consensus 1e-2: the final consensus, about 5e-6, is a
+    residual of nearly equal models). A control run with K2 perturbed by
+    ``QSGD_CONTROL`` (``perturbed``) must break the whole-run limits."""
     from repro_torch.core.rng import GeneratorDraws, ReplayDraws
     from repro_torch.examples import quickstart as qs
     from repro_torch.kernels import ops
@@ -925,24 +1129,89 @@ def run_quickstart(K):
             f"{expect}")
     add_launches(K, counts)
     for (label, cfg), (got, draws) in zip(variants, card):
+        name = " ".join(label.split())
         cpu = qs.train(cfg, rounds, label, "cpu",
                        ReplayDraws(draws.table, "cpu") if draws else None)
-        pairs = {"loss": (got["losses"][-1], cpu["losses"][-1], 1e-4),
-                 "err": (got["err"], cpu["err"], 1e-4),
-                 "consensus": (got["consensus"][-1], cpu["consensus"][-1],
-                               1e-2 if draws else CPU_CONSENSUS_RTOL)}
-        for key, (a, b, rtol) in pairs.items():
-            require(math.isfinite(a) and close(a, b, rtol),
-                    f"quickstart {label}: {key} {a} on the card vs {b} on "
-                    f"the CPU, beyond rtol {rtol}")
-        worst = {key: max(abs(a - b) / abs(b) for a, b in zip(got[key],
-                                                             cpu[key]))
-                 for key in ("losses", "consensus")}
-        print(f"quickstart {' '.join(label.split())} card vs CPU "
-              + json.dumps({k: v for k, v in pairs.items()}
-                           | {"largest_relative_difference": worst}))
+        if draws is None:
+            pairs = {"loss": (got["losses"][-1], cpu["losses"][-1], 1e-4),
+                     "err": (got["err"], cpu["err"], 1e-4),
+                     "consensus": (got["consensus"][-1], cpu["consensus"][-1],
+                                   CPU_CONSENSUS_RTOL)}
+            for key, (a, b, rtol) in pairs.items():
+                require(math.isfinite(a) and close(a, b, rtol),
+                        f"quickstart {label}: {key} {a} on the card vs {b} "
+                        f"on the CPU, beyond rtol {rtol}")
+            worst = {key: max(abs(a - b) / abs(b) for a, b in zip(got[key],
+                                                                 cpu[key]))
+                     for key in ("losses", "consensus")}
+            print(f"quickstart {name} card vs CPU "
+                  + json.dumps({k: v for k, v in pairs.items()}
+                               | {"largest_relative_difference": worst}))
+            continue
+        whole = whole_run_diffs(got, cpu)
+        require(within_run_rtol(whole), f"quickstart {label}: the 60-round "
+                f"run on the card vs the CPU's {whole}, beyond "
+                f"{QSGD_RUN_RTOL}")
+        cm, per_round, errs = quickstart_round_by_round(cfg, draws.table, 1,
+                                                        rounds)
+        require([m["loss"] for m in cm] == got["losses"]
+                and [m["consensus_sq"] for m in cm] == got["consensus"],
+                f"quickstart {label}: the card's rounds differ between two "
+                "runs with the same draws")
+        for r, (a, d) in enumerate(zip(cm, per_round)):
+            for key, rtol in (("loss", 1e-4), ("consensus_sq", 1e-2)):
+                require(math.isfinite(a[key]) and d[key] <= rtol,
+                        f"quickstart {label} round {r}: {key} {a[key]} on "
+                        f"the card, {d[key]} apart from the CPU from the "
+                        f"same state, beyond rtol {rtol}")
+        require(close(errs[0], errs[1], 1e-4), f"quickstart {label}: "
+                f"|w - w*| {errs[0]} on the card vs {errs[1]} on the CPU")
+        with perturbed(*QSGD_CONTROL):
+            control = qs.train(cfg, rounds, label, "cuda",
+                               GeneratorDraws(1, qs.N, ["w"], "cuda"))
+        ctl = whole_run_diffs(control, cpu)
+        require(not within_run_rtol(ctl), f"quickstart {label}: the control "
+                f"({QSGD_CONTROL}) is within the whole-run "
+                f"limits {QSGD_RUN_RTOL}: {ctl}")
+        print(f"quickstart {name} card vs CPU " + json.dumps({
+            "whole_run": whole, "whole_run_rtol": QSGD_RUN_RTOL,
+            "round_by_round_largest_relative_difference": {
+                k: max(d[k] for d in per_round)
+                for k in ("loss", "consensus_sq")},
+            "err": errs, "control": QSGD_CONTROL,
+            "control_whole_run": ctl}))
     print("quickstart launches " + json.dumps(
         {k: v for k, v in counts.items() if v}))
+
+
+def calibrate_qsgd(seeds=16, controls=(("noise", 1e-2), ("x_shift", 1e-5),
+                                        ("x_scale", 1e-6))):
+    """The readings behind ``QSGD_RUN_RTOL`` and ``QSGD_CONTROL``: the
+    quickstart's C-DFL QSGD, card against CPU over the seam seeds
+    ``range(seeds)``; the CPU's run of each seed against its run of seed 1
+    (independent draws, where the two runs share nothing but the data);
+    then K2 perturbed by each of ``controls`` (seam seed 1) against the
+    CPU, as a whole run and round by round. One JSON line a run."""
+    from repro_torch.core.rng import GeneratorDraws
+    from repro_torch.examples import quickstart as qs
+
+    label, cfg = next((lb, c) for lb, c in qs.variants() if c.is_compressed)
+    runs = [quickstart_qsgd_runs(cfg, label, seed) for seed in range(seeds)]
+    cpu, table = runs[1][1:]
+    for seed, (got, cpu_s, _) in enumerate(runs):
+        print("calibrate sound " + json.dumps(
+            {"seed": seed, "card_vs_cpu": whole_run_diffs(got, cpu_s),
+             "independent_draws": whole_run_diffs(cpu_s, cpu)}))
+    for kind, eps in controls:
+        with perturbed("choco_qsgd", kind, eps):
+            got = qs.train(cfg, 60, label, "cuda",
+                           GeneratorDraws(1, qs.N, ["w"], "cuda"))
+            _, per_round, errs = quickstart_round_by_round(cfg, table, 1)
+        print("calibrate control " + json.dumps({
+            "control": [kind, eps], "whole_run": whole_run_diffs(got, cpu),
+            "round_by_round_largest": {k: max(d[k] for d in per_round)
+                                       for k in ("loss", "consensus_sq")},
+            "round_by_round_err": abs(errs[0] - errs[1]) / abs(errs[1])}))
 
 
 def run_figures(K):
@@ -1001,6 +1270,592 @@ def run_figures(K):
                   + json.dumps({k: v for k, v in counts.items() if v}))
 
 
+FAULT_TAUS = (4, 4)
+# The CNN's training amplifies any difference by about 10x a round from
+# round 3 on (one ulp of the initial weights moves round 6's loss by 3e-3
+# on the CPU), so the card's 6 masked rounds and the CPU's run of the same
+# rows drift apart by a few percent whatever the code; the limits sit
+# above the largest sound reading and below a control's
+# (``python3 chip_smoke.py --calibrate-qsgd``, PERF.md). The tight check
+# of a whole masked run is on the quickstart's convex problem (phase 6b).
+CIFAR_RUN_RTOL = {"loss": 0.1, "consensus_sq": 0.15}
+CIFAR_CONTROL = ("gossip_mix_many", "x_shift", 1e-3)
+# C-DFL QSGD's consensus step in phases 6, 7 and 9: at 16 levels over the
+# CIFAR leaves delta = 1/c is about 0.025, and gamma 0.6 (phase 3) does not
+# contract, so its consensus overflows within 6 rounds; 0.1 stays finite
+QSGD_GAMMA = 0.1
+
+
+def fault_rows(topo, rounds=6):
+    """The fault plan of phase 6 as [rounds, 2 + N + E] trajectory rows: a
+    crash of node 3 over rounds 1-2, an outage of edges (0, 1) and (4, 5)
+    over rounds 2-4, sporadic participation (p_node 0.8, p_edge 0.9) over
+    rounds 3-5."""
+    import numpy as np
+
+    from repro_torch.faults import (FaultPlan, LinkOutage, NodeCrash,
+                                    SporadicParticipation)
+    plan = FaultPlan(topo, (
+        NodeCrash(node=3, r_start=1, r_stop=3),
+        LinkOutage(edges=((0, 1), (4, 5)), r_start=2, r_stop=5),
+        SporadicParticipation(p_node=0.8, p_edge=0.9, r_start=3, r_stop=6)),
+        seed=0)
+    return plan.mask_trajectory(np.tile(np.array([FAULT_TAUS], np.int32),
+                                        (rounds, 1)))
+
+
+def to_cpu_state(state, draws):
+    """A host copy of ``state`` (never sharing its storage) with ``draws``."""
+    from repro_torch.core.tree import tree_map
+
+    def host(t):
+        return t.to("cpu", copy=True)
+
+    return state._replace(params=tree_map(host, state.params),
+                          opt_state=tree_map(host, state.opt_state),
+                          hat_params=tree_map(host, state.hat_params),
+                          draws=draws)
+
+
+def same_state(a, b):
+    from repro_torch.core.tree import tree_leaves
+    la = tree_leaves((a.params, a.opt_state, a.hat_params))
+    lb = tree_leaves((b.params, b.opt_state, b.hat_params))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def cifar_sensitivity():
+    """How far the CNN's training carries a difference of one ulp: phase
+    6's plain DFL and C-DFL TopK configurations unmasked, 6 rounds on the
+    CPU from the initial weights and from the weights times 1 + 2**-23;
+    prints the loss's relative difference a round."""
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.core import make_round_fn
+    from repro_torch.core.tree import tree_map
+
+    for label, compression in (("dfl", ""), ("cdfl_topk", "top_k")):
+        s = bro.cnn_setup(compression, rounds=6, device="cpu")
+        round_fn = make_round_fn(s.cfg(*FAULT_TAUS), s.loss_fn, s.opt)
+        runs = []
+        for scale in (1.0, 1.0 + 2.0 ** -23):
+            st = s.fresh()
+            st = st._replace(params=tree_map(lambda t: t * scale, st.params))
+            losses = []
+            for b in s.batches[:6]:
+                st, m = round_fn(st, b)
+                losses.append(float(m["loss"]))
+            runs.append(losses)
+        print("calibrate cifar_ulp " + json.dumps(
+            {"run": label, "loss_relative_difference": [
+                abs(a - b) / abs(b) for a, b in zip(*runs)]}))
+
+
+def largest_differences(card, cpu):
+    """The largest relative differences of loss and consensus, round by
+    round, between two lists of per-round metrics."""
+    return {key: max(abs(a[key] - b[key]) / abs(b[key])
+                     for a, b in zip(card, cpu))
+            for key in ("loss", "consensus_sq")}
+
+
+def run_participation_phase(K, gate=True, controls=None):
+    """Phase 6, sporadic participation at full width: the CIFAR CNN on a
+    10-node ring, tau1 = tau2 = 4, batch 16, 6 rounds of the fault plan
+    (``fault_rows``) in two K = 3 dispatches of
+    ``RoundExecutor(participation=True)``, for plain DFL, C-DFL TopK (frac
+    0.67, gamma 0.6) and C-DFL QSGD (16 levels, gamma ``QSGD_GAMMA``),
+    cuDNN deterministic: exact launches, K1 once per gossip step, no
+    synchronizing CUDA call inside a dispatch, no build after the warmup.
+    All-ones rows are bitwise the unmasked executor. The same 6 rounds
+    run again one by one on the card (``make_round_fn(...,
+    participation=True)``) and must equal the dispatches bitwise; node 3's
+    parameters and step count are bitwise the same before round 1 and
+    after round 2; each round is held against the CPU from the card's
+    state before it, with the card's draws, loss rtol 1e-4 and consensus
+    1e-3; and the 6 rounds against the CPU's own run of the same rows
+    within ``CIFAR_RUN_RTOL``, which the card's run with each of
+    ``controls`` (``perturbed``'s arguments; default ``CIFAR_CONTROL``)
+    must break. ``gate=False`` prints the differences without holding
+    them."""
+    import numpy as np
+
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.core import RoundExecutor, make_round_fn
+    from repro_torch.core.rng import GeneratorDraws, ReplayDraws
+    from repro_torch.core.tree import tree_map
+    from repro_torch.device import deterministic_algorithms
+    from repro_torch.kernels import ops
+
+    n = 10
+    controls = (CIFAR_CONTROL,) if controls is None else controls
+    for label, compression in (("dfl", ""), ("cdfl_topk", "top_k"),
+                               ("cdfl_qsgd", "qsgd")):
+        s = bro.cnn_setup(compression, rounds=6, device="cuda",
+                          gamma=QSGD_GAMMA if compression == "qsgd" else 0.6)
+        cfg = s.cfg(*FAULT_TAUS)
+        rows = fault_rows(cfg.topology)
+        sizes = [v[0].numel() for v in s.fresh().params.values()]
+
+        def stacked(r0):
+            return tuple(torch.stack([s.batches[r][j]
+                                      for r in range(r0, r0 + 3)])
+                         for j in (0, 1))
+
+        ones = np.concatenate([rows[:3, :2], np.ones_like(rows[:3, 2:])], 1)
+        plain, _ = RoundExecutor(cfg, s.loss_fn, s.opt).dispatch_trajectory(
+            s.fresh(), stacked(0), rows[:3, :2])
+        part, _ = RoundExecutor(cfg, s.loss_fn, s.opt, participation=True)\
+            .dispatch_trajectory(s.fresh(), stacked(0), ones)
+        require(same_state(plain, part), f"participation {label}: all-ones "
+                "rows differ from the unmasked executor")
+        state = s.fresh()
+        ex = RoundExecutor(cfg, s.loss_fn, s.opt, participation=True)
+        ex.warmup(state, stacked(0))
+        builds = ex.compile_count
+        steps = 3 * FAULT_TAUS[1]
+        expect = expect_launches(K, gossip_mix=steps)
+        if compression == "top_k":
+            expect.update(topk_threshold=steps * select_launches(sizes),
+                          choco_topk=steps * len(sizes))
+        elif compression == "qsgd":
+            expect.update(choco_qsgd=steps * len(sizes))
+        metrics = []
+        for d, r0 in enumerate((0, 3)):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            (state, m), syncs = bro.syncs_in_dispatch(
+                lambda: ex.dispatch_trajectory(state, stacked(r0),
+                                               rows[r0:r0 + 3]))
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            counts = dict(ops.LAUNCHES)
+            require(counts == expect, f"participation {label} dispatch {d}: "
+                    f"launches {counts}, expected {expect}")
+            require(not syncs, f"participation {label} dispatch {d}: "
+                    f"synchronizing calls {syncs}")
+            add_launches(K, counts)
+            metrics += [{k: float(v[i]) for k, v in m.items()}
+                        for i in range(3)]
+            print(f"participation {label} dispatch {d} " + json.dumps({
+                "rounds": [r0, r0 + 1, r0 + 2],
+                "active_nodes": m["active_nodes"].tolist(),
+                "masked_edges": m["masked_edges"].tolist(),
+                "loss": m["loss"].tolist(),
+                "consensus": m["consensus_sq"].tolist(),
+                "ms_per_round": dt / 3, "syncs_in_dispatch": len(syncs),
+                "launches": {k: v for k, v in counts.items() if v}}))
+        require(ex.compile_count == builds, f"participation {label}: "
+                f"{ex.compile_count - builds} builds after the warmup")
+        cpu_draws = None
+        if compression == "qsgd":  # the card's draws, regenerated by index
+            gd = GeneratorDraws(0, n, s.fresh().params, "cuda")
+            cpu_draws = ReplayDraws(
+                {(r, t, k): gd.uniform(r, t, k, (d,)).cpu().numpy()
+                 for r in range(6) for t in range(FAULT_TAUS[1])
+                 for k, d in zip(s.fresh().params, sizes)}, "cpu")
+        round_fn = make_round_fn(cfg, s.loss_fn, s.opt, dynamic_taus=True,
+                                 participation=True)
+        extra = [(*FAULT_TAUS, row[2:2 + n], row[2 + n:]) for row in rows]
+        start = s.fresh()
+        hosts = []
+
+        def card_round(st, b, *args):
+            hosts.append(to_cpu_state(st, None))
+            return round_fn(st, b, *args)
+
+        with deterministic_algorithms():
+            final, cm, cpu_rounds = replay_rounds(
+                card_round, round_fn, start, s.batches, extra, start.draws,
+                cpu_draws)
+        require(same_state(final, state)
+                and all(cm[r][k] == metrics[r][k] for r in range(6)
+                        for k in ("loss", "consensus_sq")),
+                f"participation {label}: the dispatches differ from the "
+                "same rounds one by one on the card")
+        require(all(torch.equal(hosts[1].params[k][3], hosts[3].params[k][3])
+                    for k in hosts[1].params)
+                and int(hosts[3].opt_state["step"][3]) == 4
+                and hosts[3].opt_state["step"].tolist()
+                == [12] * 3 + [4] + [12] * 6,
+                f"participation {label}: node 3 moved while crashed (steps "
+                f"{hosts[3].opt_state['step'].tolist()})")
+        worst = {"loss": 0.0, "consensus_sq": 0.0}
+        for r, (a, (b, _)) in enumerate(zip(cm, cpu_rounds)):
+            for key, rtol in (("loss", CPU_LOSS_RTOL),
+                              ("consensus_sq", CPU_CONSENSUS_RTOL)):
+                worst[key] = max(worst[key], abs(a[key] - b[key]) / abs(b[key]))
+                require(close(a[key], b[key], rtol), f"participation {label} "
+                        f"round {r}: {key} {a[key]} on the card vs {b[key]} "
+                        f"on the CPU from the same state, beyond rtol {rtol}")
+        # the whole run on the CPU: the same start, rows and draws
+        host, cpu_run = hosts[0]._replace(draws=cpu_draws), []
+        for b, args in zip(s.batches, extra):
+            host, mc = round_fn(host, tree_map(lambda t: t.cpu(), b), *args)
+            cpu_run.append({k: float(v) for k, v in mc.items()})
+        whole = largest_differences(cm, cpu_run)
+        require(not gate or all(whole[k] <= v
+                                for k, v in CIFAR_RUN_RTOL.items()),
+                f"participation {label}: the 6 rounds on the card vs the "
+                f"CPU's run of the same rows {whole}, beyond {CIFAR_RUN_RTOL}")
+        for control in controls:
+            st, ms = s.fresh(), []
+            with perturbed(*control), deterministic_algorithms():
+                for b, args in zip(s.batches, extra):
+                    st, m = round_fn(st, b, *args)
+                    ms.append({k: float(v) for k, v in m.items()})
+            ctl = largest_differences(ms, cpu_run)
+            require(not gate or any(ctl[k] > v
+                                    for k, v in CIFAR_RUN_RTOL.items()),
+                    f"participation {label}: the control {control} is within "
+                    f"the whole-run limits {CIFAR_RUN_RTOL}: {ctl}")
+            print(f"participation {label} control " + json.dumps(
+                {"control": control, "whole_run": ctl}))
+        print(f"participation {label}: all-ones bitwise the unmasked "
+              "executor; the dispatches bitwise the same rounds one by one; "
+              "node 3 frozen over rounds 1-2; card vs CPU, largest relative "
+              "differences " + json.dumps({"round_by_round": worst,
+                                            "whole_run": whole}))
+        # round time without the sync check: the masked rows of rounds 3-5
+        # against all-ones rows, in turns, from the state reached
+        times = {"masked": [], "all_ones": []}
+        for _ in range(2):
+            for what, rr in (("masked", rows[3:6]), ("all_ones", ones)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = ex.dispatch_trajectory(state, stacked(3), rr)
+                torch.cuda.synchronize()
+                times[what].append((time.perf_counter() - t0) * 1e3 / 3)
+        print(f"participation {label} ms per round " + json.dumps(times))
+
+
+# Phase 6b: whole masked runs of the quickstart's convex problem, where a
+# difference does not grow round after round as in the CNN: plain DFL held
+# as the quickstart's DFL, TopK and QSGD as its C-DFL QSGD; a control with
+# K1's output shifted by 1e-4 must break each (readings:
+# ``python3 chip_smoke.py --calibrate-qsgd``, PERF.md).
+MASKED_RUN_RTOL = {"dfl": {"loss": 1e-4, "err": 1e-4, "largest_loss": 1e-4,
+                           "consensus": 1e-3},
+                   "cdfl_topk": QSGD_RUN_RTOL, "cdfl_qsgd": QSGD_RUN_RTOL}
+MASKED_CONTROL = ("gossip_mix_many", "x_shift", 1e-4)
+
+
+def masked_quickstart_setup(rounds=60):
+    """Phase 6b's variants (plain DFL, C-DFL TopK frac 0.5 and QSGD 16
+    levels, gamma 0.5, the quickstart's ring(10) and tau (4, 4)) and its
+    [rounds, 2 + N + E] rows: node 3 crashed over rounds 10-29, edges
+    (0, 1) and (4, 5) out over rounds 20-49, sporadic participation
+    (p_node 0.8, p_edge 0.9) over rounds 30-59."""
+    import numpy as np
+
+    from repro_torch.core import DFLConfig, make_compressor, ring
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.faults import (FaultPlan, LinkOutage, NodeCrash,
+                                    SporadicParticipation)
+    topo = ring(qs.N)
+    plan = FaultPlan(topo, (
+        NodeCrash(node=3, r_start=10, r_stop=30),
+        LinkOutage(edges=((0, 1), (4, 5)), r_start=20, r_stop=50),
+        SporadicParticipation(p_node=0.8, p_edge=0.9, r_start=30,
+                              r_stop=60)), seed=0)
+    rows = plan.mask_trajectory(np.tile(np.array([[4, 4]], np.int32),
+                                        (rounds, 1)))
+    variants = [(label, DFLConfig(tau1=4, tau2=4, topology=topo,
+                                  compression=comp, gamma=0.5 if comp else 1.0))
+                for label, comp in (
+                    ("dfl", None),
+                    ("cdfl_topk", make_compressor("top_k", frac=0.5)),
+                    ("cdfl_qsgd", make_compressor("qsgd", levels=16)))]
+    return variants, rows
+
+
+def masked_quickstart(cfg, rows, device, draws=None):
+    """The quickstart's linear regression from w = 0 under the trajectory
+    ``rows`` (one a round), round by round through ``make_round_fn(...,
+    participation=True)`` on ``device``: a history as ``qs.train``'s."""
+    import numpy as np
+
+    from repro_torch.core import average_model, init_state, make_round_fn
+    from repro_torch.device import deterministic_algorithms
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.optim import sgd
+
+    n, opt = qs.N, sgd(qs.LR)
+    state = init_state({"w": torch.zeros(qs.DIM, device=device)}, n, opt,
+                       compressed=cfg.is_compressed, seed=1, draws=draws)
+    round_fn = make_round_fn(cfg, qs.loss_fn, opt, dynamic_taus=True,
+                             participation=True)
+    rng = np.random.default_rng(qs.DATA_SEED)
+    history = []
+    with deterministic_algorithms():
+        for row in rows:
+            b = {k: torch.from_numpy(v).to(device)
+                 for k, v in qs.make_batches(rng, cfg.tau1).items()}
+            state, m = round_fn(state, b, int(row[0]), int(row[1]),
+                                row[2:2 + n], row[2 + n:])
+            history.append(m)
+    w = average_model(state.params)["w"].cpu()
+    return {"err": float(torch.linalg.norm(w - torch.from_numpy(qs.TRUE_W))),
+            "losses": [float(m["loss"]) for m in history],
+            "consensus": [float(m["consensus_sq"]) for m in history]}
+
+
+def run_masked_quickstart(K, gate=True, seeds=(1,), controls=None):
+    """Phase 6b: ``masked_quickstart_setup``'s 60 masked rounds of each
+    variant on the card (exact launches: K1 once a gossip step, TopK one
+    K4 and one K3, QSGD one K2) against the CPU's run of the same rows
+    with the card's draws replayed, within ``MASKED_RUN_RTOL``; the card's
+    run with each of ``controls`` (``perturbed``'s arguments; default
+    ``MASKED_CONTROL``) must break those limits. ``seeds``: the seam's
+    seeds for QSGD. ``gate=False`` prints the differences without holding
+    them."""
+    from repro_torch.core.rng import GeneratorDraws, ReplayDraws
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.kernels import ops
+
+    controls = (MASKED_CONTROL,) if controls is None else controls
+    variants, rows = masked_quickstart_setup()
+    steps = int(rows[:, 1].sum())
+    for label, cfg in variants:
+        rtol = MASKED_RUN_RTOL[label]
+        for seed in (seeds if cfg.is_compressed else (None,)):
+            draws = (RecordingDraws(GeneratorDraws(seed, qs.N, ["w"], "cuda"),
+                                    every_round=True)
+                     if cfg.is_compressed else None)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            got = masked_quickstart(cfg, rows, "cuda", draws)
+            torch.cuda.synchronize()
+            counts = dict(ops.LAUNCHES)
+            expect = expect_launches(K, gossip_mix=steps, **{
+                "dfl": {}, "cdfl_qsgd": {"choco_qsgd": steps},
+                "cdfl_topk": {"topk_threshold": steps,
+                              "choco_topk": steps}}[label])
+            require(counts == expect, f"masked quickstart {label}: launches "
+                    f"{counts}, expected {expect}")
+            add_launches(K, counts)
+            cpu = masked_quickstart(cfg, rows, "cpu", ReplayDraws(
+                draws.table, "cpu") if draws else None)
+            whole = whole_run_diffs(got, cpu)
+            require(not gate or all(math.isfinite(whole[k]) and whole[k] <= v
+                                    for k, v in rtol.items()),
+                    f"masked quickstart {label}: the 60 rounds on the card vs "
+                    f"the CPU's run of the same rows {whole}, beyond {rtol}")
+            line = {"seed": seed, "whole_run": whole, "whole_run_rtol": rtol,
+                    "final_loss": got["losses"][-1], "err": got["err"]}
+            for control in controls:
+                with perturbed(*control):
+                    ctl = whole_run_diffs(masked_quickstart(
+                        cfg, rows, "cuda", GeneratorDraws(seed, qs.N, ["w"],
+                                                          "cuda")
+                        if cfg.is_compressed else None), cpu)
+                require(not gate or any(ctl[k] > v for k, v in rtol.items()),
+                        f"masked quickstart {label}: the control {control} "
+                        f"is within the whole-run limits {rtol}: {ctl}")
+                line.setdefault("controls", []).append(
+                    {"control": control, "whole_run": ctl})
+            print(f"masked quickstart {label} card vs CPU " + json.dumps(line))
+
+
+def run_batched_phase(K, pop=1000):
+    """Phase 7, the node-batched engine at full width: the CIFAR CNN over a
+    population of V = 1000 virtual nodes, cohorts of C = 10 on a 10-node
+    ring drawn by ``CohortSampler(seed=0)``, 3 rounds in one dispatch of
+    plain DFL and of C-DFL QSGD: rows outside the cohorts bitwise
+    untouched, the state in place, exact launches, no synchronizing call in
+    the dispatch, peak device memory; then an identity cohort at V = C = 10
+    bitwise the dense executor."""
+    import numpy as np
+
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.core import (DFLConfig, RoundExecutor, init_state,
+                                  make_compressor)
+    from repro_torch.core.topology import ring
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.faults import CohortSampler
+    from repro_torch.kernels import ops
+    from repro_torch.models.cnn import init_cnn
+
+    c = 10
+    s = bro.cnn_setup("", rounds=3, device="cuda")
+    batches = tuple(torch.stack([s.batches[r][j] for r in range(3)])
+                    for j in (0, 1))
+    sampler = CohortSampler(population=pop, cohort=c, seed=0)
+    taus = np.tile(np.array([FAULT_TAUS], np.int32), (3, 1))
+    rows = sampler.cohort_trajectory(taus, num_edges=ring(c).num_edges)
+    rows2 = sampler.cohort_trajectory(taus, 3, num_edges=ring(c).num_edges)
+    cohort = np.unique(rows[:, 2:2 + c])
+    others = torch.from_numpy(np.setdiff1d(np.arange(pop), cohort)).cuda()
+    leaves = init_cnn(torch.Generator().manual_seed(0), "cifar", "cuda")
+    sizes = [v.numel() for v in leaves.values()]
+    for label, comp in (("dfl", None),
+                        ("cdfl_qsgd", make_compressor("qsgd", levels=16))):
+        cfg = DFLConfig(*FAULT_TAUS, ring(c), compression=comp,
+                        gamma=QSGD_GAMMA if comp else 1.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(leaves, pop, s.opt, compressed=comp is not None)
+        ex = RoundExecutor(cfg, s.loss_fn, s.opt, engine="batched",
+                           population=pop)
+        ex.warmup(state, batches)
+        builds = ex.compile_count
+        held = [t.index_select(0, others) for t in
+                tree_leaves((state.params, state.opt_state,
+                             state.hat_params))]
+        ptrs = [t.data_ptr() for t in tree_leaves((state.params,
+                                                   state.opt_state,
+                                                   state.hat_params))]
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        (state, m), syncs = bro.syncs_in_dispatch(
+            lambda: ex.dispatch_trajectory(state, batches, rows))
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        counts = dict(ops.LAUNCHES)
+        steps = 3 * FAULT_TAUS[1]
+        expect = expect_launches(K, gossip_mix=steps)
+        if comp is not None:
+            expect.update(choco_qsgd=steps * len(sizes))
+        require(counts == expect, f"batched {label}: launches {counts}, "
+                f"expected {expect}")
+        require(not syncs, f"batched {label}: synchronizing calls {syncs}")
+        require(ex.compile_count == builds, f"batched {label}: builds after "
+                "the warmup")
+        add_launches(K, counts)
+        after = tree_leaves((state.params, state.opt_state, state.hat_params))
+        require([t.data_ptr() for t in after] == ptrs,
+                f"batched {label}: the population did not stay in place")
+        require(all(torch.equal(t.index_select(0, others), h)
+                    for t, h in zip(after, held)),
+                f"batched {label}: a row outside the cohorts changed")
+        steps_per_node = state.opt_state["step"]
+        require(int(steps_per_node.sum()) == 3 * c * FAULT_TAUS[0]
+                and all(math.isfinite(v) for v in m["loss"].tolist()),
+                f"batched {label}: steps or loss off")
+        print(f"batched {label} " + json.dumps({
+            "population": pop, "cohort": c, "rounds": 3,
+            "distinct_nodes": int(cohort.size),
+            "loss": m["loss"].tolist(),
+            "consensus": m["consensus_sq"].tolist(),
+            "ms_per_round": dt / 3, "syncs_in_dispatch": len(syncs),
+            "state_bytes": sum(t.numel() * t.element_size() for t in after),
+            "peak_device_mb": torch.cuda.max_memory_allocated() / 1e6,
+            "launches": {k: v for k, v in counts.items() if v}}))
+        del held, after
+        # the identity cohort at full population: the dense executor
+        dense_ex = RoundExecutor(cfg, s.loss_fn, s.opt, participation=True)
+        dense, md = dense_ex.dispatch_trajectory(
+            init_state(leaves, c, s.opt, compressed=comp is not None),
+            batches, rows[:, :2])
+        ident, mi = RoundExecutor(cfg, s.loss_fn, s.opt, engine="batched",
+                                  population=c).dispatch_trajectory(
+            init_state(leaves, c, s.opt, compressed=comp is not None),
+            batches, rows[:, :2])
+        require(same_state(dense, ident)
+                and all(torch.equal(md[k], mi[k]) for k in md),
+                f"batched {label}: the identity cohort differs from the "
+                "dense executor")
+        # round time without the sync check: 3 more sampled rounds of the
+        # population against 3 rounds of the dense executor, in turns
+        times = {"batched": [], "dense": []}
+        for _ in range(2):
+            for what, run in (
+                    ("batched", lambda: ex.dispatch_trajectory(
+                        state, batches, rows2)),
+                    ("dense", lambda: dense_ex.dispatch_trajectory(
+                        dense, batches, rows[:, :2]))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, _ = run()
+                torch.cuda.synchronize()
+                times[what].append((time.perf_counter() - t0) * 1e3 / 3)
+                if what == "batched":
+                    state = out
+                else:
+                    dense = out
+        print(f"batched {label}: identity cohort at V = C = {c} bitwise the "
+              "dense executor; ms per round " + json.dumps(times))
+        del state, ex, dense, ident
+
+
+def run_bench_phase(K):
+    """Phase 8, the fault and population benches and the reference's
+    dispatch measurement on the card: ``bench_faults --smoke --check``
+    (sporadic beats blocking at equal budget), ``bench_megascale --smoke``
+    (rounds/s and bytes at 10k virtual nodes, no build after the warmup,
+    the bitwise gate) and ``bench_round_overhead --measure dispatch``
+    (superstep over legacy rounds/s, printed; its 2x bar is not applied
+    here)."""
+    import tempfile
+
+    from repro_torch.benchmarks import bench_faults, bench_megascale
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.kernels import ops
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run in (
+                ("bench_faults", lambda: bench_faults.main(
+                    ["--smoke", "--check", "--device", "cuda", "--out",
+                     os.path.join(tmp, "bf")])),
+                ("bench_megascale", lambda: bench_megascale.main(
+                    ["--smoke", "--check", "--device", "cuda", "--out",
+                     os.path.join(tmp, "bm")])),
+                ("dispatch", lambda: bro.main(
+                    ["--measure", "dispatch", "--repeats", "3", "--device",
+                     "cuda", "--out", os.path.join(tmp, "bro")]))):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            add_launches(K, dict(ops.LAUNCHES))
+            if name == "bench_faults":
+                line = {k: out[k] for k in ("sporadic_beats_blocking",
+                                            "margin_x", "builds_after_warmup")}
+                line.update({p: {"rounds": out[p]["rounds"],
+                                 "loss": out[p]["loss"]}
+                             for p in ("blocking", "sporadic")})
+            elif name == "bench_megascale":
+                line = {"parity": out["parity"], "scales": out["scales"]}
+            else:
+                line = {"rounds_per_s": out["median_rounds_per_s"],
+                        "speedup_superstep_vs_legacy":
+                            out["speedup_superstep_vs_legacy"],
+                        "bar_2x_met": out["speedup_superstep_vs_legacy"]
+                        >= 2.0}
+            print(f"{name} ({time.perf_counter() - t0:.2f} s) "
+                  + json.dumps(line))
+
+
+def run_determinism_phase():
+    """Phase 9, ``run_dfl_cnn`` twice under its default
+    ``deterministic=True`` (C-DFL QSGD on the CIFAR CNN, 10-node ring, 6
+    rounds): the two histories are bitwise equal; then the same run with
+    ``deterministic=False``, for what the switch costs in round time
+    (mean of rounds 2-6 of each run)."""
+    from repro_torch.launch.cnn_run import RunSpec, run_dfl_cnn
+
+    spec = RunSpec(name="smoke-determinism", tau1=4, tau2=4,
+                   topology="ring", compression="qsgd",
+                   comp_kwargs={"levels": 16}, gamma=QSGD_GAMMA,
+                   flavor="cifar",
+                   nodes=10, rounds=6, batch=16)
+    runs = [run_dfl_cnn(spec, device="cuda", log_every=1,
+                        deterministic=det) for det in (True, True, False)]
+    require(runs[0]["history"] == runs[1]["history"],
+            "run_dfl_cnn: two deterministic runs differ: "
+            f"{runs[0]['history']['loss']} vs {runs[1]['history']['loss']}")
+    ms = [sum(r["round_ms"][1:]) / (len(r["round_ms"]) - 1) for r in runs]
+    print("determinism " + json.dumps({
+        "bitwise_equal_histories": True,
+        "loss": runs[0]["history"]["loss"],
+        "nondeterministic_loss": runs[2]["history"]["loss"],
+        "round_ms_deterministic": [ms[0], ms[1]],
+        "round_ms_nondeterministic": ms[2]}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -1033,16 +1888,33 @@ def main():
                "src/repro/kernels/qsgd.py:44", False),
         Kernel("choco_move", "src/repro_torch/kernels/csrc/choco_update.cu",
                "src/repro/kernels/choco_update.py:38", False))}
+    if sys.argv[1:] == ["--calibrate-qsgd"]:
+        check_seam()
+        calibrate_qsgd()
+        run_masked_quickstart(K, gate=False, seeds=range(8), controls=(
+            ("gossip_mix_many", "x_shift", 1e-6),
+            ("gossip_mix_many", "x_shift", 1e-5),
+            ("gossip_mix_many", "x_shift", 1e-4),
+            ("gossip_mix_many", "x_scale", 1e-6),
+            ("choco_qsgd", "x_shift", 1e-5)))
+        cifar_sensitivity()
+        run_participation_phase(K, gate=False, controls=(
+            ("gossip_mix_many", "x_shift", 1e-4),
+            ("gossip_mix_many", "x_shift", 1e-3),
+            ("gossip_mix_many", "x_scale", 1e-4)))
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
-    check_kernels(K, gen)
-    time_kernels(K, gen)
-    run_main_path(K)
-    round_breakdown()
-    run_executor_phase(K)
-    run_dense_power(K)
-    check_full_mix(K, gen)
-    run_quickstart(K)
-    run_figures(K)
+    for phase in (lambda: check_kernels(K, gen), lambda: time_kernels(K, gen),
+                  check_seam, lambda: run_main_path(K), round_breakdown,
+                  lambda: run_executor_phase(K), lambda: run_dense_power(K),
+                  lambda: check_full_mix(K, gen), lambda: run_quickstart(K),
+                  lambda: run_figures(K), lambda: run_participation_phase(K),
+                  lambda: run_masked_quickstart(K),
+                  lambda: run_batched_phase(K), lambda: run_bench_phase(K),
+                  run_determinism_phase):
+        t0 = time.perf_counter()
+        phase()
+        print(f"phase time: {time.perf_counter() - t0:.1f} s")
     print(f"wall: {time.perf_counter() - t_start:.1f} s from the build on "
           f"({t_build:.2f} s of it the build)")
     card = card_line()

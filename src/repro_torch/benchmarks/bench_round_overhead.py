@@ -1,10 +1,21 @@
 """Per-round dispatch overhead of the port: rounds one at a time against
-K-round supersteps of the ``RoundExecutor``, on the paper's CIFAR CNN.
+K-round supersteps of the ``RoundExecutor``.
 
 The port of ``benchmarks/bench_round_overhead.py``'s executor measurements
-(its ``--arch`` LM path waits for the port's LM stack). Three strategies
-run the same schedule over the same batches, staged on the device before
-the clock starts (10 nodes on a ring, the CNN at full width):
+(its ``--arch`` LM path and its telemetry measurement wait for the port's
+LM stack and telemetry). Two measurements (``--measure``):
+
+  * ``cnn`` (default): the paper's CIFAR CNN at full width on a 10-node
+    ring; the device's work per round is large, so it shows what the
+    executor saves on the main path.
+  * ``dispatch``: the reference's acceptance measurement, the 8-node ring
+    quadratic model (dimension 64), whose round computes almost nothing,
+    so per-round dispatch and host syncs dominate. Schedule (2, 2) then
+    (4, 1) half way, supersteps of 10; ``--check`` asserts the
+    reference's bar, superstep rounds/s at least 2x legacy.
+
+Three strategies run the same schedule over the same batches, staged on
+the device before the clock starts:
 
   * ``legacy``             one static ``make_round_fn`` per (tau1, tau2),
                            one host sync per round (the loss read back); a
@@ -13,16 +24,19 @@ the clock starts (10 nodes on a ring, the CNN at full width):
                            schedule, one sync per round.
   * ``executor_superstep`` K-round supersteps, one sync per superstep.
 
-The schedule re-plans once, half way (default (4, 4) then (2, 1) under
-maxima (4, 4)); the executor must make no build after its warmup.
+The schedule re-plans once, half way (CNN: (4, 4) then (2, 1) under maxima
+(4, 4)); the executor must make no build after its warmup.
 Times are host clock around each dispatch and its sync. On the card,
 ``syncs_in_dispatch`` also counts the synchronizing CUDA calls inside one
 dispatch (``torch.cuda.set_sync_debug_mode``), naming where each is made.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.bench_round_overhead \\
         [--compression top_k] [--rounds 24] [--superstep 6] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.benchmarks.bench_round_overhead \\
+        --measure dispatch [--check] [--device cuda]
 
-Writes ``results/repro_torch/bench_round_overhead.json``.
+Writes ``results/repro_torch/bench_round_overhead.json`` (``cnn``) or
+``bench_round_overhead_dispatch.json`` (``dispatch``).
 """
 from __future__ import annotations
 
@@ -53,13 +67,14 @@ Schedule = List[Tuple[int, int]]
 class Setup:
     """One (model, compressor) configuration on a device: ``cfg(t1, t2)``
     builds its DFLConfig, ``fresh()`` a new state, ``batches[r]`` round r's
-    (xs, ys) at tau1 = ``tau1_max`` on the device (round r at a smaller
-    tau1 reads the first steps)."""
+    batch tuple (the CNN's (xs, ys), the quadratic model's (targets,)) at
+    tau1 = ``tau1_max`` on the device (round r at a smaller tau1 reads the
+    first steps)."""
     cfg: Callable[[int, int], DFLConfig]
     loss_fn: Callable
     opt: object
     fresh: Callable
-    batches: List[Tuple[torch.Tensor, torch.Tensor]]
+    batches: List[Tuple[torch.Tensor, ...]]
     tau1_max: int
     tau2_max: int
     device: torch.device
@@ -75,7 +90,8 @@ def cnn_setup(compression: str = "", rounds: int = 24, tau1_max: int = 4,
     if dev.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    comp = make_compressor(compression, frac=frac) if compression else None
+    kw = {"frac": frac} if compression in ("top_k", "rand_k") else {}
+    comp = make_compressor(compression, **kw) if compression else None
     opt = sgd(0.05)
 
     def cfg(t1: int, t2: int) -> DFLConfig:
@@ -99,6 +115,32 @@ def cnn_setup(compression: str = "", rounds: int = 24, tau1_max: int = 4,
                                        seed=seed)
         batches.append((torch.from_numpy(xs).to(dev),
                         torch.from_numpy(ys).to(dev)))
+    return Setup(cfg, loss_fn, opt, fresh, batches, tau1_max, tau2_max, dev)
+
+
+def quad_setup(rounds: int = 20, tau1_max: int = 4, tau2_max: int = 2,
+               nodes: int = 8, dim: int = 64, seed: int = 0,
+               device="cuda") -> Setup:
+    """The reference's dispatch testbed: ``w`` of ``dim`` per node on a
+    ``nodes``-node ring, loss ``mean((w - b)^2)`` on normal targets,
+    ``sgd(3e-2)``."""
+    dev = resolve_device(device)
+    opt = sgd(3e-2)
+
+    def cfg(t1: int, t2: int) -> DFLConfig:
+        return DFLConfig(tau1=t1, tau2=t2, topology=ring(nodes))
+
+    def loss_fn(params, b):
+        return torch.mean((params["w"] - b[0]) ** 2)
+
+    def fresh():
+        return init_state({"w": torch.zeros(dim, device=dev)}, nodes, opt,
+                          seed=seed)
+
+    rng = np.random.default_rng(seed)
+    batches = [(torch.from_numpy(rng.normal(size=(tau1_max, nodes, dim))
+                                 .astype(np.float32)).to(dev),)
+               for _ in range(rounds)]
     return Setup(cfg, loss_fn, opt, fresh, batches, tau1_max, tau2_max, dev)
 
 
@@ -128,8 +170,7 @@ def run_legacy(s: Setup, schedule: Schedule) -> Dict:
             rf = make_round_fn(s.cfg(t1, t2), s.loss_fn, s.opt)
             current = (t1, t2)
             built.append(r)
-        xs, ys = s.batches[r]
-        state, m = rf(state, (xs[:t1], ys[:t1]))
+        state, m = rf(state, tuple(b[:t1] for b in s.batches[r]))
         float(m["loss"])
         times.append((time.perf_counter() - t0) * 1e3)
     steady = [t for r, t in enumerate(times) if r not in built]
@@ -149,7 +190,7 @@ def chunks(s: Setup, schedule: Schedule, k: int) -> List[Tuple]:
             kk += 1
         stacked = tuple(
             torch.stack([s.batches[i][j] for i in range(r, r + kk)])
-            for j in (0, 1))
+            for j in range(len(s.batches[r])))
         out.append((stacked, *schedule[r], r))
         r += kk
     return out
@@ -233,18 +274,42 @@ def device_busy_per_round(s: Setup, k: int) -> Dict:
             "profiled_ms_per_round": wall / k}
 
 
+def bench_dispatch(s: Setup, schedule: Schedule, superstep: int,
+                   reverse: bool = False) -> Dict:
+    """The reference's ``dispatch`` measurement: the three strategies on
+    ``s`` in rounds per second, and superstep over legacy."""
+    out = bench(s, schedule, superstep, reverse)
+    rps = {mode: 1e3 / out[mode]["ms_per_round"]
+           for mode in ("legacy", "executor_round", "executor_superstep")}
+    out.update(rounds_per_s=rps, speedup_superstep_vs_legacy=(
+        rps["executor_superstep"] / rps["legacy"]))
+    return out
+
+
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--measure", default="cnn", choices=("cnn", "dispatch"))
     ap.add_argument("--compression", default="", choices=("", "top_k"))
-    ap.add_argument("--rounds", type=int, default=24)
-    ap.add_argument("--superstep", type=int, default=6)
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="cnn: 24; dispatch: 20")
+    ap.add_argument("--superstep", type=int, default=None,
+                    help="cnn: 6; dispatch: 10")
     ap.add_argument("--repeats", type=int, default=1,
                     help="runs of the three strategies, every other one in "
                          "reverse order")
     ap.add_argument("--flavor", default="cifar", choices=("mnist", "cifar"))
+    ap.add_argument("--check", action="store_true",
+                    help="dispatch: assert superstep >= 2x legacy rounds/s")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--out", default="bench_round_overhead")
+    ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
+    if a.measure == "dispatch":
+        return main_dispatch(a)
+    if a.check:
+        ap.error("--check applies to --measure dispatch")
+    a.rounds = 24 if a.rounds is None else a.rounds
+    a.superstep = 6 if a.superstep is None else a.superstep
+    a.out = a.out or "bench_round_overhead"
     s = cnn_setup(a.compression, a.rounds, flavor=a.flavor, device=a.device)
     schedule = replan_schedule(a.rounds, a.superstep)
     reps = [bench(s, schedule, a.superstep, reverse=bool(i % 2))
@@ -280,6 +345,40 @@ def main(argv=None) -> Dict:
     for busy in result.get("device_busy", []):
         print("device busy " + json.dumps(busy))
     print(f"wrote {save_result(a.out, result)}")
+    return result
+
+
+def main_dispatch(a) -> Dict:
+    """``--measure dispatch``: the quadratic testbed, schedule (2, 2) then
+    (4, 1) at the superstep boundary nearest half way."""
+    rounds = 20 if a.rounds is None else a.rounds
+    superstep = 10 if a.superstep is None else a.superstep
+    s = quad_setup(rounds, device=a.device)
+    schedule = replan_schedule(rounds, superstep, (2, 2), (4, 1))
+    reps = [bench_dispatch(s, schedule, superstep, reverse=bool(i % 2))
+            for i in range(a.repeats)]
+    rps = {mode: float(np.median([r["rounds_per_s"][mode] for r in reps]))
+           for mode in reps[0]["rounds_per_s"]}
+    speedup = rps["executor_superstep"] / rps["legacy"]
+    result = {"repeats": reps, "median_rounds_per_s": rps,
+              "speedup_superstep_vs_legacy": speedup,
+              "config": {"measure": "dispatch", "nodes": 8, "dim": 64,
+                         "rounds": rounds, "superstep": superstep,
+                         "schedule": [[2, 2], [4, 1]],
+                         "device": str(s.device),
+                         "device_name": (torch.cuda.get_device_name(s.device)
+                                         if s.device.type == "cuda"
+                                         else "cpu")}}
+    print(f"[dispatch/quad] legacy {rps['legacy']:.1f} r/s | K=1 "
+          f"{rps['executor_round']:.1f} r/s | K={superstep} "
+          f"{rps['executor_superstep']:.1f} r/s -> {speedup:.2f}x; no build "
+          "after the warmup across the re-plan")
+    print(f"wrote {save_result(a.out or 'bench_round_overhead_dispatch', result)}")
+    if a.check:
+        if speedup < 2.0:
+            raise SystemExit(f"check failed: superstep dispatch only "
+                             f"{speedup:.2f}x legacy (< 2x bar)")
+        print("check OK: superstep >= 2x legacy, no build on re-plan")
     return result
 
 

@@ -45,7 +45,8 @@ from repro_torch.core.executor import (
     RoundExecutor,
     stack_round_batches,
 )
-from repro_torch.core.substrate import DenseSubstrate, NodeSubstrate
+from repro_torch.core.substrate import (BatchedSubstrate, DenseSubstrate,
+                                        NodeSubstrate)
 from repro_torch.core import mixing, metrics, substrate
 
 __all__ = [
@@ -59,6 +60,6 @@ __all__ = [
     "init_state", "make_round_fn", "round_wire_bits",
     "RoundExecutor", "HostPrefetcher", "MetricsBuffer",
     "stack_round_batches",
-    "NodeSubstrate", "DenseSubstrate",
+    "NodeSubstrate", "DenseSubstrate", "BatchedSubstrate",
     "mixing", "metrics", "substrate",
 ]

@@ -57,17 +57,26 @@ class Compressor:
         None when Q draws nothing."""
         return None
 
-    def draw(self, draws, round_idx: int, step: int, leaf: str,
-             d: int) -> Optional[torch.Tensor]:
-        """This operator's draws ``[N, *draw_shape(d)]`` for one leaf from
-        the seam ``draws`` (``repro_torch.core.rng``), or None."""
-        shape = self.draw_shape(d)
-        if shape is None:
-            return None
+    def draw(self, draws, round_idx: int, step: int, leaf: str, d: int,
+             node_ids=None) -> Optional[torch.Tensor]:
+        """This operator's draws ``[len(node_ids), *draw_shape(d)]`` for one
+        leaf from the seam ``draws`` (``repro_torch.core.rng``), one row
+        per node id (None: every node), or None."""
+        return self.draw_many(draws, round_idx, step, [leaf], [d],
+                              node_ids)[0]
+
+    def draw_many(self, draws, round_idx: int, step: int,
+                  leaves: Sequence[str], ds: Sequence[int],
+                  node_ids=None) -> List[Optional[torch.Tensor]]:
+        """``draw`` for each leaf of ``leaves`` (d-vectors of ``ds``), in
+        one ``uniform_many`` call on the seam."""
+        shapes = [self.draw_shape(d) for d in ds]
+        if all(s is None for s in shapes):
+            return [None] * len(shapes)
         if draws is None:
             raise ValueError(f"compressor {self.name!r} draws random numbers; "
                              "pass the round's draws (DFLState.draws)")
-        return draws.uniform(round_idx, step, leaf, shape)
+        return draws.uniform_many(round_idx, step, leaves, shapes, node_ids)
 
     def __call__(self, x: torch.Tensor,
                  draws: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -122,6 +131,8 @@ class TopK(Compressor):
 
 def _rows_draws(comp: Compressor, rows: torch.Tensor,
                 draws: Optional[torch.Tensor]) -> torch.Tensor:
+    """``draws`` checked to be one row of ``draw_shape`` per row of
+    ``rows``: the substrate asks the seam for the nodes it holds."""
     want = (rows.shape[0],) + comp.draw_shape(rows.shape[1])
     if draws is None or tuple(draws.shape) != want:
         got = None if draws is None else tuple(draws.shape)

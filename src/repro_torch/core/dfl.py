@@ -27,8 +27,12 @@ the same structure.
 Ported from ``repro.core.dfl`` on the dense engine, with static taus and
 with dynamic ones (``make_round_fn(..., dynamic_taus=True)``: host-int
 step counts bounded by the config's, the executor's round), ``dense_power``
-mixing and topology schedules. Participation masks and the batched and
-sparse engines raise ``NotImplementedError``; ROADMAP.md queues them.
+mixing, topology schedules, participation masks (``round_body(...,
+masks=(node_mask, edge_mask))``: host 0/1 arrays; a masked node skips its
+local steps and keeps its state, a masked edge gossips nothing and its
+weight returns to the endpoints' self loops) and the node-batched engine
+over a virtual population (``make_round_fn(..., population=V)``). The
+sparse engine raises ``NotImplementedError``; ROADMAP.md queues it.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ from torch.func import grad_and_value, vmap
 from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.compression import Compressor, Identity, tree_wire_bits
 from repro_torch.core.rng import Draws, GeneratorDraws
-from repro_torch.core.substrate import DenseSubstrate, NodeSubstrate
+from repro_torch.core.substrate import (BatchedSubstrate, DenseSubstrate,
+                                        NodeSubstrate)
 from repro_torch.core.topology import Topology, fully_connected
 from repro_torch.core.tree import tree_map
 from repro_torch.optim import Optimizer
@@ -51,6 +56,7 @@ Params = Dict[str, torch.Tensor]
 Batch = Any  # a dict or tuple of tensors, every leaf [tau1, N, ...]
 LossFn = Callable[[Params, Any], torch.Tensor]
 Taus = Optional[Tuple[int, int]]
+Masks = Optional[Tuple[Any, Any]]  # (node_mask [N], edge_mask [E]), host 0/1
 
 __all__ = [
     "DFLConfig",
@@ -191,8 +197,8 @@ def init_state(params: Params, n: int, opt: Optimizer, stacked: bool = False,
 
 def local_phase(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
                 sub: NodeSubstrate, params: Params, opt_state: dict,
-                batches: Batch, tau1: Optional[int] = None
-                ) -> Tuple[Params, dict, torch.Tensor]:
+                batches: Batch, tau1: Optional[int] = None,
+                node_mask=None) -> Tuple[Params, dict, torch.Tensor]:
     """tau1 per-node SGD steps (Alg. 1 l.4) on batches [tau1, N, ...];
     returns (params', opt_state', mean loss over steps and nodes).
 
@@ -200,8 +206,15 @@ def local_phase(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
     tau1 steps of batches [cfg.tau1, N, ...] and sums the per-node losses
     l_0 + l_1 + ... before dividing by tau1, as the reference's dynamic
     round does; ``None`` runs cfg.tau1 steps and means the stacked losses.
-    The parameters are the same either way."""
+    The parameters are the same either way.
+
+    ``node_mask``: the substrate-local participation mask
+    (``sub.node_mask_local``). Every node runs the steps; a masked node
+    keeps its old parameters and optimizer state, step count included, so
+    its schedule does not advance (``sub.select_nodes``), and the loss is
+    the mean over active nodes."""
     grad_fn = vmap(grad_and_value(loss_fn))
+    params0, opt_state0 = params, opt_state
     losses = []
     for t in range(cfg.tau1 if tau1 is None else tau1):
         grads, loss = grad_fn(params, tree_map(lambda b: b[t], batches))
@@ -216,15 +229,26 @@ def local_phase(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
         for loss in losses[1:]:
             per_node = per_node + loss
         per_node = per_node / tau1
-    return params, opt_state, sub.mean_over_nodes(per_node)
+    if node_mask is None:
+        return params, opt_state, sub.mean_over_nodes(per_node)
+    params = sub.select_nodes(node_mask, params, params0)
+    opt_state = sub.select_nodes(node_mask, opt_state, opt_state0)
+    return params, opt_state, sub.masked_mean_over_nodes(per_node, node_mask)
 
 
 def _mix_plain(cfg: DFLConfig, sub: NodeSubstrate, params: Params,
-               round_idx: int, tau2: Optional[int]) -> Params:
+               round_idx: int, tau2: Optional[int],
+               edge_mask=None) -> Params:
     """tau2 uncompressed gossip steps: over the round's topology of the
     schedule by ``mix_dense``, as one C^tau2 product under 'dense_power',
-    else by the substrate's ``mix`` (K1 on a circulant C)."""
+    else by the substrate's ``mix`` (K1 on a circulant C), with the
+    round's ``edge_mask``."""
     steps = cfg.tau2 if tau2 is None else tau2
+    if edge_mask is not None and (cfg.topology_schedule
+                                  or cfg.mixing_impl == "dense_power"):
+        raise ValueError(
+            "participation masks index cfg.topology.edges() and need "
+            "iterated mixing: no topology schedule, no dense_power")
     if cfg.topology_schedule:
         topo = cfg.topology_schedule[round_idx % len(cfg.topology_schedule)]
         for _ in range(steps):
@@ -237,26 +261,28 @@ def _mix_plain(cfg: DFLConfig, sub: NodeSubstrate, params: Params,
         return (mixing_lib.mix_dense_power(params, cfg.topology, steps)
                 if steps else params)
     for _ in range(steps):
-        params = sub.mix(params)
+        params = sub.mix(params, edge_mask)
     return params
 
 
 def gossip_phase(cfg: DFLConfig, sub: NodeSubstrate, params: Params,
                  hat: Optional[Params], draws: Optional[Draws] = None,
-                 round_idx: int = 0, tau2: Optional[int] = None
-                 ) -> Tuple[Params, Optional[Params]]:
+                 round_idx: int = 0, tau2: Optional[int] = None,
+                 edge_mask=None) -> Tuple[Params, Optional[Params]]:
     """tau2 gossip steps (Alg. 1 l.6), or tau2 CHOCO-G iterations over
     (params, hat) under C-DFL (Alg. 2 l.6-11), step t drawing from
     ``draws`` at (round_idx, t). ``tau2``: a host int for the dynamic
-    round (0 allowed), else cfg.tau2. Returns (params', hat')."""
+    round (0 allowed), else cfg.tau2. ``edge_mask``: the round's [E] host
+    0/1 mask over ``cfg.topology.edges()``, which gates every mix (under
+    C-DFL the mix of the estimates). Returns (params', hat')."""
     if not cfg.is_compressed:
-        return _mix_plain(cfg, sub, params, round_idx, tau2), hat
+        return _mix_plain(cfg, sub, params, round_idx, tau2, edge_mask), hat
     if hat is None:
         raise ValueError("C-DFL needs init_state(..., compressed=True)")
     for t in range(cfg.tau2 if tau2 is None else tau2):
         params, hat = sub.choco_step(cfg.compression, params, hat,
-                                     sub.mix(hat), cfg.gamma, draws,
-                                     round_idx, t)
+                                     sub.mix(hat, edge_mask), cfg.gamma,
+                                     draws, round_idx, t)
     return params, hat
 
 
@@ -264,14 +290,23 @@ def round_body(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
                sub: NodeSubstrate, params: Params, opt_state: dict,
                hat: Optional[Params], batches: Batch,
                draws: Optional[Draws] = None, round_idx: int = 0,
-               taus: Taus = None):
+               taus: Taus = None, masks: Masks = None):
     """One DFL / C-DFL round: (params', opt_state', hat', metrics) with
-    metrics ``loss`` (mean local loss) and ``consensus_sq``. ``taus``: the
-    dynamic round's host-int (tau1, tau2), bounded by cfg's."""
+    metrics ``loss`` (mean local loss over active nodes) and
+    ``consensus_sq``. ``taus``: the dynamic round's host-int (tau1, tau2),
+    bounded by cfg's. ``masks``: the sporadic round's host 0/1 ``(node_mask
+    [N], edge_mask [E])``; all ones is bitwise the unmasked round."""
     tau1, tau2 = taus if taus is not None else (None, None)
+    if masks is not None:
+        node_mask, edge_mask = masks
+        node_mask = sub.node_mask_local(node_mask)
+    else:
+        node_mask = edge_mask = None
     params, opt_state, mean_loss = local_phase(cfg, loss_fn, opt, sub, params,
-                                               opt_state, batches, tau1)
-    params, hat = gossip_phase(cfg, sub, params, hat, draws, round_idx, tau2)
+                                               opt_state, batches, tau1,
+                                               node_mask)
+    params, hat = gossip_phase(cfg, sub, params, hat, draws, round_idx, tau2,
+                               edge_mask)
     metrics = {"loss": mean_loss, "consensus_sq": sub.consensus_sq(params)}
     return params, opt_state, hat, metrics
 
@@ -300,27 +335,82 @@ def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
     step counts; cfg.tau1 / cfg.tau2 become the maxima (batch leaves
     [cfg.tau1, N, ...], only the first tau1 steps read). One built round
     serves every (tau1, tau2) within them; its state is bitwise the static
-    round's at the same taus, its loss metric within an ulp."""
+    round's at the same taus, its loss metric within an ulp.
+
+    ``participation``: round_fn(state, batches, tau1, tau2, node_mask,
+    edge_mask) with host 0/1 masks ([N] over nodes, [E] over
+    ``cfg.topology.edges()``), the sporadic round of ``round_body(...,
+    masks=...)``. Needs ``dynamic_taus`` and iterated mixing over one
+    topology (no ``dense_power``, no topology schedule).
+
+    ``population``: the node-batched engine (``engine="batched"``, or
+    "auto"). State leaves are stacked ``[population, ...]`` and
+    ``cfg.topology`` is the C-node cohort graph; round_fn(state, batches,
+    tau1, tau2, cohort_ids, node_mask, edge_mask) with ``[C]`` host global
+    ids gathers the cohort's rows, runs ``round_body`` over them with the
+    seam drawing by global id, and writes them back into the state's own
+    tensors in place (rows outside the cohort untouched). The identity
+    cohort at full population is bitwise the dense round. Implies the
+    participation constraints.
+    """
     if dynamic_taus and cfg.mixing_impl == "dense_power":
         raise ValueError(
             "dynamic taus need iterated mixing: dense_power folds C^tau2 in "
             "when the round is built (use mixing_impl='dense')")
-    if engine != "dense":
+    if participation or population is not None:
+        if not dynamic_taus:
+            raise ValueError("participation masks ride the dynamic "
+                             "schedule-as-data path; pass dynamic_taus=True")
+        if cfg.topology_schedule:
+            raise ValueError("participation masks index cfg.topology.edges(); "
+                             "a round-varying topology schedule has no "
+                             "stable edge list")
+    if engine == "auto":
+        engine = "batched" if population is not None else "dense"
+    if engine not in ("dense", "batched"):
         raise NotImplementedError(f"engine={engine!r} {_NOT_PORTED}")
-    for flag, name in ((participation, "participation"),
-                       (population is not None, "population")):
-        if flag:
-            raise NotImplementedError(f"{name} {_NOT_PORTED}")
+    if engine == "batched":
+        if population is None:
+            raise ValueError("engine='batched' needs population=V (the "
+                             "virtual node count the state is stacked over)")
+        base = BatchedSubstrate(cfg.topology, population)
+
+        def batched_round_fn(state: DFLState, batches: Batch, tau1: int,
+                             tau2: int, cohort_ids, node_mask, edge_mask):
+            taus = check_taus(cfg, tau1, tau2)
+            sub = base.with_cohort(cohort_ids)
+            params, opt_state, hat, metrics = round_body(
+                cfg, loss_fn, opt, sub, sub.gather_cohort(state.params),
+                sub.gather_cohort(state.opt_state),
+                sub.gather_cohort(state.hat_params), batches, state.draws,
+                state.round_idx, taus, (node_mask, edge_mask))
+            return DFLState(
+                sub.scatter_cohort(state.params, params),
+                sub.scatter_cohort(state.opt_state, opt_state),
+                sub.scatter_cohort(state.hat_params, hat),
+                state.round_idx + 1, state.draws), metrics
+
+        return batched_round_fn
+    if population is not None:
+        raise ValueError(f"population= is a batched-engine parameter (got "
+                         f"engine={engine!r}); the {engine} engine's node "
+                         "count is the topology's")
     sub = DenseSubstrate(cfg.topology)
 
-    def body(state: DFLState, batches: Batch, taus: Taus):
+    def body(state: DFLState, batches: Batch, taus: Taus, masks: Masks = None):
         params, opt_state, hat, metrics = round_body(
             cfg, loss_fn, opt, sub, state.params, state.opt_state,
-            state.hat_params, batches, state.draws, state.round_idx, taus)
+            state.hat_params, batches, state.draws, state.round_idx, taus,
+            masks)
         return DFLState(params, opt_state, hat, state.round_idx + 1,
                         state.draws), metrics
 
-    if dynamic_taus:
+    if participation:
+        def round_fn(state: DFLState, batches: Batch, tau1: int, tau2: int,
+                     node_mask, edge_mask):
+            return body(state, batches, check_taus(cfg, tau1, tau2),
+                        (node_mask, edge_mask))
+    elif dynamic_taus:
         def round_fn(state: DFLState, batches: Batch, tau1: int, tau2: int):
             return body(state, batches, check_taus(cfg, tau1, tau2))
     else:

@@ -25,14 +25,29 @@ the contract and says what each feature becomes:
 * **RNG.** ``round_idx`` advances by K; round k of a superstep draws from
   the state's seam at ``state.round_idx + k``, so a superstep is K
   sequential ``round_fn`` calls.
+* **Participation** (``participation=True``): rows ``[K, 2 + N + E]``,
+  (tau1, tau2), an [N] node mask and an [E] edge mask over
+  ``topology.edges()``; ``[K, 2]`` rows are padded with all-ones masks,
+  bitwise the unmasked rounds. The masks are read from the host copy of
+  the trajectory, so they add no build and no sync. Metrics add
+  ``active_nodes`` and ``masked_edges`` per round.
+* **Sampled cohorts** (``engine="batched", population=V``): rows
+  ``[K, 2 + 2C + E]``, (tau1, tau2), the cohort's ``[C]`` global ids, a
+  [C] node mask and an [E] edge mask over the cohort topology; ``[K, 2]``
+  rows are the identity cohort, all active. Round k gathers its cohort's
+  rows of the ``[V, ...]`` state, runs the round and writes them back in
+  place.
+* **Determinism** (``deterministic=True``, the default): every dispatch
+  runs with cuDNN held to deterministic algorithms, so two runs give the
+  same bits (``device.deterministic_algorithms``).
 
 ``HostPrefetcher`` builds the next superstep's host batches on a worker
 thread; the copy to the card stays on the caller's thread
 (``stack_round_batches``). ``MetricsBuffer`` keeps dispatched metrics on
 the device until a flush, which waits for the device once.
 
-Participation masks, ``overlap="pipeline"``, sampled populations, the other
-engines and telemetry raise ``NotImplementedError``; ROADMAP.md queues them.
+``overlap="pipeline"``, the sparse engine and telemetry raise
+``NotImplementedError``; ROADMAP.md queues them.
 """
 from __future__ import annotations
 
@@ -47,7 +62,8 @@ import torch
 from repro_torch.core.dfl import (DFLConfig, DFLState, check_taus,
                                   make_round_fn)
 from repro_torch.core.tree import tree_leaves, tree_map
-from repro_torch.device import resolve_device, to_device
+from repro_torch.device import (deterministic_algorithms, resolve_device,
+                                to_device)
 
 __all__ = ["RoundExecutor", "HostPrefetcher", "MetricsBuffer",
            "stack_round_batches"]
@@ -100,10 +116,18 @@ class RoundExecutor:
       dynamic: True builds one round for every schedule; False is the
         static fallback, one build per distinct (tau1, tau2), cached.
       donate: keep the state in place (the passed state is overwritten
-        with the result and returned).
-      engine, participation, overlap, population, telemetry: the
-        reference's other modes; all but the defaults raise
-        ``NotImplementedError``.
+        with the result and returned); with ``donate=False`` the passed
+        state is left as it was (the batched engine then copies it first).
+      participation: rows ``[K, 2 + N + E]`` with node and edge masks
+        (dynamic mode only).
+      engine, population: ``"dense"`` (default), or ``"batched"`` with
+        ``population=V`` (``"auto"`` picks it when ``population`` is
+        given): rows ``[K, 2 + 2C + E]`` of sampled cohorts (dynamic mode
+        only).
+      deterministic: hold cuDNN to deterministic algorithms during every
+        dispatch (the previous flags are restored after).
+      overlap, telemetry and ``engine="sparse"``: the reference's other
+        modes; all but the defaults raise ``NotImplementedError``.
     """
 
     _TRAJ_CACHE_MAX = 128
@@ -111,18 +135,34 @@ class RoundExecutor:
     def __init__(self, cfg: DFLConfig, loss_fn, opt, *, engine: str = "dense",
                  dynamic: bool = True, participation: bool = False,
                  donate: bool = True, telemetry=None, overlap: str = "none",
-                 population: Optional[int] = None):
+                 population: Optional[int] = None,
+                 deterministic: bool = True):
         if overlap not in ("none", "pipeline"):
             raise ValueError(
                 f"unknown overlap mode {overlap!r} (use 'none'|'pipeline')")
+        if engine == "auto":
+            engine = "batched" if population is not None else "dense"
         for flag, name, item in (
-                (engine != "dense", f"engine={engine!r}", 6),
-                (participation, "participation", 3),
-                (population is not None, "population", 3),
+                (engine not in ("dense", "batched"), f"engine={engine!r}", 6),
                 (overlap == "pipeline", "overlap='pipeline'", 4),
                 (telemetry is not None, "telemetry", 9)):
             if flag:
                 raise NotImplementedError(f"{name} {_NOT_PORTED.format(item)}")
+        self.batched = engine == "batched"
+        if self.batched:
+            if population is None:
+                raise ValueError("engine='batched' needs population=V (the "
+                                 "virtual node count the state is stacked "
+                                 "over)")
+            participation = True  # cohort rows carry the masks too
+        elif population is not None:
+            raise ValueError(f"population= is a batched-engine parameter "
+                             f"(got engine={engine!r})")
+        if participation and not dynamic:
+            raise ValueError(
+                "participation masks and cohorts are schedule data on the "
+                "dynamic path; the static fallback builds per (tau1, tau2) "
+                "and cannot express them")
         if dynamic and cfg.mixing_impl == "dense_power":
             raise ValueError(
                 "dynamic taus need iterated mixing: dense_power folds C^tau2 "
@@ -130,6 +170,11 @@ class RoundExecutor:
         self.cfg = cfg
         self.dynamic = dynamic
         self.donate = donate
+        self.deterministic = deterministic
+        self.participation = participation
+        self.population = population
+        self.num_nodes = cfg.topology.num_nodes
+        self.num_edges = cfg.topology.num_edges
         self._loss_fn = loss_fn
         self._opt = opt
         self._round_fns: Dict[Any, Callable] = {}
@@ -152,14 +197,28 @@ class RoundExecutor:
         (tau1, tau2) in the static fallback."""
         return len(self._round_fns)
 
+    @property
+    def row_width(self) -> int:
+        """Trajectory row width: 2; 2 + N + E with participation; 2 + 2C + E
+        on the batched engine (tau1, tau2, cohort ids [C], node mask [C],
+        edge mask [E])."""
+        if self.batched:
+            return 2 + 2 * self.num_nodes + self.num_edges
+        if self.participation:
+            return 2 + self.num_nodes + self.num_edges
+        return 2
+
     def _round_fn(self, key) -> Callable:
         """The dynamic round (``key`` None) or the static round at
         ``key = (tau1, tau2)``, built on first use."""
         fn = self._round_fns.get(key)
         if fn is None:
             if key is None:
-                fn = make_round_fn(self.cfg, self._loss_fn, self._opt,
-                                   dynamic_taus=True)
+                fn = make_round_fn(
+                    self.cfg, self._loss_fn, self._opt, dynamic_taus=True,
+                    participation=self.participation and not self.batched,
+                    engine="batched" if self.batched else "dense",
+                    population=self.population)
             else:
                 cfg = dataclasses.replace(self.cfg, tau1=key[0], tau2=key[1])
                 fn = make_round_fn(cfg, self._loss_fn, self._opt)
@@ -168,15 +227,48 @@ class RoundExecutor:
 
     def _check_trajectory(self, taus, k: int) -> np.ndarray:
         arr = np.asarray(taus, dtype=np.int32)
-        if arr.ndim != 2 or arr.shape[1] != 2:
-            raise ValueError(f"trajectory must be [K, 2] (tau1, tau2) rows, "
-                             f"got shape {arr.shape}")
+        width = self.row_width
+        if arr.ndim != 2 or arr.shape[1] not in {2, width}:
+            n, e = self.num_nodes, self.num_edges
+            layout = (f"(tau1, tau2, cohort ids [{n}], node mask [{n}], edge "
+                      f"mask [{e}])" if self.batched else
+                      f"(tau1, tau2, node mask [{n}], edge mask [{e}])"
+                      if self.participation else "(tau1, tau2)")
+            raise ValueError(f"trajectory must be [K, 2] or [K, {width}] "
+                             f"{layout} rows, got shape {arr.shape}")
+        if width != 2:
+            arr = self._widen(arr)
         if arr.shape[0] != k:
             raise ValueError(f"trajectory has {arr.shape[0]} rows but batches "
                              f"carry K={k} rounds")
         for col in (0, 1):
             for v in (int(arr[:, col].min()), int(arr[:, col].max())):
                 check_taus(self.cfg, *((v, 0) if col == 0 else (1, v)))
+        return arr
+
+    def _widen(self, arr: np.ndarray) -> np.ndarray:
+        """[K, 2] rows padded to the full width (the identity cohort, all
+        ones), then the cohort ids and the 0/1 masks checked."""
+        c, kk = self.num_nodes, arr.shape[0]
+        if arr.shape[1] == 2:
+            pad = [np.ones((kk, self.row_width - 2), np.int32)]
+            if self.batched:
+                pad = [np.broadcast_to(np.arange(c, dtype=np.int32), (kk, c)),
+                       np.ones((kk, self.row_width - 2 - c), np.int32)]
+            arr = np.concatenate([arr] + pad, axis=1)
+        masks = arr[:, 2:]
+        if self.batched:
+            ids, masks = arr[:, 2:2 + c], arr[:, 2 + c:]
+            if ids.size and (ids.min() < 0 or ids.max() >= self.population):
+                raise ValueError(
+                    f"cohort ids must lie in [0, {self.population}) (got "
+                    f"range [{ids.min()}, {ids.max()}])")
+            if any(len(np.unique(row)) != c for row in ids):
+                raise ValueError("cohort ids must be unique within each row "
+                                 "(a node cannot occupy two cohort slots)")
+        if masks.size and not np.isin(masks, (0, 1)).all():
+            raise ValueError("participation masks must be 0/1 (got values "
+                             f"{sorted(set(masks.ravel().tolist()))})")
         return arr
 
     def _prepare(self, key, build: Callable[[], np.ndarray],
@@ -232,10 +324,29 @@ class RoundExecutor:
              dev: torch.Tensor, k: int) -> Tuple[DFLState, dict]:
         self.dispatch_count += 1
         self.rounds_dispatched += k
-        out, rows = state, []
+        with deterministic_algorithms(self.deterministic):
+            return self._rounds(state, batches, arr, dev, k)
+
+    def _rounds(self, state: DFLState, batches: Any, arr: np.ndarray,
+                dev: torch.Tensor, k: int) -> Tuple[DFLState, dict]:
+        c = self.num_nodes
+        # the batched round writes into the state's tensors: keep the
+        # caller's state when it is not donated
+        out = (_clone_state(state) if self.batched and not self.donate
+               else state)
+        rows = []
         for i in range(k):
             t1, t2 = int(arr[i, 0]), int(arr[i, 1])
-            if self.dynamic:
+            if self.batched:
+                out, m = self._round_fn(None)(
+                    out, tree_map(lambda b: b[i], batches), t1, t2,
+                    arr[i, 2:2 + c], arr[i, 2 + c:2 + 2 * c],
+                    arr[i, 2 + 2 * c:])
+            elif self.participation:
+                out, m = self._round_fn(None)(
+                    out, tree_map(lambda b: b[i], batches), t1, t2,
+                    arr[i, 2:2 + c], arr[i, 2 + c:])
+            elif self.dynamic:
                 out, m = self._round_fn(None)(
                     out, tree_map(lambda b: b[i], batches), t1, t2)
             else:
@@ -244,6 +355,14 @@ class RoundExecutor:
             rows.append(m)
         metrics = {key: torch.stack([m[key] for m in rows]) for key in rows[0]}
         metrics.update(tau1=dev[:, 0], tau2=dev[:, 1])
+        if self.participation:
+            # the realized participation, beside the realized schedule
+            nodes = dev[:, 2 + c:2 + 2 * c] if self.batched else dev[:, 2:2 + c]
+            metrics.update(
+                active_nodes=nodes.sum(dim=1, dtype=torch.int32),
+                masked_edges=self.num_edges - dev[:, self.row_width
+                                                  - self.num_edges:].sum(
+                    dim=1, dtype=torch.int32))
         if self.donate:
             out = _donate(state, out)
         return out, metrics
@@ -254,16 +373,19 @@ class RoundExecutor:
         ``torch.func`` set-up, kernel loads) at this batch shape on a copy
         of ``state``, then wait for the device; the caller's state and the
         dispatch statistics are left as they were."""
-        dummy = state._replace(
-            params=tree_map(torch.clone, state.params),
-            opt_state=tree_map(torch.clone, state.opt_state),
-            hat_params=tree_map(torch.clone, state.hat_params))
+        dummy = _clone_state(state)
         n_dispatch, n_rounds = self.dispatch_count, self.rounds_dispatched
         try:
             self.dispatch(dummy, batches, tau1, tau2)
             _sync(_state_device(state))
         finally:
             self.dispatch_count, self.rounds_dispatched = n_dispatch, n_rounds
+
+
+def _clone_state(state: DFLState) -> DFLState:
+    return state._replace(params=tree_map(torch.clone, state.params),
+                          opt_state=tree_map(torch.clone, state.opt_state),
+                          hat_params=tree_map(torch.clone, state.hat_params))
 
 
 def _donate(old: DFLState, new: DFLState) -> DFLState:

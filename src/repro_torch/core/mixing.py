@@ -25,6 +25,7 @@ __all__ = [
     "mix_dense_power",
     "masked_mixing_matrix",
     "gossip_table",
+    "masked_gossip_weights",
     "masked_shift_weights",
     "gossip_copies_per_step",
     "mixing_bytes_per_step",
@@ -113,6 +114,34 @@ def gossip_table(topology: Topology) -> Tuple[np.ndarray, np.ndarray]:
     for k, (_, weight) in enumerate(shifts):
         w[:, k + 1] = weight
     return nbr.astype(np.int32), w
+
+
+def masked_gossip_weights(topology: Topology,
+                          edge_mask: np.ndarray) -> np.ndarray:
+    """The gossip table's weights ``w [N, deg + 1]`` float32 for a round
+    with the [E] 0/1 ``edge_mask`` over ``topology.edges()``, the rows of
+    ``masked_shift_weights`` for every node: with ``m_ik`` the mask of the
+    edge between i and (i + s_k) mod N, ``w[i, 0] = w_self + sum_k w_k
+    (1 - m_ik)`` and ``w[i, k + 1] = w_k m_ik``, each term in f32. At all
+    ones every term is an exact ``* 1.0`` or ``+ 0.0``, so the weights are
+    bitwise ``gossip_table``'s; a node with every edge masked keeps
+    ``w_self + sum_k w_k`` and zeros."""
+    nbr, w = gossip_table(topology)
+    mask = np.asarray(edge_mask).reshape(-1)
+    if mask.shape != (topology.num_edges,):
+        raise ValueError(f"edge mask has {mask.size} entries, the topology "
+                         f"{topology.num_edges} edges")
+    _, eidx = _edge_tables(topology)
+    nodes = np.arange(topology.num_nodes)
+    one = np.float32(1.0)
+    out = np.empty_like(w)
+    w_self = w[:, 0].copy()
+    for k in range(nbr.shape[1]):
+        m = mask[eidx[nodes, nbr[:, k]]].astype(np.float32)
+        w_self = w_self + w[:, k + 1] * (one - m)
+        out[:, k + 1] = w[:, k + 1] * m
+    out[:, 0] = w_self
+    return out
 
 
 def masked_shift_weights(

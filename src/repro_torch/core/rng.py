@@ -11,82 +11,179 @@ The reference derives its randomness by folding JAX threefry keys
 and each compressor draws ``uniform(leaf key, shape)``. A torch generator
 cannot reproduce threefry's bits, so the port asks one object instead::
 
-    draws.uniform(round_idx, step, leaf, shape) -> float32 [N, *shape]
+    draws.uniform(round_idx, step, leaf, shape, node_ids=None)
+        -> float32 [len(node_ids), *shape]
 
-on the leaf's device, one row per node. ``GeneratorDraws`` is the default:
-a ``torch.Generator`` reseeded from ``(seed, round_idx, step, leaf index)``
-for every draw, so a draw depends on those indices only, never on the
-order of calls. ``ReplayDraws`` returns arrays it was given under the same
-indices: the tests feed it the reference's own draws, and a CPU run can
-replay the draws of a run on the card.
+on the leaf's device, one row per node id (``None``: every node,
+``arange(N)``). Row j depends on (seed, round_idx, step, leaf,
+``node_ids[j]``) only, as the reference's node key folds the node's id
+(on the batched engine the global virtual-node id), so a substrate asks
+for exactly the nodes it holds. ``GeneratorDraws`` is the default: a
+counter-based generator, SplitMix64 evaluated at one counter per (node
+id, element) under a key folded from (seed, round_idx, step) plus an
+offset per leaf index, in int64 torch ops on the whole ``[len(node_ids), *shape]`` block at
+once (``uniform_many``: every leaf of a gossip step in one block);
+integer arithmetic gives the same bits on the CPU and the card, and a draw
+never depends on the order of calls or on which other nodes or leaves
+were asked for. ``ReplayDraws`` returns arrays it was given under the same
+indices, rows picked by id: the tests feed it the reference's own draws.
 """
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Sequence, Tuple
+import operator
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 
 __all__ = ["Draws", "GeneratorDraws", "ReplayDraws"]
 
 Key = Tuple[int, int, str]
 _M64 = (1 << 64) - 1
+_SPLITMIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
+_GAMMA = _SPLITMIX[0]
 
 
 class Draws:
     """The seam's interface."""
 
     def uniform(self, round_idx: int, step: int, leaf: str,
-                shape: Sequence[int]) -> torch.Tensor:
-        """Uniform [0, 1) float32 of shape ``[N, *shape]`` for gossip step
-        ``step`` of round ``round_idx`` and the leaf named ``leaf``."""
+                shape: Sequence[int],
+                node_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Uniform [0, 1) float32 of shape ``[len(node_ids), *shape]`` for
+        gossip step ``step`` of round ``round_idx``, the leaf named
+        ``leaf`` and the nodes ``node_ids`` (host ints; None for every
+        node, ``[N, *shape]``)."""
         raise NotImplementedError
+
+    def uniform_many(self, round_idx: int, step: int, leaves: Sequence[str],
+                     shapes: Sequence[Sequence[int]],
+                     node_ids: Optional[Sequence[int]] = None
+                     ) -> List[torch.Tensor]:
+        """``uniform`` for each leaf of ``leaves`` with its shape, bitwise
+        those calls; a seam may draw them all at once."""
+        return [self.uniform(round_idx, step, leaf, shape, node_ids)
+                for leaf, shape in zip(leaves, shapes)]
+
+
+def _ids(node_ids, num_nodes: int) -> List[int]:
+    """``node_ids`` as host ints, ``range(num_nodes)`` for None."""
+    if node_ids is None:
+        return list(range(num_nodes))
+    return [operator.index(i) for i in np.asarray(node_ids).reshape(-1)]
 
 
 class GeneratorDraws(Draws):
-    """Draws from a ``torch.Generator`` on ``device``, seeded per draw from
-    ``(seed, round_idx, step, leaf index)``; the leaf index is the name's
-    place in sorted order, as the reference splits its leaf keys."""
+    """Counter-based draws on ``device``: SplitMix64. Element e of node i's
+    row of the leaf whose name has place l in sorted order is the top 24
+    bits of ``mix(k + o_l + GAMMA * (i * 2**32 + e))`` (mod 2**64) times
+    2**-24, where k is splitmix64 folded over (seed, round_idx, step), o_l
+    = splitmix64(l) and ``mix`` SplitMix64's finalizer (its last xor-shift
+    touches only the low 33 bits and is left out). ``num_nodes`` is the node
+    count of ``node_ids=None`` (the population on the batched engine);
+    every id must lie in ``[0, num_nodes)``.
+
+    ``uniform_many`` draws every leaf of a gossip step in 13 elementwise
+    int64 ops over one block, whatever the node and leaf counts; the
+    counters' fixed part ``o_l + GAMMA * (i * 2**32 + e)`` is built once
+    per (id set, leaves, sizes), the id set's part uploaded then."""
+
+    _KEEP_BASES = 2
 
     def __init__(self, seed: int, num_nodes: int, leaves: Iterable[str],
                  device="cuda"):
         self.seed = int(seed)
         self.num_nodes = int(num_nodes)
+        if self.num_nodes > 1 << 31:
+            raise ValueError(f"at most 2**31 nodes, got {self.num_nodes}")
         self.leaves = tuple(sorted(leaves))
         self.device = resolve_device(device)
-        self._gen = None
+        self._bases: Dict[tuple, torch.Tensor] = {}
 
-    def _seed_for(self, round_idx: int, step: int, leaf: str) -> int:
-        """A 63-bit seed: splitmix64 folded over the four indices."""
-        h = 0
-        for v in (self.seed, int(round_idx), int(step),
-                  self.leaves.index(leaf)):
-            h = (h ^ v) + 0x9E3779B97F4A7C15 & _M64
-            h = (h ^ (h >> 30)) * 0xBF58476D1CE4E5B9 & _M64
-            h = (h ^ (h >> 27)) * 0x94D049BB133111EB & _M64
-            h ^= h >> 31
-        return h >> 1
+    def _base(self, ids: Optional[bytes], leaves: Tuple[str, ...],
+              numels: Tuple[int, ...]) -> torch.Tensor:
+        """The counters' fixed part for the id set ``ids`` (int64 bytes;
+        None: every node), leaf by leaf, each leaf a row-major ``[len(ids),
+        numel]`` block, flat; the last ``_KEEP_BASES`` are kept."""
+        key = (ids, leaves, numels)
+        if key not in self._bases:
+            nodes = np.arange(self.num_nodes, dtype=np.int64) if ids is None \
+                else np.frombuffer(ids, np.int64)
+            if nodes.size and not (0 <= nodes.min() <= nodes.max()
+                                   < self.num_nodes):
+                raise ValueError(f"node ids must lie in [0, {self.num_nodes})"
+                                 f", got [{nodes.min()}, {nodes.max()}]")
+            with np.errstate(over="ignore"):       # GAMMA * i * 2**32
+                rows = (nodes.astype(np.uint64) << np.uint64(32)) \
+                    * np.uint64(_GAMMA)
+            rows = to_device(torch.from_numpy(rows.view(np.int64)),
+                             self.device)
+            blocks = []
+            for leaf, n in zip(leaves, numels):
+                if n > 1 << 32:
+                    raise ValueError(f"at most 2**32 draws a row, got {n}")
+                elem = torch.arange(n, dtype=torch.int64, device=self.device)
+                elem.mul_(_signed(_GAMMA)).add_(_signed(
+                    _splitmix(0, self.leaves.index(leaf))))
+                blocks.append((rows[:, None] + elem[None, :]).reshape(-1))
+            while len(self._bases) >= self._KEEP_BASES:
+                self._bases.pop(next(iter(self._bases)))
+            self._bases[key] = torch.cat(blocks) if blocks else torch.empty(
+                0, dtype=torch.int64, device=self.device)
+        return self._bases[key]
 
-    def uniform(self, round_idx, step, leaf, shape):
-        if self._gen is None:
-            self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(self._seed_for(round_idx, step, leaf))
-        return torch.rand((self.num_nodes, *shape), generator=self._gen,
-                          dtype=torch.float32, device=self.device)
+    def uniform(self, round_idx, step, leaf, shape, node_ids=None):
+        return self.uniform_many(round_idx, step, [leaf], [shape],
+                                 node_ids)[0]
+
+    def uniform_many(self, round_idx, step, leaves, shapes, node_ids=None):
+        shapes = [tuple(s) for s in shapes]
+        numels = tuple(int(np.prod(s, dtype=np.int64)) for s in shapes)
+        ids = None if node_ids is None else np.asarray(
+            _ids(node_ids, self.num_nodes), np.int64).tobytes()
+        base = self._base(ids, tuple(leaves), numels)
+        rows = self.num_nodes if ids is None else len(ids) // 8
+        k = 0
+        for v in (self.seed, int(round_idx), int(step)):
+            k = _splitmix(k, v)
+        z = base + _signed(k)
+        for shift, mult in ((30, _SPLITMIX[1]), (27, _SPLITMIX[2])):
+            z.bitwise_xor_(z.bitwise_right_shift(shift).bitwise_and_(
+                (1 << 64 - shift) - 1))          # a logical shift
+            z.mul_(_signed(mult))
+        u = z.bitwise_right_shift_(40).bitwise_and_((1 << 24) - 1).to(
+            torch.float32).mul_(2.0 ** -24)
+        return [block.view(rows, *shape) for block, shape in
+                zip(u.split([rows * n for n in numels]), shapes)]
+
+
+def _signed(v: int) -> int:
+    """A 64-bit pattern as the int64 value with the same bits."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _splitmix(h: int, v: int) -> int:
+    """One splitmix64 fold of ``v`` into ``h`` (Python ints, 64 bits)."""
+    c1, c2, c3 = _SPLITMIX
+    h = (h ^ v) + c1 & _M64
+    h = (h ^ (h >> 30)) * c2 & _M64
+    h = (h ^ (h >> 27)) * c3 & _M64
+    return h ^ (h >> 31)
 
 
 class ReplayDraws(Draws):
     """Returns the arrays of ``table``, keyed ``(round_idx, step, leaf)``,
-    each ``[N, *shape]``, as float32 tensors on ``device``."""
+    each ``[N, *shape]`` with row i node i's, as float32 tensors on
+    ``device``; ``node_ids`` picks the rows."""
 
     def __init__(self, table: Mapping[Key, np.ndarray], device="cuda"):
         self.device = resolve_device(device)
         self.table = {key: torch.as_tensor(np.asarray(a, np.float32))
                       for key, a in table.items()}
 
-    def uniform(self, round_idx, step, leaf, shape):
+    def uniform(self, round_idx, step, leaf, shape, node_ids=None):
         key = (int(round_idx), int(step), leaf)
         if key not in self.table:
             raise KeyError(f"no replayed draw for (round, step, leaf) = {key}")
@@ -94,4 +191,6 @@ class ReplayDraws(Draws):
         if tuple(out.shape[1:]) != tuple(shape):
             raise ValueError(f"replayed draw {key} has shape "
                              f"{tuple(out.shape)}, asked for [N, *{tuple(shape)}]")
+        if node_ids is not None:
+            out = out[_ids(node_ids, out.shape[0])]
         return out.to(self.device)

@@ -6,12 +6,17 @@ of every leaf, which is how one card holds them. Its hooks reach the
 kernels:
 
   * ``mix``        — one gossip step X <- X C: the gossip kernel (K1), one
-                     call for every leaf, when C is circulant, else the
-                     dense product ``mix_dense``.
+                     call for the leaves of each dtype, when C is
+                     circulant, else the dense product ``mix_dense``. An
+                     edge mask folds each masked edge's weight onto its
+                     endpoints' self loops: on a circulant C through the
+                     round's per-node weight table (K1 unchanged), else
+                     through ``mix_dense(edge_mask=)``.
   * ``choco_step`` — one CHOCO-G iteration after the mix:
                      TopK: every leaf's gap in the leaf dtype, their
-                     per-node thresholds in one call (K4), then the fused
-                     move-and-update (K3) per leaf;
+                     per-node thresholds in one call (K4) for the leaves
+                     of each dtype, then the fused move-and-update (K3)
+                     per leaf;
                      QSGD: the gap's per-node f32 norm, the noise from the
                      RNG seam and the fused move-and-quantize (K2);
                      any other compressor: the move (K7), ``compress``
@@ -21,39 +26,110 @@ kernels:
                      from the seam: QSGD every leaf's per-node norm and one
                      K6 call for the leaves of each dtype, any other
                      compressor leaf by leaf.
+
+Participation (sporadic rounds): ``select_nodes`` keeps a masked node's
+old state, ``masked_mean_over_nodes`` averages over active nodes. Masks
+are host arrays (rows of the executor's trajectory); each distinct mask
+goes to the device once, without blocking the host.
+
+``BatchedSubstrate`` runs the same round over a sampled cohort of a
+virtual population stacked ``[V, ...]``: it gathers the cohort's rows,
+hands the seam the cohort's global ids, and writes the rows back in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import copy
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.compression import QSGD, Compressor, TopK
 from repro_torch.core.topology import Topology
+from repro_torch.core.tree import tree_map
 from repro_torch.device import to_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.choco_fused import gap
 
 Params = Dict[str, torch.Tensor]
 
-__all__ = ["NodeSubstrate", "DenseSubstrate"]
+__all__ = ["NodeSubstrate", "DenseSubstrate", "BatchedSubstrate"]
+
+
+def _by_dtype(leaves: List[torch.Tensor], fn: Callable) -> List[Any]:
+    """``fn`` on the leaves of each dtype in one call (``fn(group) ->
+    one output per leaf``), the outputs back in the leaves' order."""
+    out: List[Any] = [None] * len(leaves)
+    for dtype in dict.fromkeys(x.dtype for x in leaves):
+        idx = [i for i, x in enumerate(leaves) if x.dtype == dtype]
+        for i, o in zip(idx, fn([leaves[i] for i in idx])):
+            out[i] = o
+    return out
+
+
+class _DeviceCache:
+    """Host arrays on a device, each distinct (content, device) copied
+    once without blocking the host; a bounded FIFO."""
+
+    MAX = 128
+
+    def __init__(self):
+        self._entries: Dict[Any, torch.Tensor] = {}
+
+    def get(self, key, device, build: Callable[[], np.ndarray]):
+        key = (key, device)
+        hit = self._entries.get(key)
+        if hit is None:
+            if len(self._entries) >= self.MAX:
+                self._entries.pop(next(iter(self._entries)))
+            hit = to_device(torch.from_numpy(np.ascontiguousarray(build())),
+                            device)
+            self._entries[key] = hit
+        return hit
+
+
+def _host_mask(mask) -> np.ndarray:
+    """A 0/1 participation mask as a host int32 array (device tensors are
+    refused: reading one would wait for the device)."""
+    if torch.is_tensor(mask) and mask.device.type != "cpu":
+        raise TypeError("participation masks are host data: pass numpy "
+                        "arrays or CPU tensors")
+    return np.asarray(mask, dtype=np.int32).reshape(-1)
 
 
 class NodeSubstrate:
     """The node-axis contract (N = number of nodes):
 
-      * ``mix(tree)``            — one uncompressed gossip step X <- X C.
+      * ``mix(tree, edge_mask=None)`` — one uncompressed gossip step
+                                  X <- X C; ``edge_mask`` ([E] 0/1 over
+                                  ``topology.edges()``) drops masked edges
+                                  and returns their weight to the self
+                                  loops (bitwise the plain step at all
+                                  ones).
       * ``mean_over_nodes(x)``   — mean over nodes of per-node values.
       * ``sum_per_node(x)``      — sum an array down to one value per node.
       * ``mean_tree(tree)``      — per-leaf f32 mean over nodes.
       * ``compress(...)``        — Q on every node's slice of a tree.
       * ``choco_step(...)``      — one CHOCO-G iteration after the mix.
+
+    Participation hooks:
+      * ``node_mask_local(node_mask)``  — the round's [N] node mask in this
+        substrate's view (dense: the host vector itself).
+      * ``select_nodes(mask, new, old)`` — per node, ``new`` where the
+        mask is one and ``old`` where it is zero, over any tree of
+        ``[N, ...]`` leaves; ``new`` itself at all ones.
+      * ``masked_mean_over_nodes(x, mask)`` — mean of per-node values
+        over active nodes; bitwise ``mean_over_nodes`` at all ones.
+
+    ``node_ids``: the ids the RNG seam draws for, one per node held (None:
+    every node of the seam, in order).
     """
 
     num_nodes: int
+    node_ids: Optional[np.ndarray] = None
 
-    def mix(self, tree: Params) -> Params:
+    def mix(self, tree: Params, edge_mask=None) -> Params:
         raise NotImplementedError
 
     def mean_over_nodes(self, x: torch.Tensor) -> torch.Tensor:
@@ -65,17 +141,28 @@ class NodeSubstrate:
     def mean_tree(self, tree: Params) -> Params:
         raise NotImplementedError
 
+    def node_mask_local(self, node_mask) -> np.ndarray:
+        raise NotImplementedError
+
+    def select_nodes(self, mask_local, new: Any, old: Any) -> Any:
+        raise NotImplementedError
+
+    def masked_mean_over_nodes(self, x: torch.Tensor,
+                               mask_local) -> torch.Tensor:
+        raise NotImplementedError
+
     def compress(self, comp: Compressor, tree: Params, draws=None,
                  round_idx: int = 0, step: int = 0) -> Params:
         """Q on every node's slice of each leaf of ``tree``, whose leading
         axis is the node axis (the nodes this substrate holds), each leaf
         with its draws for gossip step ``step`` of round ``round_idx`` from
-        the seam ``draws``: one ``per_node_many`` call for the tree, which
-        makes one K6 call per dtype under QSGD and goes leaf by leaf for
-        the other compressors."""
+        the seam ``draws``, for the nodes ``node_ids``: one
+        ``per_node_many`` call for the tree, which makes one K6 call per
+        dtype under QSGD and goes leaf by leaf for the other compressors."""
         names = list(tree)
-        us = [comp.draw(draws, round_idx, step, name, tree[name][0].numel())
-              for name in names]
+        us = comp.draw_many(draws, round_idx, step, names,
+                            [tree[name][0].numel() for name in names],
+                            self.node_ids)
         return dict(zip(names, comp.per_node_many([tree[name]
                                                    for name in names], us)))
 
@@ -118,25 +205,42 @@ class DenseSubstrate(NodeSubstrate):
         self.num_nodes = topology.num_nodes
         self._table = (mixing_lib.gossip_table(topology)
                        if topology.is_shift_structured() else None)
-        self._tables_on = {}
+        self._on_device = _DeviceCache()
 
-    def _table_on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The gossip table on ``device``, copied there at its first mix
-        without blocking the host."""
-        if device not in self._tables_on:
-            self._tables_on[device] = tuple(
-                to_device(torch.from_numpy(a), device) for a in self._table)
-        return self._tables_on[device]
+    def _table_on(self, device, edge_mask: Optional[np.ndarray]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The gossip table on ``device``, its weights those of the round's
+        edge mask (``masked_gossip_weights``); each distinct one is copied
+        there once without blocking the host."""
+        nbr = self._on_device.get("nbr", device, lambda: self._table[0])
+        if edge_mask is None:
+            return nbr, self._on_device.get("w", device,
+                                            lambda: self._table[1])
+        return nbr, self._on_device.get(
+            ("w", edge_mask.tobytes()), device,
+            lambda: mixing_lib.masked_gossip_weights(self.topology,
+                                                     edge_mask))
 
-    def mix(self, tree):
-        if self._table is None:
-            return mixing_lib.mix_dense(tree, self.topology)
+    def mix(self, tree, edge_mask=None):
         if not tree:
             return {}
         names = list(tree)
-        nbr, w = self._table_on(tree[names[0]].device)
-        mixed = ops.gossip_mix_many(
-            [tree[name].reshape(self.num_nodes, -1) for name in names], nbr, w)
+        device = tree[names[0]].device
+        mask = None if edge_mask is None else _host_mask(edge_mask)
+        if mask is not None and mask.shape != (self.topology.num_edges,):
+            raise ValueError(f"edge mask has {mask.size} entries, the "
+                             f"topology {self.topology.num_edges} edges")
+        if mask is not None and mask.all():
+            mask = None  # every term of the masked weights is exact there
+        if self._table is None:
+            dev_mask = None if mask is None else self._on_device.get(
+                ("edge_mask", mask.tobytes()), device, lambda: mask)
+            return mixing_lib.mix_dense(tree, self.topology,
+                                        edge_mask=dev_mask)
+        nbr, w = self._table_on(device, mask)
+        mixed = _by_dtype(
+            [tree[name].reshape(self.num_nodes, -1) for name in names],
+            lambda xs: ops.gossip_mix_many(xs, nbr, w))
         return {name: m.reshape(tree[name].shape)
                 for name, m in zip(names, mixed)}
 
@@ -149,13 +253,45 @@ class DenseSubstrate(NodeSubstrate):
     def mean_tree(self, tree):
         return {name: x.float().mean(dim=0) for name, x in tree.items()}
 
+    def node_mask_local(self, node_mask):
+        mask = _host_mask(node_mask)
+        if mask.shape != (self.num_nodes,):
+            raise ValueError(f"node mask has {mask.size} entries for "
+                             f"{self.num_nodes} nodes")
+        return mask
+
+    def _mask_on(self, mask: np.ndarray, device, kind: str) -> torch.Tensor:
+        return self._on_device.get(
+            (kind, mask.tobytes()), device,
+            lambda: mask.astype(bool if kind == "bool" else np.float32))
+
+    def select_nodes(self, mask_local, new, old):
+        mask = np.asarray(mask_local)
+        if mask.all():
+            return new
+
+        def sel(nw, od):
+            m = self._mask_on(mask, nw.device, "bool")
+            return torch.where(m.reshape((-1,) + (1,) * (nw.dim() - 1)),
+                               nw, od)
+
+        return tree_map(sel, new, old)
+
+    def masked_mean_over_nodes(self, x, mask_local):
+        """mean(x m) / max(mean(m), 1/N): an exact ``/ 1.0`` at all ones,
+        and 0 (not NaN) when every node is masked."""
+        m = self._mask_on(np.asarray(mask_local), x.device, "float")
+        num = self.mean_over_nodes(x * m)
+        return num / self.mean_over_nodes(m).clamp(
+            min=1.0 / max(self.num_nodes, 1))
+
     def choco_step(self, comp, x, y, mixed_y, gamma, draws=None,
                    round_idx=0, step=0):
         """TopK and QSGD run fused, emitting (x_new, y_new) in one pass per
-        leaf. TopK: every leaf's gap d in the leaf dtype, all their
-        thresholds in one K4 call, then K3 per leaf. QSGD, per leaf: d's
-        per-node f32 norm and K2 (which recomputes d bitwise). Other
-        compressors: the unfused composition."""
+        leaf. TopK: every leaf's gap d in the leaf dtype, the thresholds of
+        the leaves of each dtype in one K4 call, then K3 per leaf. QSGD,
+        per leaf: d's per-node f32 norm and K2 (which recomputes d
+        bitwise). Other compressors: the unfused composition."""
         if not isinstance(comp, (TopK, QSGD)):
             return super().choco_step(comp, x, y, mixed_y, gamma, draws,
                                       round_idx, step)
@@ -165,18 +301,92 @@ class DenseSubstrate(NodeSubstrate):
         x_new, y_new = {}, {}
         if isinstance(comp, TopK):
             gaps = [gap(a, b, my, gamma) for a, b, my in rows.values()]
-            threshs = ops.topk_threshold_many(
-                gaps, [comp._k(d.shape[1]) for d in gaps])
+            threshs = _by_dtype(gaps, lambda ds: ops.topk_threshold_many(
+                ds, [comp._k(d.shape[1]) for d in ds]))
             for (name, (a, b, my)), d, t in zip(rows.items(), gaps, threshs):
                 x_new[name], y_new[name] = ops.choco_topk(a, b, my, d, t,
                                                           gamma)
         else:
-            for name, (a, b, my) in rows.items():
+            noises = comp.draw_many(draws, round_idx, step, list(rows),
+                                    [r[0].shape[1] for r in rows.values()],
+                                    self.node_ids)
+            for (name, (a, b, my)), noise in zip(rows.items(), noises):
                 d = gap(a, b, my, gamma)
                 norm = torch.linalg.vector_norm(d.float(), dim=1)
-                noise = comp.draw(draws, round_idx, step, name, d.shape[1])
                 x_new[name], y_new[name] = ops.choco_qsgd(
                     a, b, my, noise, norm, gamma, comp.levels,
                     comp._c(d.shape[1]))
         return ({name: v.reshape(x[name].shape) for name, v in x_new.items()},
                 {name: v.reshape(x[name].shape) for name, v in y_new.items()})
+
+
+class BatchedSubstrate(DenseSubstrate):
+    """The dense substrate over a sampled cohort of a virtual population.
+
+    Training state stays stacked ``[population, ...]``; each round gathers
+    the rows of ``cohort_ids`` (``[C]`` global node ids, host ints, C the
+    cohort ``topology``'s node count), runs the ordinary dense round over
+    the cohort and writes the rows back in place (``index_copy_`` into the
+    state's own tensors), so rows outside the cohort are bitwise untouched
+    and no ``[population, ...]`` tree is built. The seam draws by global
+    id (``node_ids``), so a virtual node's draws follow its identity, not
+    its slot. ``cohort_ids=None`` is the identity cohort ``arange(C)``; at
+    ``population == C`` the identity cohort gathers and scatters nothing,
+    and the round is bitwise the dense round.
+    """
+
+    def __init__(self, topology: Topology, population: int,
+                 cohort_ids=None):
+        super().__init__(topology)
+        population = int(population)
+        if population < topology.num_nodes:
+            raise ValueError(f"population {population} smaller than the "
+                             f"cohort topology's {topology.num_nodes} nodes")
+        self.population = population
+        self._set_ids(cohort_ids)
+
+    def _set_ids(self, cohort_ids) -> None:
+        c = self.num_nodes
+        ids = (np.arange(c, dtype=np.int64) if cohort_ids is None
+               else np.asarray(cohort_ids, dtype=np.int64).reshape(-1))
+        if ids.shape != (c,):
+            raise ValueError(f"{ids.size} cohort ids for a {c}-node cohort")
+        if c and (ids.min() < 0 or ids.max() >= self.population):
+            raise ValueError(f"cohort ids must lie in [0, {self.population})")
+        if len(np.unique(ids)) != c:
+            raise ValueError("cohort ids must be unique")
+        self.node_ids = ids
+        self._ids_dev: Dict[Any, torch.Tensor] = {}
+        self._identity = (c == self.population
+                          and bool((ids == np.arange(c)).all()))
+
+    def with_cohort(self, cohort_ids) -> "BatchedSubstrate":
+        """This substrate over another cohort; the device copies of the
+        gossip tables and masks are shared."""
+        out = copy.copy(self)
+        out._set_ids(cohort_ids)
+        return out
+
+    def _ids_on(self, device) -> torch.Tensor:
+        if device not in self._ids_dev:
+            self._ids_dev[device] = to_device(
+                torch.from_numpy(self.node_ids), device)
+        return self._ids_dev[device]
+
+    def gather_cohort(self, tree: Any) -> Any:
+        """The cohort's rows of a ``[population, ...]`` tree (the tree
+        itself for the identity cohort at full population)."""
+        if tree is None or self._identity:
+            return tree
+        return tree_map(lambda x: x.index_select(0, self._ids_on(x.device)),
+                        tree)
+
+    def scatter_cohort(self, full: Any, cohort: Any) -> Any:
+        """Write the cohort's rows into ``full``'s own tensors (in place;
+        every other row untouched) and return ``full``; the identity
+        cohort at full population returns ``cohort``."""
+        if full is None or self._identity:
+            return cohort
+        return tree_map(
+            lambda f, c: f.index_copy_(0, self._ids_on(f.device), c),
+            full, cohort)

@@ -1,5 +1,9 @@
-"""Device selection for the port's entry points: the card unless asked."""
+"""Device selection for the port's entry points (the card unless asked),
+host-to-device copies that do not block, and the determinism switch."""
 from __future__ import annotations
+
+import contextlib
+from typing import Iterator
 
 import torch
 
@@ -22,3 +26,21 @@ def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool = True) -> Iterator[None]:
+    """Inside the block, cuDNN runs deterministic algorithms and does not
+    autotune (``cudnn.deterministic = True``, ``cudnn.benchmark = False``),
+    so a run on the card gives the same bits twice; the previous flags are
+    restored after. ``on=False`` leaves the flags alone."""
+    if not on:
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev

@@ -22,7 +22,7 @@ import torch
 from repro_torch.core import (DFLConfig, average_model, init_state,
                               make_compressor, make_round_fn, ring)
 from repro_torch.core.rng import Draws
-from repro_torch.device import resolve_device
+from repro_torch.device import deterministic_algorithms, resolve_device
 from repro_torch.optim import sgd
 
 N = 10                       # nodes (paper Sec. VI-A)
@@ -60,12 +60,19 @@ def variants() -> List[Tuple[str, DFLConfig]]:
 
 
 def train(cfg: DFLConfig, rounds: int = 60, label: str = "",
-          device="cuda", draws: Optional[Draws] = None) -> Dict:
+          device="cuda", draws: Optional[Draws] = None,
+          deterministic: bool = True) -> Dict:
     """``rounds`` rounds of ``cfg`` from w = 0 on ``device``; ``draws``
-    replaces the random compressors' seam (seed 1). Prints and returns the
-    last round's loss and consensus, |w - w*| of the average model, and
-    every round's loss and consensus."""
-    dev = resolve_device(device)
+    replaces the random compressors' seam (seed 1); ``deterministic``
+    holds cuDNN to deterministic algorithms for the run. Prints and
+    returns the last round's loss and consensus, |w - w*| of the average
+    model, and every round's loss and consensus."""
+    with deterministic_algorithms(deterministic):
+        return _train(cfg, rounds, label, resolve_device(device), draws)
+
+
+def _train(cfg: DFLConfig, rounds: int, label: str, dev: torch.device,
+           draws: Optional[Draws]) -> Dict:
     opt = sgd(LR)
     state = init_state({"w": torch.zeros(DIM, device=dev)}, N, opt,
                        compressed=cfg.is_compressed, seed=1, draws=draws)

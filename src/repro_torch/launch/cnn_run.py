@@ -12,7 +12,9 @@ the same history keys. Run it as::
 random compressors draw from a generator seeded by ``--seed``.
 
 On the card it turns TF32 off for cuDNN convolutions and cuBLAS matmuls,
-because the reference runs the CNN in f32.
+because the reference runs the CNN in f32, and by default holds cuDNN to
+deterministic algorithms for the run, so two runs give the same history
+(``--nondeterministic`` leaves cuDNN's defaults).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from repro_torch.core.rng import Draws
 from repro_torch.core.topology import (fully_connected, paper_quasi_ring,
                                        ring)
 from repro_torch.data.images import SyntheticImages, image_batches_for_dfl
-from repro_torch.device import resolve_device
+from repro_torch.device import deterministic_algorithms, resolve_device
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn
 from repro_torch.optim import sgd
 
@@ -75,11 +77,19 @@ class RunSpec:
 
 
 def run_dfl_cnn(spec: RunSpec, device="cuda", log_every: int = 5,
-                draws: Optional[Draws] = None) -> Dict:
+                draws: Optional[Draws] = None,
+                deterministic: bool = True) -> Dict:
     """Train ``spec`` on ``device``; returns the reference's result dict
     plus ``round_ms`` (host clock per round, ended by a device sync).
-    ``draws`` replaces the RNG seam seeded by ``spec.seed``."""
-    dev = resolve_device(device)
+    ``draws`` replaces the RNG seam seeded by ``spec.seed``.
+    ``deterministic``: cuDNN's deterministic algorithms for the run, so
+    that two calls give the same history (the flags are restored after)."""
+    with deterministic_algorithms(deterministic):
+        return _run(spec, resolve_device(device), log_every, draws)
+
+
+def _run(spec: RunSpec, dev: torch.device, log_every: int,
+         draws: Optional[Draws]) -> Dict:
     if dev.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -167,6 +177,8 @@ def main(argv=None) -> Dict:
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--nondeterministic", action="store_true",
+                   help="leave cuDNN free to pick nondeterministic algorithms")
     a = p.parse_args(argv)
     kw = {"top_k": {"frac": a.frac}, "rand_k": {"frac": a.frac},
           "qsgd": {"levels": a.levels},
@@ -177,7 +189,8 @@ def main(argv=None) -> Dict:
                    gamma=a.gamma if a.compression else 1.0, lr=a.lr,
                    flavor=a.flavor, nodes=a.nodes, rounds=a.rounds,
                    batch=a.batch, seed=a.seed)
-    out = run_dfl_cnn(spec, device=a.device, log_every=a.log_every)
+    out = run_dfl_cnn(spec, device=a.device, log_every=a.log_every,
+                      deterministic=not a.nondeterministic)
     if out["tf32"]:
         print(out["tf32"])
     h = out["history"]

@@ -396,14 +396,26 @@ def test_dispatch_rejects_out_of_bounds_taus():
 
 
 def test_unported_executor_modes_raise():
+    """The modes still to port raise, pointing at ROADMAP.md; participation
+    and sampled populations are ported and refuse what the reference
+    refuses (the static fallback, a population on the dense engine)."""
     cfg = DFLConfig(tau1=2, tau2=1, topology=ring(N))
-    for kw in ({"engine": "sparse"}, {"participation": True},
-               {"population": 16}, {"overlap": "pipeline"},
+    for kw in ({"engine": "sparse"}, {"overlap": "pipeline"},
                {"telemetry": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RoundExecutor(cfg, quad_loss, sgd(0.1), **kw)
     with pytest.raises(ValueError, match="overlap"):
         RoundExecutor(cfg, quad_loss, sgd(0.1), overlap="sideways")
+    with pytest.raises(ValueError, match="batched-engine parameter"):
+        RoundExecutor(cfg, quad_loss, sgd(0.1), population=16)
+    for kw in ({"participation": True}, {"engine": "auto",
+                                         "population": 16}):
+        with pytest.raises(ValueError, match="dynamic"):
+            RoundExecutor(cfg, quad_loss, sgd(0.1), dynamic=False, **kw)
+    assert RoundExecutor(cfg, quad_loss, sgd(0.1),
+                         participation=True).row_width == 2 + N + N
+    assert RoundExecutor(cfg, quad_loss, sgd(0.1), engine="auto",
+                         population=16).row_width == 2 + 2 * N + N
     for cls in (HostPrefetcher, MetricsBuffer):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cls(telemetry=object())

@@ -3,11 +3,13 @@ reference's (``benchmarks/``).
 
 Their spec tables are the reference's; ``run_dfl_cnn`` on a
 ``fully_connected(10)`` spec (Table I's sync-SGD, which runs K1 with 9
-shifts on the card) and on a ``label_shard`` spec (Fig. 8's tau1 = 2) holds
-the reference harness's history (loss, global loss, consensus, test
-accuracy, wire bits) to rtol 1e-4, from the reference's initial weights on
-a small dataset; every bench runs on the CPU at 1 round and writes its
-JSON where asked.
+shifts on the card), on a ``label_shard`` spec (Fig. 8's tau1 = 2), on
+Fig. 9's quasi-ring spec (not circulant: ``mix_dense``) and on Fig. 10's
+randomized-gossip C-DFL variant (the reference's draws replayed through
+the port's seam) holds the reference harness's history (loss, global
+loss, consensus, test accuracy, wire bits) to rtol 1e-4, from the
+reference's initial weights on a small dataset; every bench runs on the
+CPU at 1 round and writes its JSON where asked.
 """
 import json
 
@@ -27,6 +29,8 @@ from repro_torch.benchmarks import fig10_cdfl as tfig10
 from repro_torch.benchmarks import run as trun
 from repro_torch.benchmarks import table1_methods as ttable1
 from repro_torch.convert import params_from_jax
+from repro_torch.core.compression import make_compressor
+from repro_torch.core.rng import ReplayDraws
 from repro_torch.data.images import SyntheticImages
 from repro_torch.launch import cnn_run
 
@@ -55,6 +59,13 @@ SPECS = {
     "full10": dict(tau1=1, tau2=1, topology="full", rounds=3),
     "label_shard": dict(tau1=2, tau2=4, topology="ring", rounds=2,
                         partition="label_shard"),
+    # Fig. 9's quasi-ring run (fig9_zeta.run) and Fig. 10's p = 0.8
+    # randomized-gossip run (fig10_cdfl.run), cut to 2 rounds
+    "fig9_quasi": dict(tau1=2, tau2=1, topology="quasi", rounds=2,
+                       partition="label_shard"),
+    "fig10_rand_gossip": dict(tau1=4, tau2=4, topology="ring",
+                              compression="rand_gossip",
+                              comp_kwargs={"p": 0.8}, gamma=0.6, rounds=2),
 }
 
 
@@ -67,8 +78,16 @@ def test_run_dfl_cnn_history_matches_reference_harness(monkeypatch, label):
     p0 = params_from_jax({k: np.asarray(v) for k, v in jcnn.init_cnn(
         jax.random.key(0), "mnist").items()}, "cpu")
     monkeypatch.setattr(cnn_run, "init_cnn", lambda *a, **kw: p0)
-    got = common.run_dfl_cnn(common.RunSpec(name=label, **kw), device="cpu",
-                             log_every=1)
+    spec = common.RunSpec(name=label, **kw)
+    draws = None
+    if spec.compression:  # the harness seeds the reference's rng seed + 1
+        from test_torch_round import _reference_draws
+        draws = ReplayDraws(_reference_draws(
+            make_compressor(spec.compression, **spec.comp_kwargs),
+            jax.random.key(spec.seed + 1),
+            {k: tuple(v.shape) for k, v in p0.items()}, rounds=spec.rounds,
+            tau2=spec.tau2, n=spec.nodes), device="cpu")
+    got = common.run_dfl_cnn(spec, device="cpu", log_every=1, draws=draws)
     assert got["bits_per_round"] == want["bits_per_round"]
     assert got["zeta"] == pytest.approx(want["zeta"], abs=1e-12)
     h, jh = got["history"], want["history"]
@@ -136,3 +155,28 @@ def test_bench_round_overhead_runs_on_cpu(monkeypatch, tmp_path):
     assert out["syncs_in_dispatch"] is None
     assert (tmp_path / "bro.json").is_file()
     assert bro.replan_schedule(12, 3) == [(4, 4)] * 6 + [(2, 1)] * 6
+
+
+def test_bench_round_overhead_dispatch_measurement_on_cpu(tmp_path):
+    """The reference's dispatch measurement, ported: the 8-node quadratic
+    ring, (2, 2) then (4, 1) at the superstep boundary, no build after the
+    warmup; rounds/s of the three strategies and their ratio. ``--check``
+    holds the 2x bar; the CNN measurement refuses it."""
+    from repro_torch.benchmarks import bench_round_overhead as bro
+
+    out = bro.main(["--measure", "dispatch", "--device", "cpu",
+                    "--out", str(tmp_path / "d")])
+    assert out["config"]["schedule"] == [[2, 2], [4, 1]]
+    (rep,) = out["repeats"]
+    assert rep["legacy"]["builds"] == 2
+    assert rep["executor_round"]["dispatches"] == 20
+    assert rep["executor_superstep"]["dispatches"] == 2
+    assert all(v > 0 for v in out["median_rounds_per_s"].values())
+    assert out["speedup_superstep_vs_legacy"] == pytest.approx(
+        out["median_rounds_per_s"]["executor_superstep"]
+        / out["median_rounds_per_s"]["legacy"])
+    assert (tmp_path / "d.json").is_file()
+    s = bro.quad_setup(4, device="cpu")
+    assert s.batches[0][0].shape == (4, 8, 64)
+    with pytest.raises(SystemExit):
+        bro.main(["--check", "--device", "cpu"])

@@ -30,5 +30,4 @@ def test_metrics_equal_reference(name):
 
 
 def test_metrics_exports():
-    assert set(metrics.__all__) == set(jmetrics.__all__) - {
-        "comm_compute_cost"}
+    assert set(metrics.__all__) == set(jmetrics.__all__)

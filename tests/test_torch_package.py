@@ -45,7 +45,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.benchmarks.fig9_zeta",
             "repro_torch.benchmarks.fig10_cdfl",
             "repro_torch.benchmarks.table1_methods",
-            "repro_torch.benchmarks.bench_round_overhead"} <= set(mods)
+            "repro_torch.benchmarks.bench_round_overhead",
+            "repro_torch.benchmarks.bench_faults",
+            "repro_torch.benchmarks.bench_megascale",
+            "repro_torch.faults", "repro_torch.planner",
+            "repro_torch.planner.cost"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == []
 

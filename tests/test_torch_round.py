@@ -198,17 +198,23 @@ def test_round_wire_bits_matches_reference():
 
 
 def test_unported_options_raise():
-    """The options still to port raise, pointing at ROADMAP.md: the sparse
-    and batched engines, participation masks and sampled populations.
-    Dynamic taus, dense_power mixing and topology schedules are ported and
-    held against the reference in tests/test_torch_executor.py."""
+    """The option still to port raises, pointing at ROADMAP.md: the sparse
+    engine. Participation masks and sampled populations are ported
+    (tests/test_torch_faults.py, tests/test_torch_batched.py) and refuse,
+    as the reference does, a round without dynamic taus and a batched
+    engine without a population."""
     cfg = dfl.DFLConfig(2, 2, ring(4))
     loss = lambda p, b: cnn_loss(p, b)  # noqa: E731
-    for kw in ({"engine": "sparse"}, {"engine": "batched"},
-               {"participation": True}, {"population": 8},
-               {"dynamic_taus": True, "participation": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dfl.make_round_fn(cfg, loss, sgd(0.1), engine="sparse")
+    for kw in ({"participation": True}, {"population": 8}):
+        with pytest.raises(ValueError, match="dynamic_taus"):
             dfl.make_round_fn(cfg, loss, sgd(0.1), **kw)
+    with pytest.raises(ValueError, match="population"):
+        dfl.make_round_fn(cfg, loss, sgd(0.1), engine="batched",
+                          dynamic_taus=True)
+    assert callable(dfl.make_round_fn(cfg, loss, sgd(0.1), dynamic_taus=True,
+                                      participation=True))
     with pytest.raises(ValueError):
         dfl.DFLConfig(0, 2, ring(4))
 
