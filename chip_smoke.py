@@ -47,6 +47,19 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    plain-DFL round with ``mixing_impl="dense_power"`` against the iterated
    round. K1 at ``fully_connected(10)`` (9 shifts), bitwise and timed over
    the CIFAR leaves.
+4b. The executor's rounds as CUDA graphs (``run_graph_phase``): replayed
+   dispatches of plain DFL, C-DFL TopK, QSGD, randomized gossip and RandK,
+   and masked rows, bitwise
+   ``make_round_fn``'s eager rounds on the card with the same launch
+   counts, no synchronizing call, no capture or build after the warmup
+   across a re-plan and a new K; eager against replayed ms per round, the
+   device busy share and peak memory; a capture forced to fail raises; the
+   quadratic dispatch measurement with the reference's 2x bar applied.
+4c. ``RoundExecutor(overlap="pipeline")`` (``run_pipeline_phase``):
+   bitwise the eager pipelined superstep, the six pipelined CIFAR rounds
+   against the CPU's (``PIPELINE_RUN_RTOL``, which a control with K1
+   perturbed must break), ms per round against ``overlap="none"``, and
+   how long kernels of the exchange's stream overlapped the local steps'.
 5. The quickstart (``repro_torch.examples.quickstart``), 60 rounds of each
    variant on the card, held against a CPU run (C-DFL QSGD with the card's
    draws replayed, as a whole run within ``QSGD_RUN_RTOL``, which a
@@ -73,10 +86,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    of plain DFL and C-DFL QSGD: rows outside the cohorts bitwise
    untouched, the population kept in place, peak device memory; an
    identity cohort at V = C = 10 bitwise the dense executor.
-8. ``bench_faults --smoke --check``, ``bench_megascale --smoke --check``
-   and the quadratic ``dispatch`` measurement of
-   ``bench_round_overhead`` (its superstep over legacy ratio printed, its
-   2x bar not applied).
+8. ``bench_faults --smoke --check`` and ``bench_megascale --smoke
+   --check``.
 9. ``run_dfl_cnn`` twice under ``deterministic=True``: bitwise equal
    histories; once more with ``deterministic=False`` for the switch's
    cost in round time.
@@ -90,7 +101,9 @@ false or when the ``src`` tree is missing.
 seam check, the readings behind the whole-run limits of phases 5, 6 and
 6b (``calibrate_qsgd``, ``run_masked_quickstart`` over seeds and
 controls, ``cifar_sensitivity``, phase 6 with controls), holding none of
-them, and exits.
+them, and exits. ``python3 chip_smoke.py --only NAME ...`` runs the named
+phases after the build (``graphs``, ``pipeline``, ``pipeline_calibrate``:
+phase 4c's readings and controls ungated, ...) and prints no result.
 """
 import dataclasses
 import json
@@ -99,6 +112,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -698,6 +713,7 @@ def round_breakdown():
     from repro_torch.core.topology import ring
     from repro_torch.data.images import image_batches_for_dfl
     from repro_torch.launch.cnn_run import get_data
+    from repro_torch.benchmarks.common import busy_ms, kernel_events
     from repro_torch.models.cnn import cnn_loss, init_cnn
     from repro_torch.optim import sgd
     from torch.profiler import ProfilerActivity, profile
@@ -748,7 +764,7 @@ def round_breakdown():
         # kernels only: an operator's self device time repeats its kernels'
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_ms_total = sum(e.self_device_time_total for e in kernels) / 1e3
+        device_ms_total = busy_ms(kernel_events(prof))
         top = sorted(kernels, key=lambda e: e.self_device_time_total,
                      reverse=True)[:6]
         round_ms = sum(local) / len(local) + sum(gossip) / len(gossip)
@@ -1781,17 +1797,14 @@ def run_batched_phase(K, pop=1000):
 
 
 def run_bench_phase(K):
-    """Phase 8, the fault and population benches and the reference's
-    dispatch measurement on the card: ``bench_faults --smoke --check``
-    (sporadic beats blocking at equal budget), ``bench_megascale --smoke``
-    (rounds/s and bytes at 10k virtual nodes, no build after the warmup,
-    the bitwise gate) and ``bench_round_overhead --measure dispatch``
-    (superstep over legacy rounds/s, printed; its 2x bar is not applied
-    here)."""
+    """Phase 8, the fault and population benches on the card:
+    ``bench_faults --smoke --check`` (sporadic beats blocking at equal
+    budget) and ``bench_megascale --smoke`` (rounds/s and bytes at 10k
+    virtual nodes, no build after the warmup, the bitwise gate). The
+    reference's dispatch measurement runs in phase 4b, its bar applied."""
     import tempfile
 
     from repro_torch.benchmarks import bench_faults, bench_megascale
-    from repro_torch.benchmarks import bench_round_overhead as bro
     from repro_torch.kernels import ops
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1801,10 +1814,7 @@ def run_bench_phase(K):
                      os.path.join(tmp, "bf")])),
                 ("bench_megascale", lambda: bench_megascale.main(
                     ["--smoke", "--check", "--device", "cuda", "--out",
-                     os.path.join(tmp, "bm")])),
-                ("dispatch", lambda: bro.main(
-                    ["--measure", "dispatch", "--repeats", "3", "--device",
-                     "cuda", "--out", os.path.join(tmp, "bro")]))):
+                     os.path.join(tmp, "bm")]))):
             torch.cuda.synchronize()
             ops.reset_launches()
             t0 = time.perf_counter()
@@ -1817,16 +1827,399 @@ def run_bench_phase(K):
                 line.update({p: {"rounds": out[p]["rounds"],
                                  "loss": out[p]["loss"]}
                              for p in ("blocking", "sporadic")})
-            elif name == "bench_megascale":
-                line = {"parity": out["parity"], "scales": out["scales"]}
             else:
-                line = {"rounds_per_s": out["median_rounds_per_s"],
-                        "speedup_superstep_vs_legacy":
-                            out["speedup_superstep_vs_legacy"],
-                        "bar_2x_met": out["speedup_superstep_vs_legacy"]
-                        >= 2.0}
+                line = {"parity": out["parity"], "scales": out["scales"]}
             print(f"{name} ({time.perf_counter() - t0:.2f} s) "
                   + json.dumps(line))
+
+
+def device_busy_ms(run):
+    """``run()`` under torch.profiler, ended by a device sync: the time in
+    ms during which at least one kernel ran (``common.busy_ms``: summed
+    self times count a kernel that starts before its predecessor ends
+    twice over), and the kernel events (``(stream, start_us, end_us,
+    name)``)."""
+    from repro_torch.benchmarks.common import busy_ms, kernel_events
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = kernel_events(prof)
+    return busy_ms(kernels), kernels
+
+
+def top_kernels(kernels, per, n=5):
+    """The ``n`` kernels with the most device time, in ms per ``per``."""
+    total = {}
+    for _, a, b, name in kernels:
+        total[name[:60]] = total.get(name[:60], 0.0) + (b - a) / 1e3 / per
+    return dict(sorted(total.items(), key=lambda kv: -kv[1])[:n])
+
+
+def peak_increment_mb(run):
+    """``run()``'s peak device memory above what was allocated before it,
+    in MB."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def stream_overlap_ms(kernels):
+    """Time in ms during which kernels of two different streams run at
+    once, from ``device_busy_ms``'s kernel events."""
+    by_stream = {}
+    for stream, a, b, _ in kernels:
+        by_stream.setdefault(stream, []).append((a, b))
+    if len(by_stream) < 2:
+        return 0.0, sorted(by_stream, key=str)
+    from repro_torch.benchmarks.common import union
+    spans = {s: union(iv) for s, iv in by_stream.items()}
+    names = sorted(spans, key=lambda s: -sum(b - a for a, b in spans[s]))
+    main = spans[names[0]]
+    others = union([iv for s in names[1:] for iv in spans[s]])
+    total, j = 0.0, 0
+    for a, b in main:
+        for c, d in others:
+            total += max(0.0, min(b, d) - max(a, c))
+    return total / 1e3, names
+
+
+def run_graph_phase(K):
+    """Phase 4b, the executor's rounds as CUDA graphs (``core.graphs``) on
+    the CIFAR CNN at full width, 10-node ring, tau (4, 4): plain DFL,
+    C-DFL TopK (frac 0.67, gamma 0.6), C-DFL QSGD (16 levels, gamma
+    ``QSGD_GAMMA``), randomized gossip and RandK (gamma 0.6) on the
+    trajectory [[4,4],[2,1],[3,0]], and plain DFL and
+    QSGD on rounds 1-3 of phase 6's fault rows (masked). Each: a warmup,
+    then one dispatch from a fresh state held bitwise (state and metrics)
+    against ``make_round_fn(..., dynamic_taus=True)``'s eager rounds on the
+    card, with the same launch counts (replays add their captured counts)
+    and no synchronizing CUDA call; a re-plan and a K = 2 dispatch capture
+    and build nothing. Then ms per round, eager rounds against replayed
+    (two turns each, host clock ended by a sync), the device busy share of
+    each (torch.profiler), and the peak device memory of each. A capture
+    forced to fail (a loss that raises while the stream captures) must
+    raise, and so must the next dispatch: nothing runs eagerly. Last, the
+    quadratic dispatch measurement with the reference's 2x bar applied
+    (``bench_round_overhead --measure dispatch --check``)."""
+    import tempfile
+
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.core import RoundExecutor, make_round_fn
+    from repro_torch.core.tree import tree_map
+    from repro_torch.device import deterministic_algorithms
+    from repro_torch.kernels import ops
+
+    traj = np.array([(4, 4), (2, 1), (3, 0)], np.int32)
+    for label, compression, masked in (
+            ("dfl", "", False), ("cdfl_topk", "top_k", False),
+            ("cdfl_qsgd", "qsgd", False),
+            ("cdfl_rand_gossip", "rand_gossip", False),
+            ("cdfl_rand_k", "rand_k", False), ("dfl_masked", "", True),
+            ("cdfl_qsgd_masked", "qsgd", True)):
+        s = bro.cnn_setup(compression, rounds=6, device="cuda",
+                          gamma=QSGD_GAMMA if compression == "qsgd" else 0.6)
+        cfg = s.cfg(*FAULT_TAUS)
+        n = cfg.topology.num_nodes
+        rows = fault_rows(cfg.topology)[1:4] if masked else traj
+        k = rows.shape[0]
+
+        def stacked(r0, kk=3):
+            return tuple(torch.stack([s.batches[r][j]
+                                      for r in range(r0, r0 + kk)])
+                         for j in (0, 1))
+
+        round_fn = make_round_fn(cfg, s.loss_fn, s.opt, dynamic_taus=True,
+                                 participation=masked)
+
+        def eager(st, r0, rr):
+            ms = []
+            for i, row in enumerate(rr):
+                args = (row[2:2 + n], row[2 + n:]) if masked else ()
+                st, m = round_fn(st, s.batches[r0 + i], int(row[0]),
+                                 int(row[1]), *args)
+                ms.append(m)
+            return st, {key: torch.stack([m[key] for m in ms])
+                        for key in ms[0]}
+
+        with deterministic_algorithms():
+            ops.reset_launches()
+            (ref, mref), eager_peak = peak_increment_mb(
+                lambda: eager(s.fresh(), 0, rows))
+            eager_counts = dict(ops.LAUNCHES)
+        ex = RoundExecutor(cfg, s.loss_fn, s.opt, participation=masked)
+        state = s.fresh()
+
+        def first():
+            ex.warmup(state, stacked(0))
+            ops.reset_launches()
+            return bro.syncs_in_dispatch(
+                lambda: ex.dispatch_trajectory(state, stacked(0), rows))
+
+        ((state, m), syncs), graph_peak = peak_increment_mb(first)
+        captures, builds = ex.capture_count, ex.compile_count
+        counts = dict(ops.LAUNCHES)
+        require(same_state(state, ref)
+                and all(same_bits(m[key], mref[key]) for key in mref),
+                f"graphs {label}: the replayed dispatch differs from the "
+                f"eager rounds: loss {m['loss'].tolist()} vs "
+                f"{mref['loss'].tolist()}")
+        require(counts == eager_counts, f"graphs {label}: launches "
+                f"{counts} after replay, {eager_counts} eagerly")
+        require(not syncs, f"graphs {label}: synchronizing calls {syncs}")
+        add_launches(K, counts)
+        # a re-plan and a new K capture and build nothing
+        state, _ = ex.dispatch_trajectory(state, stacked(3), rows[::-1].copy())
+        state, _ = ex.dispatch_trajectory(state, stacked(3, 2), rows[1:])
+        torch.cuda.synchronize()
+        require((ex.capture_count, ex.compile_count) == (captures, builds),
+                f"graphs {label}: {ex.capture_count - captures} captures and "
+                f"{ex.compile_count - builds} builds after the warmup")
+        times = {"eager": [], "replayed": []}
+        for what in ("eager", "replayed", "replayed", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if what == "eager":
+                with deterministic_algorithms():
+                    eager(s.fresh(), 3, rows)
+            else:
+                ex.dispatch_trajectory(s.fresh(), stacked(3), rows)
+            torch.cuda.synchronize()
+            times[what].append((time.perf_counter() - t0) * 1e3 / k)
+        busy, top = {}, {}
+        for what, run in (
+                ("eager", lambda: eager(s.fresh(), 3, rows)),
+                ("replayed", lambda: ex.dispatch_trajectory(
+                    s.fresh(), stacked(3), rows))):
+            with deterministic_algorithms():
+                ms, kernels = device_busy_ms(run)
+            busy[what] = ms / k
+            top[what] = top_kernels(kernels, k)
+        print(f"graphs {label} " + json.dumps({
+            "rows": rows[:, :2].tolist(), "masked": masked,
+            "bitwise_eager": True, "launches": {
+                key: v for key, v in counts.items() if v},
+            "syncs_in_dispatch": len(syncs), "captures": captures,
+            "captures_after_warmup": 0, "builds": builds,
+            "ms_per_round": times,
+            "device_busy_ms_per_round": busy,
+            "device_busy_share": {
+                w: busy[w] / min(times[w]) for w in busy},
+            "top_device_ms_per_round": top,
+            "peak_device_mb_above_start": {"eager": eager_peak,
+                                           "replayed": graph_peak}}))
+        del ex, state, ref
+
+    # a capture that fails raises, and nothing runs eagerly after it
+    s = bro.cnn_setup("", rounds=3, device="cuda")
+
+    def failing_loss(p, b):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("forced capture failure")
+        return s.loss_fn(p, b)
+
+    ex = RoundExecutor(s.cfg(*FAULT_TAUS), failing_loss, s.opt)
+    state = s.fresh()
+    before = tree_map(torch.clone, state.params)
+    batches = tuple(torch.stack([s.batches[r][j] for r in range(3)])
+                    for j in (0, 1))
+    for attempt in range(2):
+        try:
+            ex.dispatch(state, batches, 4, 4)
+        except RuntimeError as e:
+            require("forced capture failure" in str(e),
+                    f"graphs: the failed capture raised {e!r}")
+        else:
+            raise RuntimeError(f"graphs: dispatch {attempt} ran although "
+                               "its capture failed")
+    torch.cuda.synchronize()
+    require(all(torch.equal(state.params[key], before[key])
+                for key in before) and state.round_idx == 0,
+            "graphs: a failed capture changed the state")
+    print("graphs: a capture forced to fail raises, twice; the state is "
+          "untouched")
+    del ex, state
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = bro.main(["--measure", "dispatch", "--check", "--repeats", "3",
+                        "--device", "cuda", "--out",
+                        os.path.join(tmp, "bro")])
+        torch.cuda.synchronize()
+        add_launches(K, dict(ops.LAUNCHES))
+    print(f"dispatch ({time.perf_counter() - t0:.2f} s) " + json.dumps({
+        "rounds_per_s": out["median_rounds_per_s"],
+        "speedup_superstep_vs_legacy": out["speedup_superstep_vs_legacy"],
+        "bar_2x_met": out["speedup_superstep_vs_legacy"] >= 2.0}))
+
+
+# The pipelined CIFAR run on the card against the CPU's run of the same
+# rows: one round stale, the CNN amplifies a difference as in phase 6, so
+# the limits sit above the largest sound reading and below a control's
+# (K1 perturbed, ``PIPELINE_CONTROL``), as phase 6's.
+PIPELINE_RUN_RTOL = {"loss": 0.1, "consensus_sq": 0.15}
+PIPELINE_CONTROL = ("gossip_mix_many", "x_shift", 1e-3)
+# The stale fold lets consensus errors grow: at the harness's SGD step 0.05
+# the pipelined CIFAR run of these rows diverges by its fourth round, in
+# the reference's pipelined executor too (same config on the CPU); 0.02
+# stays finite over the six rounds.
+PIPELINE_LR = 0.02
+
+
+def run_pipeline_phase(K, gate=True, controls=None):
+    """Phase 4c, ``RoundExecutor(overlap="pipeline", participation=True)``
+    on the CIFAR CNN at full width, 10-node ring, tau (4, 4), SGD step
+    ``PIPELINE_LR``, phase 6's six fault rows in two K = 3 dispatches,
+    plain DFL and C-DFL QSGD (gamma ``QSGD_GAMMA``): bitwise (state and metrics) the eager pipelined
+    superstep (``make_pipeline_superstep`` over ``make_pipeline_fns``) on
+    the card, with its launch counts and no synchronizing call in a
+    dispatch; the six rounds against the CPU's eager pipelined run of the
+    same rows (the same seam, whose bits are the card's) within
+    ``PIPELINE_RUN_RTOL``, which a pipelined executor captured with each of
+    ``controls`` (``perturbed``'s arguments) must break. Then ms per
+    round, pipelined against ``overlap="none"`` (two turns), and one
+    dispatch of each under torch.profiler: the busy time, the number of
+    streams its kernels were reported on and how long kernels of the
+    busiest stream overlapped kernels of the others (a replayed graph's
+    kernels may be reported on several streams; one chain of them never
+    overlaps itself, so ``overlap="none"`` reads near 0).
+    ``gate=False`` prints the differences without holding them."""
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.core import RoundExecutor
+    from repro_torch.core.dfl import make_pipeline_fns
+    from repro_torch.core.executor import make_pipeline_superstep
+    from repro_torch.core.tree import tree_map
+    from repro_torch.device import deterministic_algorithms
+    from repro_torch.kernels import ops
+    from repro_torch.optim import sgd
+
+    controls = (PIPELINE_CONTROL,) if controls is None else controls
+    for label, compression in (("dfl", ""), ("cdfl_qsgd", "qsgd")):
+        s = dataclasses.replace(bro.cnn_setup(
+            compression, rounds=6, device="cuda",
+            gamma=QSGD_GAMMA if compression == "qsgd" else 0.6),
+            opt=sgd(PIPELINE_LR))
+        cfg = s.cfg(*FAULT_TAUS)
+        topo = cfg.topology
+        rows = fault_rows(topo)
+        kw = dict(participation=True, num_nodes=topo.num_nodes,
+                  num_edges=topo.num_edges)
+
+        def stacked(r0, dev="cuda"):
+            return tuple(torch.stack([s.batches[r][j]
+                                      for r in range(r0, r0 + 3)]).to(dev)
+                         for j in (0, 1))
+
+        def eager_run(st, dev):
+            sup = make_pipeline_superstep(*make_pipeline_fns(
+                cfg, s.loss_fn, s.opt, participation=True), **kw)
+            ms = []
+            for r0 in (0, 3):
+                st, m = sup(st, stacked(r0, dev), rows[r0:r0 + 3])
+                ms += [{key: float(v[i]) for key, v in m.items()}
+                       for i in range(3)]
+            return st, ms
+
+        with deterministic_algorithms():
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            ref, mref = eager_run(s.fresh(), "cuda")
+            torch.cuda.synchronize()
+            eager_counts = dict(ops.LAUNCHES)
+        ex = RoundExecutor(cfg, s.loss_fn, s.opt, participation=True,
+                           overlap="pipeline")
+        ex.warmup(s.fresh(), stacked(0))
+        captures = ex.capture_count
+        state, ms = s.fresh(), []
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        syncs = []
+        for r0 in (0, 3):
+            (state, m), sy = bro.syncs_in_dispatch(
+                lambda: ex.dispatch_trajectory(state, stacked(r0),
+                                               rows[r0:r0 + 3]))
+            syncs += sy
+            ms += [{key: float(v[i]) for key, v in m.items()}
+                   for i in range(3)]
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        require(same_state(state, ref) and ms == mref,
+                f"pipeline {label}: the executor differs from the eager "
+                f"pipelined superstep: {ms} vs {mref}")
+        require(counts == eager_counts, f"pipeline {label}: launches "
+                f"{counts} after replay, {eager_counts} eagerly")
+        require(not syncs, f"pipeline {label}: synchronizing calls {syncs}")
+        require(ex.capture_count == captures,
+                f"pipeline {label}: captures after the warmup")
+        add_launches(K, counts)
+        # the whole run on the CPU: the same start, rows and seam
+        start = s.fresh()
+        host = to_cpu_state(start, None)._replace(
+            draws=type(start.draws)(start.draws.seed, start.draws.num_nodes,
+                                    start.draws.leaves, "cpu"))
+        _, cpu = eager_run(host, "cpu")
+        whole = largest_differences(ms, cpu)
+        require(not gate or all(whole[key] <= v
+                                for key, v in PIPELINE_RUN_RTOL.items()),
+                f"pipeline {label}: the 6 rounds on the card vs the CPU's "
+                f"{whole}, beyond {PIPELINE_RUN_RTOL}")
+        for control in controls:
+            with perturbed(*control):
+                cex = RoundExecutor(cfg, s.loss_fn, s.opt,
+                                    participation=True, overlap="pipeline")
+                st, cms = s.fresh(), []
+                for r0 in (0, 3):
+                    st, m = cex.dispatch_trajectory(st, stacked(r0),
+                                                    rows[r0:r0 + 3])
+                    cms += [{key: float(v[i]) for key, v in m.items()}
+                            for i in range(3)]
+            del cex
+            ctl = largest_differences(cms, cpu)
+            require(not gate or any(ctl[key] > v
+                                    for key, v in PIPELINE_RUN_RTOL.items()),
+                    f"pipeline {label}: the control {control} is within "
+                    f"the whole-run limits {PIPELINE_RUN_RTOL}: {ctl}")
+            print(f"pipeline {label} control " + json.dumps(
+                {"control": control, "whole_run": ctl}))
+        none = RoundExecutor(cfg, s.loss_fn, s.opt, participation=True)
+        none.warmup(s.fresh(), stacked(0))
+        times = {"pipeline": [], "none": []}
+        for what in ("none", "pipeline", "pipeline", "none"):
+            run = ex if what == "pipeline" else none
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.dispatch_trajectory(s.fresh(), stacked(3), rows[3:6])
+            torch.cuda.synchronize()
+            times[what].append((time.perf_counter() - t0) * 1e3 / 3)
+        busy, kernels = device_busy_ms(lambda: ex.dispatch_trajectory(
+            s.fresh(), stacked(3), rows[3:6]))
+        overlap, streams = stream_overlap_ms(kernels)
+        none_overlap, _ = stream_overlap_ms(device_busy_ms(
+            lambda: none.dispatch_trajectory(s.fresh(), stacked(3),
+                                             rows[3:6]))[1])
+        print(f"pipeline {label} " + json.dumps({
+            "bitwise_eager_pipeline": True, "launches": {
+                key: v for key, v in counts.items() if v},
+            "syncs_in_dispatch": len(syncs), "captures": captures,
+            "loss": [m_["loss"] for m_ in ms],
+            "whole_run_vs_cpu": whole, "ms_per_round": times,
+            "device_busy_ms_per_round": busy / 3,
+            "kernel_streams": len(streams),
+            "stream_overlap_ms_per_round": overlap / 3,
+            "stream_overlap_ms_per_round_overlap_none": none_overlap / 3}))
+        del ex, none, state, ref
+
 
 
 def run_determinism_phase():
@@ -1904,17 +2297,39 @@ def main():
             ("gossip_mix_many", "x_scale", 1e-4)))
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for phase in (lambda: check_kernels(K, gen), lambda: time_kernels(K, gen),
-                  check_seam, lambda: run_main_path(K), round_breakdown,
-                  lambda: run_executor_phase(K), lambda: run_dense_power(K),
-                  lambda: check_full_mix(K, gen), lambda: run_quickstart(K),
-                  lambda: run_figures(K), lambda: run_participation_phase(K),
-                  lambda: run_masked_quickstart(K),
-                  lambda: run_batched_phase(K), lambda: run_bench_phase(K),
-                  run_determinism_phase):
+    phases = {
+        "kernels": lambda: check_kernels(K, gen),
+        "kernel_times": lambda: time_kernels(K, gen), "seam": check_seam,
+        "main_path": lambda: run_main_path(K), "breakdown": round_breakdown,
+        "executor": lambda: run_executor_phase(K),
+        "graphs": lambda: run_graph_phase(K),
+        "pipeline": lambda: run_pipeline_phase(K),
+        "dense_power": lambda: run_dense_power(K),
+        "full_mix": lambda: check_full_mix(K, gen),
+        "quickstart": lambda: run_quickstart(K),
+        "figures": lambda: run_figures(K),
+        "participation": lambda: run_participation_phase(K),
+        "masked_quickstart": lambda: run_masked_quickstart(K),
+        "batched": lambda: run_batched_phase(K),
+        "benches": lambda: run_bench_phase(K),
+        "determinism": run_determinism_phase}
+    phases["pipeline_calibrate"] = lambda: run_pipeline_phase(
+        K, gate=False, controls=(("gossip_mix_many", "x_shift", 1e-4),
+                                 ("gossip_mix_many", "x_shift", 1e-3),
+                                 ("gossip_mix_many", "x_scale", 1e-4)))
+    if sys.argv[1:2] == ["--only"]:
+        # a subset of the phases, for work on the card; no result line
+        for name in sys.argv[2:]:
+            t0 = time.perf_counter()
+            phases[name]()
+            print(f"phase {name} time: {time.perf_counter() - t0:.1f} s")
+        return 0
+    for name, phase in phases.items():
+        if name == "pipeline_calibrate":
+            continue
         t0 = time.perf_counter()
         phase()
-        print(f"phase time: {time.perf_counter() - t0:.1f} s")
+        print(f"phase {name} time: {time.perf_counter() - t0:.1f} s")
     print(f"wall: {time.perf_counter() - t_start:.1f} s from the build on "
           f"({t_build:.2f} s of it the build)")
     card = card_line()

@@ -177,7 +177,7 @@ def main(argv=None) -> Dict:
     executor.warmup(init_state({"w": torch.zeros(DIM, device=dev)}, N,
                                sgd(ETA)),
                     torch.zeros((SUPERSTEP, TAU1, N, DIM), device=dev))
-    warm_builds = executor.compile_count
+    warm_builds = executor.compile_count + executor.capture_count
     results: Dict[str, dict] = {}
     for name, rows, clock in (("blocking", blk_rows, blk_clock),
                               ("sporadic", spo_rows, spo_clock)):
@@ -189,7 +189,7 @@ def main(argv=None) -> Dict:
         print(f"{name}: loss={np.mean(losses):.4f}")
     blk_loss = results["blocking"]["loss"]
     spo_loss = results["sporadic"]["loss"]
-    builds = executor.compile_count - warm_builds
+    builds = executor.compile_count + executor.capture_count - warm_builds
     verdict = (f"WINS {blk_loss / spo_loss:.2f}x" if spo_loss < blk_loss
                else "LOSES")
     print(f"sporadic {verdict} vs blocking at budget={BUDGET} | builds "

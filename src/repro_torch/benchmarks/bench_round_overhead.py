@@ -25,7 +25,10 @@ the device before the clock starts:
   * ``executor_superstep`` K-round supersteps, one sync per superstep.
 
 The schedule re-plans once, half way (CNN: (4, 4) then (2, 1) under maxima
-(4, 4)); the executor must make no build after its warmup.
+(4, 4)); the executor must make no build and capture no graph after its
+warmup (``builds_after_warmup`` counts both). On the card the executor
+replays CUDA graphs (``core.graphs``); legacy stays eager, as the
+reference's legacy is per-round dispatch.
 Times are host clock around each dispatch and its sync. On the card,
 ``syncs_in_dispatch`` also counts the synchronizing CUDA calls inside one
 dispatch (``torch.cuda.set_sync_debug_mode``), naming where each is made.
@@ -50,7 +53,7 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.benchmarks.common import save_result
+from repro_torch.benchmarks.common import busy_ms, kernel_events, save_result
 from repro_torch.core import (DFLConfig, RoundExecutor, init_state,
                               make_compressor, make_round_fn, ring,
                               stack_round_batches)
@@ -204,7 +207,7 @@ def run_executor(s: Setup, schedule: Schedule, k: int) -> Dict:
     todo = chunks(s, schedule, k)
     for kk in sorted({c[0][0].shape[0] for c in todo}):
         ex.warmup(state, next(c[0] for c in todo if c[0][0].shape[0] == kk))
-    warm_builds = ex.compile_count
+    warm_builds = ex.compile_count + ex.capture_count
     times, rounds = [], 0
     for batches, t1, t2, _ in todo:
         t0 = time.perf_counter()
@@ -214,7 +217,8 @@ def run_executor(s: Setup, schedule: Schedule, k: int) -> Dict:
         rounds += batches[0].shape[0]
     return {"dispatch_ms": times, "ms_per_round": sum(times) / rounds,
             "superstep": k, "dispatches": len(times),
-            "builds_after_warmup": ex.compile_count - warm_builds}
+            "builds_after_warmup": (ex.compile_count + ex.capture_count
+                                    - warm_builds)}
 
 
 def syncs_in_dispatch(fn: Callable) -> Tuple[object, List[str]]:
@@ -243,8 +247,9 @@ def bench(s: Setup, schedule: Schedule, superstep: int,
     out = {name: run() for name, run in (runs[::-1] if reverse else runs)}
     if (out["executor_round"]["builds_after_warmup"]
             or out["executor_superstep"]["builds_after_warmup"]):
-        raise RuntimeError("the executor built a round function after its "
-                           "warmup: a re-plan must not build")
+        raise RuntimeError("the executor built a round function or captured "
+                           "a graph after its warmup: a re-plan must do "
+                           "neither")
     out["superstep_vs_round"] = (out["executor_round"]["ms_per_round"]
                                  / out["executor_superstep"]["ms_per_round"])
     return out
@@ -252,9 +257,9 @@ def bench(s: Setup, schedule: Schedule, superstep: int,
 
 def device_busy_per_round(s: Setup, k: int) -> Dict:
     """One warmed dispatch of ``k`` rounds at (tau1_max, tau2_max) under
-    ``torch.profiler``: the device's busy ms per round (its kernels' self
-    time) and the profiled wall ms per round (the profiler slows the
-    host, so compare the busy time with an unprofiled round)."""
+    ``torch.profiler``: the device's busy ms per round (the union of its
+    kernels' intervals, ``common.busy_ms``) and the profiled wall ms per
+    round (compare the busy time with an unprofiled round)."""
     from torch.profiler import ProfilerActivity, profile
 
     ex = RoundExecutor(s.cfg(s.tau1_max, s.tau2_max), s.loss_fn, s.opt)
@@ -268,8 +273,7 @@ def device_busy_per_round(s: Setup, k: int) -> Dict:
         _, m = ex.dispatch(state, batches, s.tau1_max, s.tau2_max)
         float(m["loss"][-1])
     wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    busy = busy_ms(kernel_events(prof))
     return {"k": k, "busy_ms_per_round": busy / k,
             "profiled_ms_per_round": wall / k}
 

@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Optional
+import tempfile
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.launch.cnn_run import RunSpec, run_dfl_cnn
 
 __all__ = ["RESULTS_DIR", "RunSpec", "run_dfl_cnn", "save_result",
-           "print_csv"]
+           "print_csv", "kernel_events", "busy_ms"]
 
 RESULTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                            "..", "..", "results", "repro_torch")
@@ -36,3 +37,39 @@ def print_csv(rows: List[Dict], cols: List[str]) -> None:
     print(",".join(cols))
     for row in rows:
         print(",".join(str(row.get(c, "")) for c in cols))
+
+
+Kernel = Tuple[object, float, float, str]   # (stream, start us, end us, name)
+
+
+def kernel_events(prof) -> List[Kernel]:
+    """The device kernels of a finished ``torch.profiler.profile``, from its
+    chrome trace."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    return [(e.get("args", {}).get("stream"), float(e["ts"]),
+             float(e["ts"]) + float(e.get("dur", 0.0)), e.get("name", ""))
+            for e in trace.get("traceEvents", [])
+            if e.get("cat") == "kernel" and "ts" in e]
+
+
+def union(intervals: Sequence[Tuple[float, float]]) -> List[List[float]]:
+    """Overlapping ``(start, end)`` intervals merged, in order."""
+    out: List[List[float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def busy_ms(kernels: Sequence[Kernel]) -> float:
+    """Time in ms during which at least one kernel ran: the union of the
+    kernels' intervals. Summed kernel times count more, since a kernel on
+    Hopper may start before the one it depends on has ended."""
+    return sum(b - a for a, b in union([(a, b) for _, a, b, _ in kernels])
+               ) / 1e3

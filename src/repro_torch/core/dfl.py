@@ -30,9 +30,11 @@ step counts bounded by the config's, the executor's round), ``dense_power``
 mixing, topology schedules, participation masks (``round_body(...,
 masks=(node_mask, edge_mask))``: host 0/1 arrays; a masked node skips its
 local steps and keeps its state, a masked edge gossips nothing and its
-weight returns to the endpoints' self loops) and the node-batched engine
-over a virtual population (``make_round_fn(..., population=V)``). The
-sparse engine raises ``NotImplementedError``; ROADMAP.md queues it.
+weight returns to the endpoints' self loops), the node-batched engine
+over a virtual population (``make_round_fn(..., population=V)``) and the
+one-round-stale pipeline (``make_pipeline_fns``: round k's local steps,
+round k-1's exchange folded one round late). The sparse engine raises
+``NotImplementedError``; ROADMAP.md queues it.
 """
 from __future__ import annotations
 
@@ -72,6 +74,9 @@ __all__ = [
     "gossip_phase",
     "round_body",
     "make_round_fn",
+    "pipeline_round_body",
+    "pipeline_drain_body",
+    "make_pipeline_fns",
     "round_wire_bits",
 ]
 
@@ -206,7 +211,9 @@ def local_phase(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
     tau1 steps of batches [cfg.tau1, N, ...] and sums the per-node losses
     l_0 + l_1 + ... before dividing by tau1, as the reference's dynamic
     round does; ``None`` runs cfg.tau1 steps and means the stacked losses.
-    The parameters are the same either way.
+    The parameters are the same either way. The sum is divided by tau1 as
+    a tensor on its device (``loss_over_tau1``), the one form the captured
+    rounds of the executor can share.
 
     ``node_mask``: the substrate-local participation mask
     (``sub.node_mask_local``). Every node runs the steps; a masked node
@@ -228,12 +235,23 @@ def local_phase(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
         per_node = losses[0]
         for loss in losses[1:]:
             per_node = per_node + loss
-        per_node = per_node / tau1
+        per_node = loss_over_tau1(per_node, torch.full(
+            (), tau1, dtype=per_node.dtype, device=per_node.device))
     if node_mask is None:
         return params, opt_state, sub.mean_over_nodes(per_node)
     params = sub.select_nodes(node_mask, params, params0)
     opt_state = sub.select_nodes(node_mask, opt_state, opt_state0)
     return params, opt_state, sub.masked_mean_over_nodes(per_node, node_mask)
+
+
+def loss_over_tau1(loss_sum: torch.Tensor,
+                   tau1: torch.Tensor) -> torch.Tensor:
+    """The dynamic round's per-node loss: the sum over its steps divided by
+    ``tau1``, a tensor on the sum's device. True division, as the CPU and
+    the reference compute it; dividing a CUDA tensor by a host number would
+    multiply by its rounded reciprocal instead (one ulp off for tau1 = 3),
+    and a captured graph cannot take a host number that changes."""
+    return loss_sum / tau1
 
 
 def _mix_plain(cfg: DFLConfig, sub: NodeSubstrate, params: Params,
@@ -418,6 +436,134 @@ def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
             return body(state, batches, None)
 
     return round_fn
+
+
+def pipeline_round_body(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
+                        sub: NodeSubstrate, params: Params, opt_state: dict,
+                        hat: Optional[Params], draws: Optional[Draws],
+                        round_idx: int, buf: Params, have: bool, tau1: int,
+                        prev_tau2: int, batches: Batch, node_mask=None,
+                        prev_edge_mask=None):
+    """One overlapped round (``overlap="pipeline"``): round k's local phase
+    and the one-round-stale fold of round k-1's gossip exchange::
+
+        z_k = local_phase(p_k, batches_k)         round k's tau1 steps
+        g   = gossip_phase(buf = z_{k-1})         round k-1's exchange,
+                                                  independent of z_k
+        p_{k+1} = z_k + (g - z_{k-1})             folded one round late
+
+    The exchange runs with round k-1's draws (at ``round_idx - 1``), trip
+    count ``prev_tau2`` and edge mask ``prev_edge_mask``, so a pipelined
+    run applies the same gossip operators as the legacy run, each one round
+    later. ``have`` is False on a superstep's first round, whose exchange
+    (of nothing: ``prev_tau2`` is 0 there) is not folded: ``p_{k+1} =
+    z_k``. The CHOCO estimates ride the exchanges. Host ints and masks, as
+    ``round_body``'s. Returns (params', opt_state', hat', buf' = z_k,
+    metrics): the loss is round k's, ``consensus_sq`` that of the folded
+    params."""
+    mask_local = None if node_mask is None else sub.node_mask_local(
+        node_mask)
+    z, opt_state, mean_loss = local_phase(cfg, loss_fn, opt, sub, params,
+                                          opt_state, batches, tau1,
+                                          mask_local)
+    if have:
+        g, hat = gossip_phase(cfg, sub, buf, hat, draws, round_idx - 1,
+                              prev_tau2, prev_edge_mask)
+        params = {name: (zl + (g[name] - buf[name])).to(zl.dtype)
+                  for name, zl in z.items()}
+    else:
+        params = z
+    metrics = {"loss": mean_loss, "consensus_sq": sub.consensus_sq(params)}
+    return params, opt_state, hat, z, metrics
+
+
+def pipeline_drain_body(cfg: DFLConfig, sub: NodeSubstrate, params: Params,
+                        hat: Optional[Params], draws: Optional[Draws],
+                        round_idx: int, buf: Params, prev_tau2: int,
+                        prev_edge_mask=None):
+    """Retire the exchange still in flight after a pipelined superstep:
+    ``round_idx`` is the counter after it, so the exchange is round
+    ``round_idx - 1``'s. A dispatch ends drained: no gossip crosses a
+    dispatch or checkpoint boundary. Returns (params', hat')."""
+    g, hat = gossip_phase(cfg, sub, buf, hat, draws, round_idx - 1,
+                          prev_tau2, prev_edge_mask)
+    return {name: (p + (g[name] - buf[name])).to(p.dtype)
+            for name, p in params.items()}, hat
+
+
+def check_pipeline(cfg: DFLConfig, engine: str = "dense",
+                   participation: bool = False) -> None:
+    """The configurations the pipeline refuses, with the reference's
+    messages."""
+    if cfg.mixing_impl == "dense_power":
+        raise ValueError(
+            "overlap='pipeline' is dynamic-only: dense_power bakes C^tau2 "
+            "in at trace time (use mixing_impl='dense')")
+    if engine == "batched":
+        raise ValueError(
+            "overlap='pipeline' is not supported on the batched engine: "
+            "consecutive rounds gossip over DIFFERENT sampled cohorts, so "
+            "the in-flight exchange has no stable buffer to double-buffer "
+            "(use overlap='none')")
+    if participation and cfg.topology_schedule:
+        raise ValueError(
+            "participation masks index cfg.topology.edges(); a "
+            "round-varying topology schedule has no stable edge list")
+    if engine not in ("dense", "auto"):
+        raise NotImplementedError(f"engine={engine!r} {_NOT_PORTED}")
+
+
+def make_pipeline_fns(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
+                      engine: str = "dense", participation: bool = False):
+    """The pipelined-round pair on the dense engine (``overlap=
+    "pipeline"``; ``core.executor.make_pipeline_superstep`` runs
+    ``pipe_fn`` per round and ``drain_fn`` once after)::
+
+        pipe_fn(state, buf, have, prev_tau2, batches, tau1)
+            -> (state', buf', metrics)                       plain
+        pipe_fn(state, buf, have, prev_tau2, prev_edge_mask, batches,
+                tau1, node_mask) -> (state', buf', metrics)  participation
+        drain_fn(state, buf, prev_tau2[, prev_edge_mask]) -> state'
+
+    Host ints and 0/1 host masks; cfg.tau1 / cfg.tau2 are the maxima, as
+    in the dynamic round. The current round's (tau2, edge mask) never enter
+    ``pipe_fn``: that exchange runs one round later."""
+    check_pipeline(cfg, engine, participation)
+    sub = DenseSubstrate(cfg.topology)
+
+    def pipe_body(state, buf, have, prev_tau2, batches, tau1, node_mask=None,
+                  prev_edge_mask=None):
+        tau1, prev_tau2 = check_taus(cfg, tau1, prev_tau2)
+        params, opt_state, hat, z, metrics = pipeline_round_body(
+            cfg, loss_fn, opt, sub, state.params, state.opt_state,
+            state.hat_params, state.draws, state.round_idx, buf, bool(have),
+            tau1, prev_tau2, batches, node_mask, prev_edge_mask)
+        return DFLState(params, opt_state, hat, state.round_idx + 1,
+                        state.draws), z, metrics
+
+    def drain_body(state, buf, prev_tau2, prev_edge_mask=None):
+        _, prev_tau2 = check_taus(cfg, 1, prev_tau2)
+        params, hat = pipeline_drain_body(
+            cfg, sub, state.params, state.hat_params, state.draws,
+            state.round_idx, buf, prev_tau2, prev_edge_mask)
+        return state._replace(params=params, hat_params=hat)
+
+    if participation:
+        def pipe_fn(state, buf, have, prev_tau2, prev_edge_mask, batches,
+                    tau1, node_mask):
+            return pipe_body(state, buf, have, prev_tau2, batches, tau1,
+                             node_mask, prev_edge_mask)
+
+        def drain_fn(state, buf, prev_tau2, prev_edge_mask):
+            return drain_body(state, buf, prev_tau2, prev_edge_mask)
+    else:
+        def pipe_fn(state, buf, have, prev_tau2, batches, tau1):
+            return pipe_body(state, buf, have, prev_tau2, batches, tau1)
+
+        def drain_fn(state, buf, prev_tau2):
+            return drain_body(state, buf, prev_tau2)
+
+    return pipe_fn, drain_fn
 
 
 def round_wire_bits(cfg: DFLConfig, params_one_node,

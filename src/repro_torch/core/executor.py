@@ -2,8 +2,8 @@
 
 Ported from ``repro.core.executor`` for the dense engine. The reference
 compiles one XLA superstep, a ``lax.scan`` over K rounds with (tau1, tau2)
-as traced scalars; eager PyTorch has nothing to compile, so the port keeps
-the contract and says what each feature becomes:
+as traced scalars; the port replays CUDA graphs instead, and keeps the
+contract:
 
 * **Schedule as data.** ``dispatch_trajectory(state, batches, taus)``
   runs round k of a superstep at ``(taus[k, 0], taus[k, 1])``; batch
@@ -12,25 +12,46 @@ the contract and says what each feature becomes:
   trajectory is validated, and copied to the state's device, once per
   distinct content (memoized); the rounds read their step counts from the
   host copy, so nothing inside a dispatch waits for the device.
-* **Builds.** ``compile_count`` counts builds of the round function. The
-  dynamic mode (default) builds one ``make_round_fn(..., dynamic_taus=True)``
-  whatever the schedule, at its first dispatch; the static fallback
-  (``dynamic=False``, which ``mixing_impl='dense_power'`` needs) builds one
-  static round per distinct (tau1, tau2) and caches it.
+* **Graphs** (the dense engine, ``dynamic=True``: plain and C-DFL, with
+  and without participation masks, and ``overlap="pipeline"``). The
+  round is captured step by step into CUDA graphs (``core.graphs``): one
+  local SGD step, one gossip step, the round's tail, and the masked and
+  pipelined steps; the host keeps the loops over K, tau1 and tau2 and
+  replays them. ``warmup`` (or the first dispatch) captures every graph a
+  later dispatch can need, so a re-plan, a new K, new masks or a new
+  trajectory capture nothing after it (``capture_count``). A dispatch is
+  bitwise ``make_round_fn``'s eager rounds on the same device. A capture
+  that fails raises: the card never runs these rounds eagerly. On a CPU
+  state the same steps run eagerly into the same buffers (the CPU path).
+  The batched engine and the static fallback run eagerly (ROADMAP.md
+  queues their capture).
+* **Builds.** ``compile_count`` counts builds of the round: 1 in the
+  dynamic mode whatever the schedule or K (the step round, or the batched
+  engine's round function); the static fallback (``dynamic=False``, which
+  ``mixing_impl='dense_power'`` needs) builds one static round per
+  distinct (tau1, tau2) and caches it.
 * **Donation.** ``donate=True`` (default) keeps the state in place: the
   returned state's leaves are the passed state's tensors, overwritten with
-  the result, so every ``data_ptr()`` comes back.
+  the result, so every ``data_ptr()`` comes back; ``donate=False`` leaves
+  the passed state as it was.
 * **Metrics** come back as ``[K]`` tensors on the state's device, beside
   the realized ``tau1`` and ``tau2`` of every round.
 * **RNG.** ``round_idx`` advances by K; round k of a superstep draws from
   the state's seam at ``state.round_idx + k``, so a superstep is K
-  sequential ``round_fn`` calls.
+  sequential ``round_fn`` calls. The graphs read each gossip step's key
+  from the device (``core.rng.KeyedDraws``): on the card the seam is a
+  ``GeneratorDraws``; on the CPU any seam works.
 * **Participation** (``participation=True``): rows ``[K, 2 + N + E]``,
   (tau1, tau2), an [N] node mask and an [E] edge mask over
   ``topology.edges()``; ``[K, 2]`` rows are padded with all-ones masks,
   bitwise the unmasked rounds. The masks are read from the host copy of
   the trajectory, so they add no build and no sync. Metrics add
   ``active_nodes`` and ``masked_edges`` per round.
+* **Overlap** (``overlap="pipeline"``): round k's local steps and round
+  k-1's gossip exchange, folded one round late (``core.dfl.
+  pipeline_round_body``), the last exchange drained inside the dispatch;
+  on the card the exchange's graphs replay on a second stream beside the
+  local steps'. ``make_pipeline_superstep`` is the eager superstep.
 * **Sampled cohorts** (``engine="batched", population=V``): rows
   ``[K, 2 + 2C + E]``, (tau1, tau2), the cohort's ``[C]`` global ids, a
   [C] node mask and an [E] edge mask over the cohort topology; ``[K, 2]``
@@ -38,16 +59,16 @@ the contract and says what each feature becomes:
   rows of the ``[V, ...]`` state, runs the round and writes them back in
   place.
 * **Determinism** (``deterministic=True``, the default): every dispatch
-  runs with cuDNN held to deterministic algorithms, so two runs give the
-  same bits (``device.deterministic_algorithms``).
+  and capture runs with cuDNN held to deterministic algorithms, so two
+  runs give the same bits (``device.deterministic_algorithms``).
 
 ``HostPrefetcher`` builds the next superstep's host batches on a worker
 thread; the copy to the card stays on the caller's thread
 (``stack_round_batches``). ``MetricsBuffer`` keeps dispatched metrics on
 the device until a flush, which waits for the device once.
 
-``overlap="pipeline"``, the sparse engine and telemetry raise
-``NotImplementedError``; ROADMAP.md queues them.
+The sparse engine and telemetry raise ``NotImplementedError``; ROADMAP.md
+queues them.
 """
 from __future__ import annotations
 
@@ -59,14 +80,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.dfl import (DFLConfig, DFLState, check_taus,
-                                  make_round_fn)
+from repro_torch.core.dfl import (DFLConfig, DFLState, check_pipeline,
+                                  check_taus, make_round_fn)
+from repro_torch.core.graphs import GraphedRounds
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import (deterministic_algorithms, resolve_device,
                                 to_device)
 
 __all__ = ["RoundExecutor", "HostPrefetcher", "MetricsBuffer",
-           "stack_round_batches"]
+           "make_pipeline_superstep", "stack_round_batches"]
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, modules to port, item {})"
 
@@ -94,6 +116,51 @@ def stack_round_batches(round_batches: Sequence[Any], tau1_max: int,
         return to_device(out, dev)
 
     return tree_map(one, *round_batches)
+
+
+def make_pipeline_superstep(pipe_fn, drain_fn, *, participation: bool = False,
+                            num_nodes: int = 0, num_edges: int = 0):
+    """The eager K-round superstep of ``overlap="pipeline"`` over
+    ``core.dfl.make_pipeline_fns``' pair: ``superstep(state, batches,
+    taus)`` with host rows ``[K, 2]`` (or ``[K, 2 + N + E]`` under
+    ``participation``), batch leaves ``[K, tau1_max, ...]``. Round k folds
+    round k-1's exchange; the first round's is not folded (``have`` False,
+    ``prev_tau2`` 0) and the last is drained before returning, so the
+    state comes back with nothing in flight. Metrics ``[K]``, with the
+    realized ``tau1`` / ``tau2`` (and ``active_nodes`` / ``masked_edges``),
+    as the executor's. The executor's graphs replay the same steps."""
+
+    def superstep(state: DFLState, batches: Any, taus):
+        rows = np.asarray(taus, np.int32)
+        n, e = num_nodes, num_edges
+        dev = _state_device(state)
+        buf, have, prev_tau2 = state.params, False, 0
+        prev_edge_mask = np.ones(e, np.int32)
+        ms = []
+        for i, tau in enumerate(rows):
+            b = tree_map(lambda x: x[i], batches)
+            if participation:
+                state, buf, m = pipe_fn(state, buf, have, prev_tau2,
+                                        prev_edge_mask, b, int(tau[0]),
+                                        tau[2:2 + n])
+                prev_edge_mask = tau[2 + n:]
+            else:
+                state, buf, m = pipe_fn(state, buf, have, prev_tau2, b,
+                                        int(tau[0]))
+            have, prev_tau2 = True, int(tau[1])
+            ms.append(m)
+        state = (drain_fn(state, buf, prev_tau2, prev_edge_mask)
+                 if participation else drain_fn(state, buf, prev_tau2))
+        metrics = {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
+        col = lambda c: to_device(  # noqa: E731
+            torch.from_numpy(np.ascontiguousarray(c)), dev)
+        metrics.update(tau1=col(rows[:, 0]), tau2=col(rows[:, 1]))
+        if participation:
+            metrics.update(active_nodes=col(rows[:, 2:2 + n].sum(1)),
+                           masked_edges=col(e - rows[:, 2 + n:].sum(1)))
+        return state, metrics
+
+    return superstep
 
 
 def _state_device(state: DFLState) -> torch.device:
@@ -125,9 +192,12 @@ class RoundExecutor:
         given): rows ``[K, 2 + 2C + E]`` of sampled cohorts (dynamic mode
         only).
       deterministic: hold cuDNN to deterministic algorithms during every
-        dispatch (the previous flags are restored after).
-      overlap, telemetry and ``engine="sparse"``: the reference's other
-        modes; all but the defaults raise ``NotImplementedError``.
+        dispatch and capture (the previous flags are restored after).
+      overlap: ``"none"`` (default), or ``"pipeline"``: round k's exchange
+        runs beside round k+1's local steps and is folded one round late,
+        drained inside each dispatch (dense engine, ``dynamic=True``).
+      telemetry and ``engine="sparse"``: the reference's other modes; raise
+        ``NotImplementedError``.
     """
 
     _TRAJ_CACHE_MAX = 128
@@ -144,10 +214,19 @@ class RoundExecutor:
             engine = "batched" if population is not None else "dense"
         for flag, name, item in (
                 (engine not in ("dense", "batched"), f"engine={engine!r}", 6),
-                (overlap == "pipeline", "overlap='pipeline'", 4),
                 (telemetry is not None, "telemetry", 9)):
             if flag:
                 raise NotImplementedError(f"{name} {_NOT_PORTED.format(item)}")
+        if overlap == "pipeline" and not dynamic:
+            raise ValueError(
+                "overlap='pipeline' rides the dynamic superstep scan; the "
+                "static fallback has no carry to double-buffer "
+                "(pass dynamic=True)")
+        if overlap == "pipeline" and engine == "batched":
+            raise ValueError(
+                "overlap='pipeline' is not supported on the batched "
+                "engine: consecutive rounds gossip over DIFFERENT sampled "
+                "cohorts (use overlap='none')")
         self.batched = engine == "batched"
         if self.batched:
             if population is None:
@@ -167,7 +246,16 @@ class RoundExecutor:
             raise ValueError(
                 "dynamic taus need iterated mixing: dense_power folds C^tau2 "
                 "in when the round is built (use dynamic=False)")
+        if dynamic and not self.batched:
+            if participation and cfg.topology_schedule:
+                raise ValueError(
+                    "participation masks index cfg.topology.edges(); a "
+                    "round-varying topology schedule has no stable edge "
+                    "list")
+            if overlap == "pipeline":
+                check_pipeline(cfg, engine, participation)
         self.cfg = cfg
+        self.overlap = overlap
         self.dynamic = dynamic
         self.donate = donate
         self.deterministic = deterministic
@@ -178,6 +266,10 @@ class RoundExecutor:
         self._loss_fn = loss_fn
         self._opt = opt
         self._round_fns: Dict[Any, Callable] = {}
+        self._graph = (GraphedRounds(cfg, loss_fn, opt,
+                                     participation=participation,
+                                     pipeline=overlap == "pipeline")
+                       if dynamic and not self.batched else None)
         self._traj_cache: Dict[Any, Tuple[np.ndarray, torch.Tensor]] = {}
         self.dispatch_count = 0
         self.rounds_dispatched = 0
@@ -192,10 +284,18 @@ class RoundExecutor:
 
     @property
     def compile_count(self) -> int:
-        """Builds of the round function so far: 1 in the dynamic mode after
-        the first dispatch, whatever the schedules; one per distinct
+        """Builds of the round so far: 1 in the dynamic mode after the first
+        dispatch or the warmup, whatever the schedules; one per distinct
         (tau1, tau2) in the static fallback."""
-        return len(self._round_fns)
+        graphed = self._graph is not None and self._graph.built
+        return len(self._round_fns) + int(graphed)
+
+    @property
+    def capture_count(self) -> int:
+        """Step graphs captured so far (on a CPU state: steps bound to run
+        eagerly); fixed once ``warmup`` or the first dispatch has run,
+        whatever the schedules, masks or K."""
+        return 0 if self._graph is None else self._graph.capture_count
 
     @property
     def row_width(self) -> int:
@@ -209,16 +309,14 @@ class RoundExecutor:
         return 2
 
     def _round_fn(self, key) -> Callable:
-        """The dynamic round (``key`` None) or the static round at
-        ``key = (tau1, tau2)``, built on first use."""
+        """The batched engine's dynamic round (``key`` None) or the static
+        round at ``key = (tau1, tau2)``, built on first use."""
         fn = self._round_fns.get(key)
         if fn is None:
             if key is None:
                 fn = make_round_fn(
                     self.cfg, self._loss_fn, self._opt, dynamic_taus=True,
-                    participation=self.participation and not self.batched,
-                    engine="batched" if self.batched else "dense",
-                    population=self.population)
+                    engine="batched", population=self.population)
             else:
                 cfg = dataclasses.replace(self.cfg, tau1=key[0], tau2=key[1])
                 fn = make_round_fn(cfg, self._loss_fn, self._opt)
@@ -330,6 +428,11 @@ class RoundExecutor:
     def _rounds(self, state: DFLState, batches: Any, arr: np.ndarray,
                 dev: torch.Tensor, k: int) -> Tuple[DFLState, dict]:
         c = self.num_nodes
+        if self._graph is not None:
+            self._graph.prepare(state, tree_map(lambda b: b[0, 0], batches))
+            out, metrics = self._graph.run(state, batches, arr, k,
+                                           self.donate)
+            return out, self._tag(metrics, arr, dev)
         # the batched round writes into the state's tensors: keep the
         # caller's state when it is not donated
         out = (_clone_state(state) if self.batched and not self.donate
@@ -342,18 +445,18 @@ class RoundExecutor:
                     out, tree_map(lambda b: b[i], batches), t1, t2,
                     arr[i, 2:2 + c], arr[i, 2 + c:2 + 2 * c],
                     arr[i, 2 + 2 * c:])
-            elif self.participation:
-                out, m = self._round_fn(None)(
-                    out, tree_map(lambda b: b[i], batches), t1, t2,
-                    arr[i, 2:2 + c], arr[i, 2 + c:])
-            elif self.dynamic:
-                out, m = self._round_fn(None)(
-                    out, tree_map(lambda b: b[i], batches), t1, t2)
             else:
                 out, m = self._round_fn((t1, t2))(
                     out, tree_map(lambda b: b[i, :t1], batches))
             rows.append(m)
         metrics = {key: torch.stack([m[key] for m in rows]) for key in rows[0]}
+        if self.donate:
+            out = _donate(state, out)
+        return out, self._tag(metrics, arr, dev)
+
+    def _tag(self, metrics: dict, arr: np.ndarray, dev: torch.Tensor) -> dict:
+        """The realized schedule (and participation) beside the metrics."""
+        c = self.num_nodes
         metrics.update(tau1=dev[:, 0], tau2=dev[:, 1])
         if self.participation:
             # the realized participation, beside the realized schedule
@@ -363,18 +466,22 @@ class RoundExecutor:
                 masked_edges=self.num_edges - dev[:, self.row_width
                                                   - self.num_edges:].sum(
                     dim=1, dtype=torch.int32))
-        if self.donate:
-            out = _donate(state, out)
-        return out, metrics
+        return metrics
 
     def warmup(self, state: DFLState, batches: Any, tau1: int = 1,
                tau2: int = 0) -> None:
-        """Build the round and pay its first-call costs (cuDNN plans,
-        ``torch.func`` set-up, kernel loads) at this batch shape on a copy
-        of ``state``, then wait for the device; the caller's state and the
+        """Build the round, capture every step graph a later dispatch can
+        need (whatever ``tau1`` / ``tau2``) and pay the first-call costs
+        (cuDNN plans, ``torch.func`` set-up, kernel loads) at this batch
+        shape on a copy of ``state``, then run one dispatch at (tau1, tau2)
+        on the copy and wait for the device; the caller's state and the
         dispatch statistics are left as they were."""
         dummy = _clone_state(state)
         n_dispatch, n_rounds = self.dispatch_count, self.rounds_dispatched
+        if self._graph is not None:
+            with deterministic_algorithms(self.deterministic):
+                self._graph.prepare(dummy,
+                                    tree_map(lambda b: b[0, 0], batches))
         try:
             self.dispatch(dummy, batches, tau1, tau2)
             _sync(_state_device(state))

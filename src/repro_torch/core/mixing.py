@@ -17,10 +17,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.topology import Topology
+from repro_torch.device import to_device
 
 Params = Dict[str, torch.Tensor]
 
 __all__ = [
+    "contract",
     "mix_dense",
     "mix_dense_power",
     "masked_mixing_matrix",
@@ -46,16 +48,17 @@ def _edge_tables(topology: Topology) -> Tuple[np.ndarray, np.ndarray]:
 def masked_mixing_matrix(topology: Topology, edge_mask: torch.Tensor,
                          dtype) -> torch.Tensor:
     """The confusion matrix of a round with masked edges, on
-    ``edge_mask``'s device. ``edge_mask`` is an [E] 0/1 vector over
+    ``edge_mask``'s device (its tables copied there without blocking the
+    host). ``edge_mask`` is an [E] 0/1 vector over
     ``topology.edges()``; a masked edge carries no gossip, and its weight
     moves onto both endpoints' diagonals, so the matrix stays symmetric
     doubly stochastic. At all-ones masks every term is an exact ``* 1`` or
     ``+ 0`` and the matrix is bitwise ``topology.mixing``."""
     dev = edge_mask.device
-    cm = torch.as_tensor(topology.mixing, dtype=dtype, device=dev)
+    cm = to_device(torch.from_numpy(topology.mixing).to(dtype), dev)
     if topology.num_edges == 0:
         return cm
-    has_edge, eidx = (torch.from_numpy(a).to(dev)
+    has_edge, eidx = (to_device(torch.from_numpy(a), dev)
                       for a in _edge_tables(topology))
     one = torch.ones((), dtype=dtype, device=dev)
     gate = torch.where(has_edge, edge_mask.to(dtype)[eidx], one)
@@ -65,13 +68,19 @@ def masked_mixing_matrix(topology: Topology, edge_mask: torch.Tensor,
     return cm * gate + torch.diag(removed)
 
 
+def contract(cm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One dense gossip step of a leaf ``x`` [N, ...]: out[i] = sum_j
+    cm[j, i] x[j] in cm's dtype, cast back to x's."""
+    return torch.einsum("ji,j...->i...", cm, x.to(cm.dtype)).to(x.dtype)
+
+
 def mix_dense(params: Params, topology: Topology,
               edge_mask: Optional[torch.Tensor] = None) -> Params:
     """One gossip step as a dense contraction over the node axis: every
     leaf [N, ...] -> [N, ...] with out[i] = sum_j C[j, i] leaf[j], in the
-    leaf dtype promoted to at least f32. ``edge_mask`` ([E] over
-    ``topology.edges()``) replaces C with ``masked_mixing_matrix``, bitwise
-    the same at all ones."""
+    leaf dtype promoted to at least f32 (``contract``). ``edge_mask`` ([E]
+    over ``topology.edges()``) replaces C with ``masked_mixing_matrix``,
+    bitwise the same at all ones."""
 
     def mix_leaf(x: torch.Tensor) -> torch.Tensor:
         dtype = torch.promote_types(x.dtype, torch.float32)
@@ -79,7 +88,7 @@ def mix_dense(params: Params, topology: Topology,
             cm = torch.as_tensor(topology.mixing, dtype=dtype, device=x.device)
         else:
             cm = masked_mixing_matrix(topology, edge_mask.to(x.device), dtype)
-        return torch.einsum("ji,j...->i...", cm, x.to(dtype)).to(x.dtype)
+        return contract(cm, x)
 
     return {name: mix_leaf(x) for name, x in params.items()}
 

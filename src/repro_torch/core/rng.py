@@ -27,6 +27,11 @@ integer arithmetic gives the same bits on the CPU and the card, and a draw
 never depends on the order of calls or on which other nodes or leaves
 were asked for. ``ReplayDraws`` returns arrays it was given under the same
 indices, rows picked by id: the tests feed it the reference's own draws.
+
+``KeyedDraws`` (``GeneratorDraws.keyed``) draws the same bits under a key
+read from a device tensor instead of folded from host ints: a captured
+CUDA graph cannot see a host scalar change, so the executor writes each
+replay's key (``GeneratorDraws.step_key``) into that tensor first.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ import torch
 
 from repro_torch.device import resolve_device, to_device
 
-__all__ = ["Draws", "GeneratorDraws", "ReplayDraws"]
+__all__ = ["Draws", "GeneratorDraws", "KeyedDraws", "ReplayDraws"]
 
 Key = Tuple[int, int, str]
 _M64 = (1 << 64) - 1
@@ -103,12 +108,16 @@ class GeneratorDraws(Draws):
         self._bases: Dict[tuple, torch.Tensor] = {}
 
     def _base(self, ids: Optional[bytes], leaves: Tuple[str, ...],
-              numels: Tuple[int, ...]) -> torch.Tensor:
+              numels: Tuple[int, ...],
+              keep: Optional[Dict[tuple, torch.Tensor]] = None
+              ) -> torch.Tensor:
         """The counters' fixed part for the id set ``ids`` (int64 bytes;
         None: every node), leaf by leaf, each leaf a row-major ``[len(ids),
-        numel]`` block, flat; the last ``_KEEP_BASES`` are kept."""
+        numel]`` block, flat. Cached in ``keep`` when given (never evicted),
+        else the last ``_KEEP_BASES`` are kept."""
         key = (ids, leaves, numels)
-        if key not in self._bases:
+        cache = self._bases if keep is None else keep
+        if key not in cache:
             nodes = np.arange(self.num_nodes, dtype=np.int64) if ids is None \
                 else np.frombuffer(ids, np.int64)
             if nodes.size and not (0 <= nodes.min() <= nodes.max()
@@ -128,27 +137,46 @@ class GeneratorDraws(Draws):
                 elem.mul_(_signed(_GAMMA)).add_(_signed(
                     _splitmix(0, self.leaves.index(leaf))))
                 blocks.append((rows[:, None] + elem[None, :]).reshape(-1))
-            while len(self._bases) >= self._KEEP_BASES:
-                self._bases.pop(next(iter(self._bases)))
-            self._bases[key] = torch.cat(blocks) if blocks else torch.empty(
+            while keep is None and len(cache) >= self._KEEP_BASES:
+                cache.pop(next(iter(cache)))
+            cache[key] = torch.cat(blocks) if blocks else torch.empty(
                 0, dtype=torch.int64, device=self.device)
-        return self._bases[key]
+        return cache[key]
+
+    def step_key(self, round_idx: int, step: int) -> int:
+        """The key of gossip step ``step`` of round ``round_idx``: splitmix64
+        folded over (seed, round_idx, step), as the int64 value with its
+        bits (what every counter of the step is offset by)."""
+        k = 0
+        for v in (self.seed, int(round_idx), int(step)):
+            k = _splitmix(k, v)
+        return _signed(k)
+
+    def keyed(self, key: torch.Tensor) -> "KeyedDraws":
+        """These draws under the key held in ``key`` (see ``KeyedDraws``)."""
+        return KeyedDraws(self, key)
 
     def uniform(self, round_idx, step, leaf, shape, node_ids=None):
         return self.uniform_many(round_idx, step, [leaf], [shape],
                                  node_ids)[0]
 
     def uniform_many(self, round_idx, step, leaves, shapes, node_ids=None):
+        return self.draw_at(self.step_key(round_idx, step), leaves, shapes,
+                            node_ids)
+
+    def draw_at(self, key, leaves, shapes, node_ids=None,
+                keep: Optional[Dict[tuple, torch.Tensor]] = None
+                ) -> List[torch.Tensor]:
+        """``uniform_many``'s blocks under ``key``, a Python int or an int64
+        tensor of one element on the seam's device (the same bits either
+        way: one wrapping int64 add); ``keep`` caches the counter bases."""
         shapes = [tuple(s) for s in shapes]
         numels = tuple(int(np.prod(s, dtype=np.int64)) for s in shapes)
         ids = None if node_ids is None else np.asarray(
             _ids(node_ids, self.num_nodes), np.int64).tobytes()
-        base = self._base(ids, tuple(leaves), numels)
+        base = self._base(ids, tuple(leaves), numels, keep)
         rows = self.num_nodes if ids is None else len(ids) // 8
-        k = 0
-        for v in (self.seed, int(round_idx), int(step)):
-            k = _splitmix(k, v)
-        z = base + _signed(k)
+        z = base + key
         for shift, mult in ((30, _SPLITMIX[1]), (27, _SPLITMIX[2])):
             z.bitwise_xor_(z.bitwise_right_shift(shift).bitwise_and_(
                 (1 << 64 - shift) - 1))          # a logical shift
@@ -157,6 +185,30 @@ class GeneratorDraws(Draws):
             torch.float32).mul_(2.0 ** -24)
         return [block.view(rows, *shape) for block, shape in
                 zip(u.split([rows * n for n in numels]), shapes)]
+
+
+class KeyedDraws(Draws):
+    """``draws`` (a ``GeneratorDraws``) under the key held in ``key``, an
+    int64 tensor of one element on the seam's device, whatever (round_idx,
+    step) it is asked for: bitwise ``draws.uniform_many(r, t, ...)`` once
+    ``key`` holds ``draws.step_key(r, t)``. A captured graph reads ``key``
+    and the counter bases by address, so every base used is kept for the
+    life of this object."""
+
+    def __init__(self, draws: GeneratorDraws, key: torch.Tensor):
+        if key.dtype != torch.int64 or key.numel() != 1:
+            raise ValueError(f"the key must be one int64 element, got "
+                             f"{tuple(key.shape)} {key.dtype}")
+        self.draws, self.key = draws, key
+        self._bases: Dict[tuple, torch.Tensor] = {}
+
+    def uniform(self, round_idx, step, leaf, shape, node_ids=None):
+        return self.uniform_many(round_idx, step, [leaf], [shape],
+                                 node_ids)[0]
+
+    def uniform_many(self, round_idx, step, leaves, shapes, node_ids=None):
+        return self.draws.draw_at(self.key, leaves, shapes, node_ids,
+                                  self._bases)
 
 
 def _signed(v: int) -> int:

@@ -47,7 +47,7 @@ import torch
 from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.compression import QSGD, Compressor, TopK
 from repro_torch.core.topology import Topology
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import to_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.choco_fused import gap
@@ -221,28 +221,65 @@ class DenseSubstrate(NodeSubstrate):
             lambda: mixing_lib.masked_gossip_weights(self.topology,
                                                      edge_mask))
 
-    def mix(self, tree, edge_mask=None):
-        if not tree:
-            return {}
-        names = list(tree)
-        device = tree[names[0]].device
+    def host_edge_mask(self, edge_mask) -> Optional[np.ndarray]:
+        """The round's edge mask as a host array, None at all ones (every
+        term of the masked weights is exact there)."""
         mask = None if edge_mask is None else _host_mask(edge_mask)
         if mask is not None and mask.shape != (self.topology.num_edges,):
             raise ValueError(f"edge mask has {mask.size} entries, the "
                              f"topology {self.topology.num_edges} edges")
-        if mask is not None and mask.all():
-            mask = None  # every term of the masked weights is exact there
-        if self._table is None:
-            dev_mask = None if mask is None else self._on_device.get(
-                ("edge_mask", mask.tobytes()), device, lambda: mask)
-            return mixing_lib.mix_dense(tree, self.topology,
-                                        edge_mask=dev_mask)
-        nbr, w = self._table_on(device, mask)
+        return None if mask is not None and mask.all() else mask
+
+    def mix_operand(self, device, edge_mask=None, dtypes=(torch.float32,),
+                    topology: Optional[Topology] = None
+                    ) -> Dict[Any, torch.Tensor]:
+        """What one gossip step reads besides the tree (``mix_by``), on
+        ``device``: on a circulant C, ``{"nbr": K1's neighbour table, "w":
+        its weights with the round's edge mask}``; else the confusion
+        matrix, masked, in every dtype the leaves of ``dtypes`` promote to
+        with f32 (``{dtype: C}``, ``mix_dense``'s). ``topology``: another
+        graph than the substrate's, always mixed by the dense product (a
+        round of a topology schedule); no mask then."""
+        mask = None if topology is not None else self.host_edge_mask(edge_mask)
+        if topology is None and self._table is not None:
+            nbr, w = self._table_on(device, mask)
+            return {"nbr": nbr, "w": w}
+        topo = self.topology if topology is None else topology
+        dev_mask = None if mask is None else self._on_device.get(
+            ("edge_mask", mask.tobytes()), device, lambda: mask)
+        out = {}
+        for dt in {torch.promote_types(d, torch.float32) for d in dtypes}:
+            out[dt] = (self._on_device.get(
+                ("C", topo.mixing.tobytes(), str(dt)), device,
+                lambda: torch.from_numpy(topo.mixing).to(dt).numpy())
+                if dev_mask is None else mixing_lib.masked_mixing_matrix(
+                    topo, dev_mask, dt))
+        return out
+
+    def mix_by(self, tree, operand: Dict[Any, torch.Tensor]):
+        """One gossip step of ``tree`` with ``operand`` (``mix_operand``):
+        K1 for the leaves of each dtype under a gossip table, else the dense
+        product with the matrix of each leaf's promoted dtype."""
+        if not tree:
+            return {}
+        names = list(tree)
+        if "w" not in operand:
+            return {name: mixing_lib.contract(
+                operand[torch.promote_types(x.dtype, torch.float32)], x)
+                for name, x in tree.items()}
+        nbr, w = operand["nbr"], operand["w"]
         mixed = _by_dtype(
             [tree[name].reshape(self.num_nodes, -1) for name in names],
             lambda xs: ops.gossip_mix_many(xs, nbr, w))
         return {name: m.reshape(tree[name].shape)
                 for name, m in zip(names, mixed)}
+
+    def mix(self, tree, edge_mask=None):
+        if not tree:
+            return {}
+        device = next(iter(tree.values())).device
+        return self.mix_by(tree, self.mix_operand(
+            device, edge_mask, {x.dtype for x in tree.values()}))
 
     def mean_over_nodes(self, x):
         return x.mean(dim=0)
@@ -265,22 +302,36 @@ class DenseSubstrate(NodeSubstrate):
             (kind, mask.tobytes()), device,
             lambda: mask.astype(bool if kind == "bool" else np.float32))
 
+    def node_mask_on(self, mask_local, device) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+        """The host node mask on ``device`` as (bool, f32) ``[N]`` tensors,
+        what ``select_by`` and ``masked_mean_by`` read."""
+        mask = np.asarray(mask_local)
+        return (self._mask_on(mask, device, "bool"),
+                self._mask_on(mask, device, "float"))
+
     def select_nodes(self, mask_local, new, old):
         mask = np.asarray(mask_local)
         if mask.all():
             return new
+        device = tree_leaves(new)[0].device
+        return self.select_by(self._mask_on(mask, device, "bool"), new, old)
 
-        def sel(nw, od):
-            m = self._mask_on(mask, nw.device, "bool")
-            return torch.where(m.reshape((-1,) + (1,) * (nw.dim() - 1)),
-                               nw, od)
-
-        return tree_map(sel, new, old)
+    @staticmethod
+    def select_by(mask: torch.Tensor, new, old):
+        """Per node, ``new`` where the device bool mask ``[N]`` is set and
+        ``old`` elsewhere, over trees of ``[N, ...]`` leaves."""
+        return tree_map(lambda nw, od: torch.where(
+            mask.reshape((-1,) + (1,) * (nw.dim() - 1)), nw, od), new, old)
 
     def masked_mean_over_nodes(self, x, mask_local):
-        """mean(x m) / max(mean(m), 1/N): an exact ``/ 1.0`` at all ones,
-        and 0 (not NaN) when every node is masked."""
-        m = self._mask_on(np.asarray(mask_local), x.device, "float")
+        return self.masked_mean_by(
+            x, self._mask_on(np.asarray(mask_local), x.device, "float"))
+
+    def masked_mean_by(self, x, m: torch.Tensor):
+        """mean(x m) / max(mean(m), 1/N) with the device f32 mask ``m``:
+        an exact ``/ 1.0`` at all ones, and 0 (not NaN) when every node is
+        masked."""
         num = self.mean_over_nodes(x * m)
         return num / self.mean_over_nodes(m).clamp(
             min=1.0 / max(self.num_nodes, 1))

@@ -396,14 +396,16 @@ def test_dispatch_rejects_out_of_bounds_taus():
 
 
 def test_unported_executor_modes_raise():
-    """The modes still to port raise, pointing at ROADMAP.md; participation
-    and sampled populations are ported and refuse what the reference
-    refuses (the static fallback, a population on the dense engine)."""
+    """The modes still to port raise, pointing at ROADMAP.md; participation,
+    sampled populations and the pipeline are ported and refuse what the
+    reference refuses (the static fallback, a population on the dense
+    engine)."""
     cfg = DFLConfig(tau1=2, tau2=1, topology=ring(N))
-    for kw in ({"engine": "sparse"}, {"overlap": "pipeline"},
-               {"telemetry": object()}):
+    for kw in ({"engine": "sparse"}, {"telemetry": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RoundExecutor(cfg, quad_loss, sgd(0.1), **kw)
+    assert RoundExecutor(cfg, quad_loss, sgd(0.1),
+                         overlap="pipeline").overlap == "pipeline"
     with pytest.raises(ValueError, match="overlap"):
         RoundExecutor(cfg, quad_loss, sgd(0.1), overlap="sideways")
     with pytest.raises(ValueError, match="batched-engine parameter"):
