@@ -91,7 +91,19 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 9. ``run_dfl_cnn`` twice under ``deterministic=True``: bitwise equal
    histories; once more with ``deterministic=False`` for the switch's
    cost in round time.
-10. Print the kernels line, the build and total wall times, the card's
+10. The planner driving the executor (``run_planner_phase``):
+   ``bench_trajectory --smoke --check`` on the card (no build or capture
+   after the warmup, the trajectory beating every fixed grid point, K1
+   exactly once a gossip step in every dispatch, the final losses against
+   the CPU's); the adaptive controller driving the CIFAR CNN at full
+   width from measured chunk times (``launch.planned_run``, plain DFL and
+   C-DFL QSGD, executor maxima (16, 8), a 2 s budget): no build or
+   capture after the warmup across every re-plan and probe, no
+   synchronizing call in a dispatch, exact launches, finite losses, the
+   spend within the budget plus one chunk; ``bench_balance`` on MNIST at
+   10 rounds a grid point with exact launches, the measured winner and
+   the planner's pick printed per ratio.
+11. Print the kernels line, the build and total wall times, the card's
    name and power limit, and the final ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when ``torch.cuda.is_available()`` is
@@ -2249,6 +2261,193 @@ def run_determinism_phase():
         "round_ms_nondeterministic": ms[2]}))
 
 
+# Phase 10's adaptive sessions: a wall-clock budget of the training loop
+# (seconds), supersteps of 4 rounds, and the CPU's rtol on bench_trajectory's
+# final losses (elementwise f32 updates and a bitwise K1 on the card).
+PLANNER_BUDGET_S = 2.0
+PLANNER_SUPERSTEP = 4
+TRAJECTORY_RTOL = 1e-5
+
+
+def launch_delta(before):
+    from repro_torch.kernels import ops
+    return {k: v - before.get(k, 0) for k, v in ops.LAUNCHES.items()}
+
+
+def checked_dispatch(K, per_step, log):
+    """A ``dispatch(executor, state, batches, taus)`` hook: each dispatch
+    must make no synchronizing CUDA call and launch exactly ``per_step``
+    (kernel -> launches a gossip step) times the rows' sum of tau2; its
+    launches are added to the kernels line and the dispatch is logged."""
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.kernels import ops
+
+    def dispatch(ex, state, batches, taus):
+        rows = np.asarray(taus)
+        before = dict(ops.LAUNCHES)
+        out, syncs = bro.syncs_in_dispatch(
+            lambda: ex.dispatch_trajectory(state, batches, taus))
+        counts = launch_delta(before)
+        steps = int(rows[:, 1].sum())
+        expect = expect_launches(K, **{k: v * steps
+                                       for k, v in per_step.items()})
+        require(counts == expect, f"dispatch of {rows[:, :2].tolist()}: "
+                f"launches {counts}, expected {expect}")
+        require(not syncs, f"dispatch of {rows[:, :2].tolist()}: "
+                f"synchronizing calls {syncs}")
+        add_launches(K, counts)
+        log.append(steps)
+        return out
+
+    return dispatch
+
+
+def run_planner_phase(K):
+    """Phase 10, the planner (``repro_torch.planner``) driving the executor
+    on the card. (a) ``bench_trajectory --smoke --check``: every schedule
+    and seed through one graph-replaying executor at the grid's maxima, no
+    build or capture after the warmup, the per-round trajectory beating
+    every fixed grid point at budget, each dispatch's launches exactly one
+    K1 a gossip step and no synchronizing call in it; the final losses held
+    against the same schedules on the CPU (``TRAJECTORY_RTOL``). (b) The
+    adaptive controller driving the CIFAR CNN at full width
+    (``launch.planned_run.cnn_planned_run``): a 10-node ring, batch 16, the
+    executor at ``DEFAULT_GRID``'s maxima (16, 8), the reference's neutral
+    prior, a ``PLANNER_BUDGET_S`` budget in supersteps of 4, plain DFL and
+    C-DFL QSGD (16 levels, gamma ``QSGD_GAMMA``): no build or capture after
+    the warmup across every re-plan and probe, no synchronizing call in a
+    dispatch, exact launches, finite losses, the spend within the budget
+    plus one chunk, and the rank-deficient probe once. (c)
+    ``bench_balance`` on MNIST at 10 rounds a grid point: every row
+    finite, the result file written, K1 exactly tau2 x rounds for each
+    grid point; the measured winner and the planner's pick per ratio."""
+    import tempfile
+
+    from repro_torch.benchmarks import bench_balance
+    from repro_torch.benchmarks import bench_trajectory as bt
+    from repro_torch.kernels import ops
+    from repro_torch.launch.planned_run import cnn_planned_run
+    from repro_torch.models.cnn import init_cnn
+
+    # (a) the trajectory bench on the card, then on the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        steps = []
+        t0 = time.perf_counter()
+        card = bt.main(["--smoke", "--check", "--device", "cuda", "--out",
+                        os.path.join(tmp, "card.json")],
+                       dispatch=checked_dispatch(K, {"gossip_mix": 1}, steps))
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = bt.main(["--smoke", "--device", "cpu", "--out",
+                       os.path.join(tmp, "cpu.json")])
+        t_cpu = time.perf_counter() - t0
+    require(card["builds_after_warmup"] == 0
+            and card["captures_after_warmup"] == 0,
+            "bench_trajectory: builds or captures after the warmup")
+    require(card["trajectory_beats_best_fixed"],
+            "bench_trajectory: the trajectory does not beat the best fixed")
+    worst = 0.0
+    for name in list(card["fixed"]) + ["trajectory"]:
+        got = (card["trajectory"] if name == "trajectory"
+               else card["fixed"][name])["loss_per_seed"]
+        want = (cpu["trajectory"] if name == "trajectory"
+                else cpu["fixed"][name])["loss_per_seed"]
+        for a, b in zip(got, want):
+            worst = max(worst, abs(a - b) / abs(b))
+            require(close(a, b, TRAJECTORY_RTOL), f"bench_trajectory {name}: "
+                    f"card {a} vs CPU {b}, beyond rtol {TRAJECTORY_RTOL}")
+    print("planner trajectory " + json.dumps({
+        "margin_x": card["margin_x"], "best_fixed": card["best_fixed"],
+        "trajectory_loss": card["trajectory"]["loss"],
+        "schedule_counts": card["trajectory"]["schedule_counts"],
+        "dispatches": len(steps), "gossip_mix_launches": sum(steps),
+        "builds_after_warmup": card["builds_after_warmup"],
+        "captures_after_warmup": card["captures_after_warmup"],
+        "largest_rel_diff_vs_cpu": worst, "rtol": TRAJECTORY_RTOL,
+        "card_s": t_card, "cpu_s": t_cpu}))
+
+    # (b) the adaptive controller driving the CIFAR CNN
+    sizes = [v.numel() for v in init_cnn(torch.Generator().manual_seed(0),
+                                         "cifar", "cuda").values()]
+    for label, compression in (("dfl", ""), ("cdfl_qsgd", "qsgd")):
+        steps = []
+        t0 = time.perf_counter()
+        _, rec = cnn_planned_run(
+            "cifar", compression, gamma=QSGD_GAMMA,
+            budget_s=PLANNER_BUDGET_S, superstep=PLANNER_SUPERSTEP,
+            device="cuda", dispatch=checked_dispatch(
+                K, step_launches(compression, sizes), steps))
+        wall = time.perf_counter() - t0
+        chunks = rec["chunks"]
+        require(chunks, f"planner {label}: no round ran")
+        require(rec["builds_after_warmup"] == 0
+                and rec["captures_after_warmup"] == 0,
+                f"planner {label}: {rec['builds_after_warmup']} builds and "
+                f"{rec['captures_after_warmup']} captures after the warmup")
+        require(all(math.isfinite(v) for ch in chunks
+                    for v in ch["loss"] + ch["consensus_sq"]),
+                f"planner {label}: a loss is not finite")
+        largest = max(ch["seconds"] + ch["overhead_s"] for ch in chunks)
+        require(rec["spent_s"] <= PLANNER_BUDGET_S + largest,
+                f"planner {label}: spent {rec['spent_s']} s of "
+                f"{PLANNER_BUDGET_S} plus one chunk ({largest} s)")
+        probes = [p["probe"] for p in rec["plans"]
+                  if p.get("probe") is not None]
+        require(len(probes) == 1, f"planner {label}: probes {probes}, "
+                "expected one")
+        print(f"planner {label} " + json.dumps({
+            "plans": [{k: p.get(k) for k in (
+                "round", "cause", "schedule", "probe", "t_compute_step",
+                "t_gossip_step", "rounds_planned")} for p in rec["plans"]],
+            "fitted": rec["fitted"], "fit_rank": rec["fit_rank"],
+            "rounds": rec["rounds"], "gossip_steps": sum(steps),
+            "dispatches": len(chunks), "spent_s": rec["spent_s"],
+            "budget_s": rec["budget_s"], "warmup_s": rec["warmup_s"],
+            "dispatch_s": sum(ch["seconds"] for ch in chunks),
+            "overhead_s": sum(ch["overhead_s"] for ch in chunks),
+            "final_loss": chunks[-1]["loss"][-1],
+            "builds_after_warmup": 0, "captures_after_warmup": 0,
+            "syncs_in_dispatch": 0, "prefetch": rec["prefetch"],
+            "wall_s": wall}))
+
+    # (c) bench_balance on MNIST, launches per grid point
+    orig = bench_balance.run_dfl_cnn
+
+    def counted(spec, device):
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        out = orig(spec, device=device)
+        torch.cuda.synchronize()
+        counts = launch_delta(before)
+        expect = expect_launches(K, gossip_mix=spec.tau2 * spec.rounds)
+        require(counts == expect, f"bench_balance ({spec.tau1}, "
+                f"{spec.tau2}): launches {counts}, expected {expect}")
+        add_launches(K, counts)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_balance.run_dfl_cnn = counted
+        t0 = time.perf_counter()
+        try:
+            rows = bench_balance.run("mnist", 10, device="cuda",
+                                     results_dir=tmp)
+        finally:
+            bench_balance.run_dfl_cnn = orig
+        dt = time.perf_counter() - t0
+        path = os.path.join(tmp, "balance_mnist.json")
+        require(os.path.exists(path), "bench_balance: wrote no result file")
+        with open(path) as f:
+            out = json.load(f)
+    require(all(math.isfinite(float(r["loss_at_budget"])) for r in rows),
+            "bench_balance: a loss at budget is not finite")
+    print(f"planner balance ({dt:.2f} s) " + json.dumps({
+        ratio: {"measured_winner": out["winners"][ratio][1:],
+                "winner_loss": out["winners"][ratio][0],
+                "planned": [out["planned"][ratio]["tau1"],
+                            out["planned"][ratio]["tau2"]]}
+        for ratio in out["planned"]}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -2312,13 +2511,15 @@ def main():
         "masked_quickstart": lambda: run_masked_quickstart(K),
         "batched": lambda: run_batched_phase(K),
         "benches": lambda: run_bench_phase(K),
-        "determinism": run_determinism_phase}
+        "determinism": run_determinism_phase,
+        "planner": lambda: run_planner_phase(K)}
     phases["pipeline_calibrate"] = lambda: run_pipeline_phase(
         K, gate=False, controls=(("gossip_mix_many", "x_shift", 1e-4),
                                  ("gossip_mix_many", "x_shift", 1e-3),
                                  ("gossip_mix_many", "x_scale", 1e-4)))
     if sys.argv[1:2] == ["--only"]:
         # a subset of the phases, for work on the card; no result line
+        print(card_line())
         for name in sys.argv[2:]:
             t0 = time.perf_counter()
             phases[name]()

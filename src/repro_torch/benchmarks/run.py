@@ -6,18 +6,21 @@
         --device cpu
 
 Emits CSV rows (bench,label,...) per bench and writes each bench's JSON
-under ``results/repro_torch/``. The reference's ``theory`` and ``balance``
-benches read the planner, which the port does not have yet (ROADMAP.md).
+under ``results/repro_torch/``. ``theory`` is numpy only (Proposition 1 on
+the quadratic testbed); ``balance`` runs its grid at ``max(30, rounds //
+2)`` rounds. The reference's ``roofline`` report reads TPU dry-run
+artifacts and is not ported.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
-from repro_torch.benchmarks import (fig7_tau2, fig8_tau1, fig9_zeta,
-                                    fig10_cdfl, table1_methods)
+from repro_torch.benchmarks import (bench_balance, fig7_tau2, fig8_tau1,
+                                    fig9_zeta, fig10_cdfl, table1_methods,
+                                    theory_check)
 
-BENCHES = ("fig7", "fig8", "fig9", "fig10", "table1")
+BENCHES = ("fig7", "fig8", "fig9", "fig10", "table1", "theory", "balance")
 
 
 def main(argv=None) -> None:
@@ -56,6 +59,12 @@ def main(argv=None) -> None:
         print("# Table I — method comparison")
         table1_methods.run(budget_iters=1200 if args.full else 480,
                            device=dev)
+    if "theory" in only:
+        print("# Theory — Proposition 1 bound verification")
+        theory_check.main()
+    if "balance" in only:
+        print("# Balance — communication vs computing cost optimum")
+        bench_balance.run(rounds=max(30, rounds // 2), device=dev)
     print(f"\n# total bench wall-clock: {time.time() - t0:.0f}s")
 
 

@@ -8,10 +8,12 @@ contract:
 * **Schedule as data.** ``dispatch_trajectory(state, batches, taus)``
   runs round k of a superstep at ``(taus[k, 0], taus[k, 1])``; batch
   leaves are ``[K, tau1_max, ...]`` and round k reads its first
-  ``taus[k, 0]`` steps. ``dispatch`` is the uniform trajectory. The
-  trajectory is validated, and copied to the state's device, once per
-  distinct content (memoized); the rounds read their step counts from the
-  host copy, so nothing inside a dispatch waits for the device.
+  ``taus[k, 0]`` steps (so any second dimension of at least the
+  superstep's largest tau1 serves: ``launch.planned_run`` copies no
+  more). ``dispatch`` is the uniform trajectory. The trajectory is
+  validated, and copied to the state's device, once per distinct content
+  (memoized); the rounds read their step counts from the host copy, so
+  nothing inside a dispatch waits for the device.
 * **Graphs** (the dense engine, ``dynamic=True``: plain and C-DFL, with
   and without participation masks, and ``overlap="pipeline"``). The
   round is captured step by step into CUDA graphs (``core.graphs``): one

@@ -29,7 +29,7 @@ subject to a budget expressed in any of these currencies.
 Numpy only. This is a copy of ``repro.planner.cost`` with its imports
 pointed at the port (``repro_torch.core.mixing``, ``compression``,
 ``topology``), so its prices are the reference's; the rest of the planner
-(bounds, optimize, adaptive) is queued in ROADMAP.md.
+(bounds, optimize, adaptive) is ported beside it.
 """
 from __future__ import annotations
 

@@ -171,7 +171,7 @@ def test_cost_process_and_unit_models_equal_reference():
     with pytest.raises(ValueError, match="overlap"):
         cost.CostModel(compute=m.compute, link=m.link, topology=t,
                        model_bits=1.0, overlap="sideways")
-    assert set(planner.__all__) <= set(cost.__all__)
+    assert set(cost.__all__) <= set(planner.__all__)
 
 
 def test_fault_plan_prices_equal_reference():

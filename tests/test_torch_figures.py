@@ -125,8 +125,9 @@ def test_figure_runs_on_cpu(monkeypatch, tmp_path, capsys, name):
 
 
 def test_run_entry_point_rejects_unknown_benches():
+    # the reference's roofline report reads TPU dry-run artifacts: not ported
     with pytest.raises(SystemExit):
-        trun.main(["--only", "theory", "--device", "cpu"])
+        trun.main(["--only", "roofline", "--device", "cpu"])
 
 
 def test_bench_round_overhead_runs_on_cpu(monkeypatch, tmp_path):

@@ -49,7 +49,14 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.benchmarks.bench_faults",
             "repro_torch.benchmarks.bench_megascale",
             "repro_torch.faults", "repro_torch.planner",
-            "repro_torch.planner.cost"} <= set(mods)
+            "repro_torch.planner.cost", "repro_torch.planner.bounds",
+            "repro_torch.planner.optimize", "repro_torch.planner.adaptive",
+            "repro_torch.benchmarks.theory_check",
+            "repro_torch.benchmarks.bench_balance",
+            "repro_torch.benchmarks.bench_trajectory",
+            "repro_torch.examples.plan_schedule",
+            "repro_torch.examples.compression_sweep",
+            "repro_torch.launch.planned_run"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == []
 
