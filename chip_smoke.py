@@ -103,7 +103,27 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    spend within the budget plus one chunk; ``bench_balance`` on MNIST at
    10 rounds a grid point with exact launches, the measured winner and
    the planner's pick printed per ratio.
-11. Print the kernels line, the build and total wall times, the card's
+11. The LM stack and the train CLI (``run_lm_phase``): (a) the CLI's
+   body (``launch.train.run``) on every architecture's reduced config, 4
+   nodes on ring(4), tau (2, 2), 2 rounds in one K = 2 dispatch, C-DFL
+   TopK (and QSGD on the reduced Qwen3): finite losses, exact launches,
+   no build or capture after the warmup, no synchronizing call in a
+   dispatch; the reduced Qwen3's two rounds against the port's CPU run of
+   the same arguments (``LM_CPU_RTOL``, which a control with K1's output
+   scaled must break). (b) Qwen3-1.7B at its published widths, 2 of 28
+   layers (``LM_FULL_LAYERS``), 4 nodes, batch 2, seq 1024, one K = 3
+   dispatch each of plain DFL, C-DFL TopK and QSGD: the dispatch bitwise
+   the eager rounds on the card, exact launches, 0 syncs, 0 builds and
+   captures after the warmup, finite losses, the loss of the first
+   trained batch lower at the end, the consensus distance lower after
+   every plain gossip step; ms a round, a local step and a gossip step,
+   the busy share and the peak memory. (c) K1, K4 + K3 and K2 over that
+   tree bitwise their plain versions, timed against them and their
+   bounds, and K6, K5 and K7 over the same leaves, bitwise.
+   ``--only lm_calibrate`` prints (a)'s readings and controls
+   ungated and (d) the full-width QSGD run with the RNG seam drawing one
+   cached block (the path before large trees were drawn in chunks).
+12. Print the kernels line, the build and total wall times, the card's
    name and power limit, and the final ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when ``torch.cuda.is_available()`` is
@@ -115,7 +135,8 @@ seam check, the readings behind the whole-run limits of phases 5, 6 and
 controls, ``cifar_sensitivity``, phase 6 with controls), holding none of
 them, and exits. ``python3 chip_smoke.py --only NAME ...`` runs the named
 phases after the build (``graphs``, ``pipeline``, ``pipeline_calibrate``:
-phase 4c's readings and controls ungated, ...) and prints no result.
+phase 4c's readings and controls ungated, ``lm``, ``lm_calibrate``, ...)
+and prints no result.
 """
 import dataclasses
 import json
@@ -1863,11 +1884,12 @@ def device_busy_ms(run):
     return busy_ms(kernels), kernels
 
 
-def top_kernels(kernels, per, n=5):
-    """The ``n`` kernels with the most device time, in ms per ``per``."""
+def top_kernels(kernels, per, n=5, width=60):
+    """The ``n`` kernels with the most device time, in ms per ``per``, by
+    the first ``width`` characters of their names."""
     total = {}
     for _, a, b, name in kernels:
-        total[name[:60]] = total.get(name[:60], 0.0) + (b - a) / 1e3 / per
+        total[name[:width]] = total.get(name[:width], 0.0) + (b - a) / 1e3 / per
     return dict(sorted(total.items(), key=lambda kv: -kv[1])[:n])
 
 
@@ -2448,6 +2470,549 @@ def run_planner_phase(K):
         for ratio in out["planned"]}))
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the LM stack and the train CLI
+# ---------------------------------------------------------------------------
+
+LM_NODES = 4
+LM_FULL_ARCH = "qwen3-1.7b"
+LM_FULL_LAYERS = 2          # the one cut of the published config: 28 -> 2
+LM_FULL_BATCH, LM_FULL_SEQ, LM_FULL_ROUNDS = 2, 1024, 3
+LM_TOPK_GAMMA = 0.6         # the CLI's default CHOCO step
+# round-by-round card vs CPU of the reduced Qwen3 through the CLI (2
+# rounds, the same weights and draws), relative: limits between the
+# largest sound reading and a control run with K1's output scaled by 1.01
+# on the card only (``--only lm_calibrate``, PERF.md §6): TopK loss
+# 8.0e-6, consensus 4.5e-3 (a TopK boundary flips with the bf16 matmuls'
+# rounding), control 0.20; QSGD loss 8.0e-6, consensus 2.0e-6, control
+# 4.1e-3. K1 runs after round 1's loss is taken, so the control shows in
+# the consensus.
+LM_CPU_RTOL = {"top_k": {"loss": 1e-4, "consensus_sq": 1e-2},
+               "qsgd": {"loss": 1e-4, "consensus_sq": 1e-4}}
+LM_CONTROL = ("gossip_mix_many", "x_scale", 1e-2)
+
+
+def lm_argv(arch, compression, device, rounds=2, superstep=2, batch=2,
+            seq=64):
+    """The train CLI's arguments of the phase: 4 nodes on ring(4), tau
+    (2, 2), SGD at the CLI's step; C-DFL QSGD at gamma ``QSGD_GAMMA``,
+    TopK at the CLI's 0.6 (frac 0.5, 16 QSGD levels: its defaults)."""
+    return ["--arch", arch, "--nodes", str(LM_NODES), "--tau1", "2",
+            "--tau2", "2", "--rounds", str(rounds), "--superstep",
+            str(superstep), "--batch", str(batch), "--seq", str(seq),
+            "--compression", compression, "--gamma",
+            str(QSGD_GAMMA if compression == "qsgd" else LM_TOPK_GAMMA),
+            "--log-every", "1", "--device", device]
+
+
+def lm_step_launches(compression, params):
+    """Kernel launches of one gossip step over the stacked LM tree
+    ``params``: one K1 call per dtype (one launch per 32 leaves); TopK one
+    K4 call per dtype (per group of 32 leaves one launch per digit of the
+    dtype when a row spans several chunks, else one) and K3 per leaf;
+    QSGD K2 per leaf."""
+    from repro_torch.kernels import gossip_mix, topk
+
+    groups = {}
+    for p in params.values():
+        groups.setdefault(p.dtype, []).append(p[0].numel())
+    out = {"gossip_mix": sum(-(-len(g) // gossip_mix.MAX_LEAVES)
+                             for g in groups.values())}
+    if compression == "top_k":
+        k4 = 0
+        for dt, g in groups.items():
+            for i in range(0, len(g), topk.MAX_LEAVES):
+                k4 += (len(topk.DIGITS[dt])
+                       if max(g[i:i + topk.MAX_LEAVES]) > topk.CHUNK else 1)
+        out.update(topk_threshold=k4, choco_topk=len(params))
+    elif compression == "qsgd":
+        out["choco_qsgd"] = len(params)
+    return out
+
+
+def lm_hook(K, per_step, log):
+    """A ``dispatch(executor, state, batches, rows)`` hook for the train
+    CLI: no synchronizing CUDA call inside, exactly ``per_step`` launches
+    a gossip step (added to the kernels line), the dispatch timed on the
+    host clock ended by a sync and kept with its batches and rows."""
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.kernels import ops
+
+    def dispatch(ex, state, batches, rows):
+        rows = np.asarray(rows)
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        out, syncs = bro.syncs_in_dispatch(
+            lambda: ex.dispatch_trajectory(state, batches, rows))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_delta(before)
+        steps = int(rows[:, 1].sum())
+        expect = expect_launches(K, **{k: v * steps
+                                       for k, v in per_step.items()})
+        require(counts == expect, f"dispatch of {rows[:, :2].tolist()}: "
+                f"launches {counts}, expected {expect}")
+        require(not syncs, f"dispatch of {rows[:, :2].tolist()}: "
+                f"synchronizing calls {syncs}")
+        add_launches(K, counts)
+        log.append({"seconds": dt, "rows": rows, "batches": batches,
+                    "launches": counts})
+        return out
+
+    return dispatch
+
+
+def lm_cli_runs(K, gate):
+    """(a) ``train.run`` (the CLI's body) on every reduced architecture,
+    C-DFL TopK, and on the reduced Qwen3 also C-DFL QSGD: finite losses,
+    exact launches, no build or capture after the warmup, no synchronizing
+    call in a dispatch; the reduced Qwen3's rounds against the port's CPU
+    run of the same arguments (weights and draws alike), within
+    ``LM_CPU_RTOL``, and the control (``LM_CONTROL``) beyond it."""
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+
+    def card_run(arch, compression, dispatch=None):
+        args = train.parse_args(lm_argv(arch, compression, "cuda"))
+        return train.run(args, dispatch=dispatch, log=lambda s: None)
+
+    for arch in list_archs():
+        for compression in (("top_k", "qsgd") if arch == LM_FULL_ARCH
+                            else ("top_k",)):
+            log = []
+            t0 = time.perf_counter()
+            probe = init_params(get_arch(arch).reduced, None, "cpu",
+                                abstract=True)[0]
+            per_step = lm_step_launches(compression, {
+                k: v.expand((LM_NODES,) + tuple(v.shape))
+                for k, v in probe.items()})
+            rec = card_run(arch, compression, lm_hook(K, per_step, log))
+            wall = time.perf_counter() - t0
+            losses = [r["loss"] for r in rec["rows"]]
+            require(all(math.isfinite(v) for v in losses)
+                    and len(losses) == 2, f"lm cli {arch}: losses {losses}")
+            require(rec["builds_after_warmup"] == 0
+                    and rec["captures_after_warmup"] == 0,
+                    f"lm cli {arch}: {rec['builds_after_warmup']} builds and "
+                    f"{rec['captures_after_warmup']} captures after the "
+                    "warmup")
+            line = {"arch": arch, "compression": compression,
+                    "losses": losses,
+                    "consensus_sq": [r["consensus_sq"] for r in rec["rows"]],
+                    "leaves": len(rec["state"].params),
+                    "dtypes": sorted({str(p.dtype).split(".")[1] for p in
+                                      rec["state"].params.values()}),
+                    "launches_per_gossip_step": per_step,
+                    "dispatch_s": [e["seconds"] for e in log],
+                    "captures": rec["capture_count"], "wall_s": wall}
+            if arch == LM_FULL_ARCH:
+                args = train.parse_args(lm_argv(arch, compression, "cpu"))
+                cpu = train.run(args, log=lambda s: None)
+                with perturbed(*LM_CONTROL):
+                    ctl = card_run(arch, compression)
+                rtol = LM_CPU_RTOL[compression]
+                for name, run in (("card", rec), ("control", ctl)):
+                    line[f"{name}_vs_cpu"] = {
+                        key: [abs(a[key] - b[key]) / abs(b[key]) for a, b in
+                              zip(run["rows"], cpu["rows"])]
+                        for key in rtol}
+                line["rtol"] = rtol
+                within = lambda d: all(  # noqa: E731
+                    max(d[k]) <= v for k, v in rtol.items())
+                if gate:
+                    require(within(line["card_vs_cpu"]),
+                            f"lm cli {arch} {compression}: card vs CPU "
+                            f"{line['card_vs_cpu']} beyond {rtol}")
+                    require(not within(line["control_vs_cpu"]),
+                            f"lm cli {arch} {compression}: the control "
+                            f"{LM_CONTROL} stays within {rtol}")
+            print("lm cli " + json.dumps(line))
+
+
+def lm_eager_reference(cfg, args, comp):
+    """The full-width run's rounds eagerly on the card, as ``round_body``
+    runs them, with the consensus distance after the local phase and after
+    each gossip step, from the CLI's initial state and batches; returns
+    them, the final params and estimates, and the node-mean loss of round
+    0's first batch at the initial weights."""
+    from repro_torch.core import dfl
+    from repro_torch.core.substrate import DenseSubstrate
+    from repro_torch.core.topology import ring
+    from repro_torch.data.lm import SyntheticLM, lm_batches_for_dfl
+    from repro_torch.launch import train
+    from repro_torch.models import init_params, train_loss
+
+    def loss_fn(p, b):
+        return train_loss(p, b, cfg)
+
+    n, tau1, tau2 = LM_NODES, args.tau1, args.tau2
+    opt = train.make_optimizer(args.optimizer, args.lr)
+    params0, _ = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                             "cuda")
+    state = dfl.init_state(params0, n, opt, compressed=comp is not None,
+                           seed=1)
+    del params0
+    dcfg = dfl.DFLConfig(tau1=tau1, tau2=tau2, topology=ring(n),
+                         compression=comp, gamma=args.gamma)
+    sub = DenseSubstrate(dcfg.topology)
+    corpus = SyntheticLM(vocab_size=cfg.vocab_size, num_nodes=n,
+                         noniid_alpha=args.noniid)
+    params, opt_state, hat = state.params, state.opt_state, state.hat_params
+    out = {"loss": [], "consensus": []}
+    for r in range(args.rounds):
+        b = {k: torch.from_numpy(v).cuda() for k, v in lm_batches_for_dfl(
+            corpus, tau1, n, args.batch, args.seq, r).items()}
+        if r == 0:
+            out["batch0"] = {k: v[0] for k, v in b.items()}
+            with torch.no_grad():
+                out["trained_loss_before"] = float(torch.func.vmap(loss_fn)(
+                    params, out["batch0"]).mean())
+        params, opt_state, loss = dfl.local_phase(
+            dcfg, loss_fn, opt, sub, params, opt_state, b, tau1)
+        cons = [float(sub.consensus_sq(params))]
+        for t in range(tau2):
+            if comp is None:
+                params = sub.mix(params)
+            else:
+                params, hat = sub.choco_step(comp, params, hat,
+                                             sub.mix(hat), args.gamma,
+                                             state.draws, r, t)
+            cons.append(float(sub.consensus_sq(params)))
+        out["loss"].append(loss)
+        out["consensus"].append(cons)
+    out["params"], out["hat"] = params, hat
+    return out
+
+
+def event_ms(fn, reps=2):
+    """Device time of one ``fn()`` call between CUDA events, after a warm
+    call, for calls long enough that the host's launch time does not
+    count (the plain versions at LM leaf shapes), outside any graph."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def replay_ms(replay, reps=3):
+    """Device time of one replay of a captured step, CUDA events."""
+    replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def lm_full_runs(K, gate, cfg, seq=LM_FULL_SEQ):
+    """(b) Qwen3-1.7B at its published widths, depth cut to
+    ``LM_FULL_LAYERS``: 4 nodes on ring(4), tau (2, 2), batch 2 a node,
+    ``seq`` tokens, ``LM_FULL_ROUNDS`` rounds in one K = 3 dispatch of the
+    train CLI's body, plain DFL, C-DFL TopK and C-DFL QSGD. The dispatch
+    bitwise the eager rounds on the card (state, estimates, losses), no
+    synchronizing call in it, exact launches, no build or capture after
+    the warmup; under plain DFL the consensus distance lower after every
+    gossip step (printed for C-DFL); every loss finite, and the node-mean
+    loss of round 0's first batch lower at the final weights than at the
+    initial ones. Prints ms a round, ms a local step and a gossip step
+    (graph replays), the busy share of a dispatch and the peak memory."""
+    import gc
+
+    from repro_torch.core import make_compressor
+    from repro_torch.launch import train
+    from repro_torch.models import train_loss
+
+    for label, compression in (("dfl", ""), ("cdfl_topk", "top_k"),
+                               ("cdfl_qsgd", "qsgd")):
+        t0 = time.perf_counter()
+        args = train.parse_args(lm_argv(
+            LM_FULL_ARCH, compression, "cuda", rounds=LM_FULL_ROUNDS,
+            superstep=LM_FULL_ROUNDS, batch=LM_FULL_BATCH, seq=seq))
+        comp = make_compressor(compression) if compression else None
+        ref = lm_eager_reference(cfg, args, comp)
+        for key in ("params", "hat"):   # on the host during the CLI's run
+            if ref[key] is not None:
+                ref[key] = {k: v.cpu() for k, v in ref[key].items()}
+        t_ref = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        per_step = lm_step_launches(compression, ref["params"])
+        log = []
+        held_gb = torch.cuda.memory_allocated() / 1e9  # round 0's batch
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        rec = train.run(args, cfg,
+                        generator=torch.Generator("cuda").manual_seed(0),
+                        dispatch=lm_hook(K, per_step, log),
+                        log=lambda s: None)
+        t_run = time.perf_counter() - t1
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+        state, ex = rec["state"], rec["executor"]
+        require(rec["builds_after_warmup"] == 0
+                and rec["captures_after_warmup"] == 0,
+                f"lm full {label}: builds or captures after the warmup")
+        same = all(same_bits(state.params[k], ref["params"][k].cuda())
+                   for k in state.params)
+        if comp is not None:
+            same = same and all(same_bits(state.hat_params[k],
+                                          ref["hat"][k].cuda())
+                                for k in state.hat_params)
+        losses = [r["loss"] for r in rec["rows"]]
+        same_loss = losses == [float(v) for v in ref["loss"]]
+        with torch.no_grad():
+            after = float(torch.func.vmap(
+                lambda p, b: train_loss(p, b, cfg))(
+                    state.params, ref["batch0"]).mean())
+        # plain DFL: every gossip step lowers the consensus distance;
+        # CHOCO starts from zero estimates, and under QSGD the reference's
+        # own CLI grows it over the first rounds too (printed, not held)
+        falls = [all(b < a for a, b in zip(c, c[1:]))
+                 for c in ref["consensus"]] if comp is None else [True]
+        line = {"run": label, "losses": losses,
+                "consensus_sq": [r["consensus_sq"] for r in rec["rows"]],
+                "consensus_after_local_and_each_gossip_step":
+                    ref["consensus"],
+                "trained_batch_loss_before": ref["trained_loss_before"],
+                "trained_batch_loss_after": after,
+                "replay_bitwise_eager": same, "losses_bitwise": same_loss,
+                "launches_per_gossip_step": per_step,
+                "dispatch_launches": log[0]["launches"],
+                "ms_per_round": log[0]["seconds"] * 1e3 / LM_FULL_ROUNDS,
+                "peak_gb": peak_gb,
+                "captures": rec["capture_count"],
+                "warmup_s": rec["warmup_s"], "eager_s": t_ref,
+                "run_s": t_run}
+        rp = ex._graph._replays
+        line["local_step_ms"] = replay_ms(rp["local_next"].replay)
+        line["gossip_step_ms"] = replay_ms(rp["gossip"].replay)
+        del rp
+        t2 = time.perf_counter()
+        busy, kernels = device_busy_ms(lambda: ex.dispatch_trajectory(
+            state, log[0]["batches"], log[0]["rows"]))
+        profiled_ms = (time.perf_counter() - t2) * 1e3
+        line["busy_ms_per_round"] = busy / LM_FULL_ROUNDS
+        line["profiled_ms_per_round"] = profiled_ms / LM_FULL_ROUNDS
+        # busy time of the profiled dispatch over the unprofiled one's wall
+        line["busy_share"] = busy / (log[0]["seconds"] * 1e3)
+        line["top_kernels_ms_per_round"] = top_kernels(
+            kernels, LM_FULL_ROUNDS, n=12, width=240)
+        print(f"lm full {label} " + json.dumps(line))
+        checks = {"replay bitwise the eager rounds": same and same_loss,
+                  "finite losses": all(math.isfinite(v) for v in losses),
+                  "consensus falls at every gossip step": all(falls),
+                  "trained-batch loss falls": after < ref[
+                      "trained_loss_before"]}
+        failed = [k for k, ok in checks.items() if not ok]
+        if gate:
+            require(not failed, f"lm full {label}: {failed}")
+        elif failed:
+            print(f"lm full {label}: NOT MET {failed}")
+        del rec, state, ex, ref, log, kernels
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def lm_kernel_times(cfg, gate):
+    """(c) K1, K4 + K3 and K2 on the full-width tree (every leaf ``[4, D]``
+    bf16 of the run's model, random data), each one call or one launch per
+    leaf as the round makes it, then K6, K5 and K7 over the same leaves,
+    bitwise against its plain version, timed (CUDA-graph replay between
+    CUDA events) against the plain version, one PyTorch call where there
+    is one, and the bound: bytes at the card's memory rate (bf16: K1 4 B
+    an element, K4 2, K3 12, K2 14, K6 8, K5 4, K7 10)."""
+    import gc
+
+    from repro_torch.core.compression import QSGD, TopK
+    from repro_torch.core.mixing import gossip_table
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import (choco_fused, choco_update, gossip_mix,
+                                     ops, qsgd, topk)
+    from repro_torch.models import init_params
+
+    shapes = [tuple(v.shape) for v in init_params(
+        cfg, None, "cpu", abstract=True)[0].values()]
+    dims = [int(np.prod(s)) for s in shapes]
+    gen = torch.Generator("cuda").manual_seed(3)
+    n, gamma = LM_NODES, 0.6
+    topo = ring(n)
+    nbr, w = (torch.from_numpy(a).cuda() for a in gossip_table(topo))
+    ct = torch.as_tensor(topo.mixing.T, dtype=torch.bfloat16, device="cuda")
+
+    def rand(d):
+        return torch.randn(n, d, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    xs = [rand(d) for d in dims]
+    ys = [rand(d) for d in dims]
+    mys = [rand(d) for d in dims]
+    elems = n * sum(dims)
+    out, bad = {"leaves": len(dims), "elements": elems}, []
+
+    def held(name, got, want):
+        if not all(same_bits(g, t) for g, t in zip(got, want)):
+            bad.append(name)
+
+    def timed(name, kern, plain, lib, nbytes):
+        out[name] = {"ms": device_ms(kern, iters=2, reps=3),
+                     "plain_ms": event_ms(plain),
+                     "library_ms": event_ms(lib) if lib else None,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+    held("gossip_mix", ops.gossip_mix_many(xs, nbr, w),
+         [gossip_mix.plain(x, nbr, w) for x in xs])
+    timed("gossip_mix", lambda: ops.gossip_mix_many(xs, nbr, w),
+          lambda: [gossip_mix.plain(x, nbr, w) for x in xs],
+          lambda: [ct @ x for x in xs], 4 * elems)
+    gc.collect()
+    torch.cuda.empty_cache()
+    comp = TopK()                       # the CLI's frac, 0.5
+    gaps = [choco_fused.gap(x, y, my, gamma) for x, y, my in
+            zip(xs, ys, mys)]
+    ks = [comp._k(d) for d in dims]
+    threshs = ops.topk_threshold_many(gaps, ks)
+    held("topk_threshold", threshs,
+         [topk.threshold_plain(g, k) for g, k in zip(gaps, ks)])
+    # the plain version is one torch.topk a leaf, the library call
+    timed("topk_threshold", lambda: ops.topk_threshold_many(gaps, ks),
+          lambda: [topk.threshold_plain(g, k) for g, k in zip(gaps, ks)],
+          None, 2 * elems)
+    for x, y, my, g, t in zip(xs, ys, mys, gaps, threshs):
+        held("choco_topk", ops.choco_topk(x, y, my, g, t, gamma),
+             choco_fused.plain(x, y, my, g, t, gamma))
+    timed("choco_topk",
+          lambda: [ops.choco_topk(x, y, my, g, t, gamma) for x, y, my, g, t
+                   in zip(xs, ys, mys, gaps, threshs)],
+          lambda: [choco_fused.plain(x, y, my, g, t, gamma) for x, y, my, g,
+                   t in zip(xs, ys, mys, gaps, threshs)], None, 12 * elems)
+    del threshs
+    gc.collect()
+    torch.cuda.empty_cache()
+    comp = QSGD()
+    noises = [torch.rand(n, d, generator=gen, device="cuda") for d in dims]
+    norms = [torch.linalg.vector_norm(g.float(), dim=1) for g in gaps]
+    del gaps
+    cs = [comp._c(d) for d in dims]
+    for x, y, my, z, nm, c in zip(xs, ys, mys, noises, norms, cs):
+        held("choco_qsgd", ops.choco_qsgd(x, y, my, z, nm, gamma, 16, c),
+             choco_fused.qsgd_plain(x, y, my, z, nm, gamma, 16,
+                                    qsgd.scale(16, c)))
+    timed("choco_qsgd",
+          lambda: [ops.choco_qsgd(x, y, my, z, nm, gamma, 16, c) for
+                   x, y, my, z, nm, c in zip(xs, ys, mys, noises, norms, cs)],
+          lambda: [choco_fused.qsgd_plain(x, y, my, z, nm, gamma, 16,
+                                          qsgd.scale(16, c)) for
+                   x, y, my, z, nm, c in zip(xs, ys, mys, noises, norms, cs)],
+          None, 14 * elems)
+    # the kernels off the round's path, over the same leaves: K6 (QSGD's
+    # ``compress``, one call for the tree), K5 (TopK's ``compress``) and
+    # K7 (RandK's and randomized gossip's move), each index computed at
+    # 1.24 G elements a leaf
+    norms = [torch.linalg.vector_norm(x.float(), dim=1) for x in xs]
+    held("qsgd_quantize", ops.qsgd_quantize_many(xs, noises, norms, 16, cs),
+         [qsgd.plain(x, z, nm, 16, qsgd.scale(16, c))
+          for x, z, nm, c in zip(xs, noises, norms, cs)])
+    timed("qsgd_quantize",
+          lambda: ops.qsgd_quantize_many(xs, noises, norms, 16, cs),
+          lambda: [qsgd.plain(x, z, nm, 16, qsgd.scale(16, c))
+                   for x, z, nm, c in zip(xs, noises, norms, cs)],
+          None, 8 * elems)
+    del noises, norms
+    gc.collect()
+    torch.cuda.empty_cache()
+    threshs = ops.topk_threshold_many(xs, ks)
+    for x, t in zip(xs, threshs):
+        held("topk_mask", [ops.topk_mask(x, t)], [topk.mask_plain(x, t)])
+    timed("topk_mask", lambda: [ops.topk_mask(x, t)
+                                for x, t in zip(xs, threshs)],
+          lambda: [topk.mask_plain(x, t) for x, t in zip(xs, threshs)],
+          None, 4 * elems)
+    for x, y, my in zip(xs, ys, mys):
+        held("choco_move", ops.choco_move(x, y, my, gamma),
+             choco_update.plain(x, y, my, gamma))
+    timed("choco_move",
+          lambda: [ops.choco_move(x, y, my, gamma)
+                   for x, y, my in zip(xs, ys, mys)],
+          lambda: [choco_update.plain(x, y, my, gamma)
+                   for x, y, my in zip(xs, ys, mys)], None, 10 * elems)
+    out["not_bitwise"] = bad
+    print("lm kernels " + json.dumps(out))
+    if gate:
+        require(not bad, f"lm kernels: not bitwise their plain versions: "
+                f"{bad}")
+
+
+def lm_seam_probe(cfg, seq=LM_FULL_SEQ):
+    """The full-width C-DFL QSGD run once more with the RNG seam's step
+    drawn as one cached block (``GeneratorDraws.BLOCK_MAX`` lifted), as
+    before the seam drew large trees chunk by chunk: its peak memory and
+    gossip step, or the allocation that failed."""
+    from repro_torch.core.rng import GeneratorDraws
+    from repro_torch.launch import train
+
+    args = train.parse_args(lm_argv(
+        LM_FULL_ARCH, "qsgd", "cuda", rounds=LM_FULL_ROUNDS,
+        superstep=LM_FULL_ROUNDS, batch=LM_FULL_BATCH, seq=seq))
+    saved = GeneratorDraws.BLOCK_MAX
+    GeneratorDraws.BLOCK_MAX = 1 << 62
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        rec = train.run(args, cfg,
+                        generator=torch.Generator("cuda").manual_seed(0),
+                        log=lambda s: None)
+        line = {"ran": True, "peak_gb": torch.cuda.max_memory_allocated()
+                / 1e9, "gossip_step_ms": replay_ms(
+                    rec["executor"]._graph._replays["gossip"].replay)}
+        del rec
+    except torch.OutOfMemoryError as e:
+        line = {"ran": False, "error": str(e).splitlines()[0],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        GeneratorDraws.BLOCK_MAX = saved
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("lm seam one block " + json.dumps(line))
+
+
+def run_lm_phase(K, gate=True):
+    """Phase 11, the LM stack and the train CLI (``repro_torch.launch.
+    train``): (a) ``lm_cli_runs``, (b) ``lm_full_runs``, (c)
+    ``lm_kernel_times``. ``gate=False`` (``--only lm_calibrate``) prints
+    the readings and the controls and holds none of the limits."""
+    from repro_torch.configs import REGISTRY
+
+    cfg = dataclasses.replace(REGISTRY[LM_FULL_ARCH].model,
+                              num_layers=LM_FULL_LAYERS)
+    parts = [("cli", lambda: lm_cli_runs(K, gate)),
+             ("full width", lambda: lm_full_runs(K, gate, cfg)),
+             ("kernels", lambda: lm_kernel_times(cfg, gate))]
+    if not gate:
+        parts.append(("seam one block", lambda: lm_seam_probe(cfg)))
+    times = {}
+    for name, part in parts:
+        t0 = time.perf_counter()
+        if gate:
+            part()
+        else:       # calibration: every part, whatever failed before
+            import traceback
+            try:
+                part()
+            except Exception:
+                traceback.print_exc(file=sys.stdout)
+        times[name] = round(time.perf_counter() - t0, 1)
+    print("lm phase seconds " + json.dumps(times))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -2512,7 +3077,9 @@ def main():
         "batched": lambda: run_batched_phase(K),
         "benches": lambda: run_bench_phase(K),
         "determinism": run_determinism_phase,
-        "planner": lambda: run_planner_phase(K)}
+        "planner": lambda: run_planner_phase(K),
+        "lm": lambda: run_lm_phase(K)}
+    phases["lm_calibrate"] = lambda: run_lm_phase(K, gate=False)
     phases["pipeline_calibrate"] = lambda: run_pipeline_phase(
         K, gate=False, controls=(("gossip_mix_many", "x_shift", 1e-4),
                                  ("gossip_mix_many", "x_shift", 1e-3),
@@ -2526,7 +3093,7 @@ def main():
             print(f"phase {name} time: {time.perf_counter() - t0:.1f} s")
         return 0
     for name, phase in phases.items():
-        if name == "pipeline_calibrate":
+        if name in ("pipeline_calibrate", "lm_calibrate"):
             continue
         t0 = time.perf_counter()
         phase()

@@ -51,7 +51,7 @@ from repro_torch.core.rng import Draws, GeneratorDraws
 from repro_torch.core.substrate import (BatchedSubstrate, DenseSubstrate,
                                         NodeSubstrate)
 from repro_torch.core.topology import Topology, fully_connected
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import leaf_order, tree_map
 from repro_torch.optim import Optimizer
 
 Params = Dict[str, torch.Tensor]
@@ -171,9 +171,9 @@ def average_model(params: Params) -> Params:
 
 def consensus_distance(params: Params) -> torch.Tensor:
     """||X (I - J)||_F^2 / N, the local drift of Lemma 1, summed over the
-    leaves in sorted-name order (the reference's leaf order)."""
+    leaves in the reference's leaf order (``tree.leaf_order``)."""
     total, n = 0.0, None
-    for name in sorted(params):
+    for name in leaf_order(params):
         leaf = params[name]
         n = leaf.shape[0]
         mean = leaf.mean(dim=0, keepdim=True)

@@ -477,13 +477,18 @@ class RoundExecutor:
         (cuDNN plans, ``torch.func`` set-up, kernel loads) at this batch
         shape on a copy of ``state``, then run one dispatch at (tau1, tau2)
         on the copy and wait for the device; the caller's state and the
-        dispatch statistics are left as they were."""
-        dummy = _clone_state(state)
+        dispatch statistics are left as they were. The graphs' copy is
+        their own static buffers (``GraphedRounds.buffer_state``), so the
+        warmup of a replaying executor holds no second copy of the state
+        (an LM tree's is gigabytes)."""
         n_dispatch, n_rounds = self.dispatch_count, self.rounds_dispatched
         if self._graph is not None:
             with deterministic_algorithms(self.deterministic):
-                self._graph.prepare(dummy,
+                self._graph.prepare(state,
                                     tree_map(lambda b: b[0, 0], batches))
+            dummy = self._graph.buffer_state(state)
+        else:
+            dummy = _clone_state(state)
         try:
             self.dispatch(dummy, batches, tau1, tau2)
             _sync(_state_device(state))

@@ -24,10 +24,10 @@ before each local step, the round's K1 weight table or confusion matrix,
 node masks and ``tau1``, and each gossip step's RNG key (``KeyedDraws``;
 a dispatch uploads its ``[K, tau2_max]`` keys once). The set of graphs
 does not depend on the schedule, the masks or K, so after ``prepare`` a
-dispatch captures nothing and waits for nothing. A capture warms its step
-up once on a side stream, then captures it into a memory pool shared by
-the graphs of one stream; a replay adds the launches counted during the
-capture to ``kernels.ops.LAUNCHES``.
+dispatch captures nothing and waits for nothing. ``prepare`` warms every
+step up once on a side stream (``warm``), then captures each into a
+memory pool shared by the graphs of one stream; a replay adds the launches
+counted during the capture to ``kernels.ops.LAUNCHES``.
 
 On a CPU state ``capture`` returns the step itself, which runs eagerly
 into the same buffers: the CPU path, the same arithmetic as the card's.
@@ -49,7 +49,7 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import to_device
 from repro_torch.kernels import ops
 
-__all__ = ["capture", "StepRound", "GraphedRounds"]
+__all__ = ["warm", "capture", "StepRound", "GraphedRounds"]
 
 
 class _Eager:
@@ -75,21 +75,28 @@ class _Graph:
             ops.LAUNCHES[k] += n
 
 
-def capture(fn: Callable, device: torch.device, pool=None):
-    """``fn`` (no arguments, or host arguments its graph ignores) as a
-    replayable step on ``device``. On CUDA: one warm call on a side stream
-    (``torch.func`` set-up, cuDNN plans, kernel loads), then one call
-    captured into a CUDA graph in ``pool``; the launches counted during
-    the capture are taken back out of ``ops.LAUNCHES`` and added at each
-    replay. Raises if the capture fails. On the CPU: ``fn`` itself."""
+def warm(fn: Callable, device: torch.device) -> None:
+    """On CUDA, one call of ``fn`` on a side stream, as a capture needs
+    before it (``torch.func`` set-up, cuDNN plans, kernel loads); nothing
+    on the CPU."""
     if device.type != "cuda":
-        return _Eager(fn)
+        return
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(main)
     with torch.cuda.stream(side):
         fn()
     main.wait_stream(side)
+
+
+def capture(fn: Callable, device: torch.device, pool=None):
+    """``fn`` (no arguments, or host arguments its graph ignores), warmed
+    before (``warm``), as a replayable step on ``device``. On CUDA: one
+    call captured into a CUDA graph in ``pool``; the launches counted
+    during the capture are taken back out of ``ops.LAUNCHES`` and added at
+    each replay. Raises if the capture fails. On the CPU: ``fn`` itself."""
+    if device.type != "cuda":
+        return _Eager(fn)
     graph = torch.cuda.CUDAGraph()
     before = dict(ops.LAUNCHES)
     try:
@@ -356,11 +363,25 @@ class GraphedRounds:
                      ("stage", st.stage, side_pool)]
         if self.cfg.tau2 > 0:
             todo.append(("gossip", st.gossip, side_pool))
+        # every step warmed before any is captured: a warm call's working
+        # set (an LM's local step: tens of GB) then never sits beside the
+        # graphs' pool, only one or the other
+        for _, fn, _ in todo:
+            warm(fn, dev)
         replays = {}
         for name, fn, pool in todo:
             replays[name] = capture(fn, dev, pool)
             self.capture_count += 1
         self._replays = replays
+
+    def buffer_state(self, state: DFLState) -> DFLState:
+        """``state`` over the static buffers: a dispatch of it copies
+        nothing in or out, and leaves ``state``'s own tensors alone (the
+        executor's warmup runs on it)."""
+        st = self.steps
+        return state._replace(
+            params=st.params, opt_state=st.opt_state,
+            hat_params=st.hat if st.hat is not None else state.hat_params)
 
     # -- one dispatch --------------------------------------------------------
 

@@ -6,7 +6,7 @@ The reference derives its randomness by folding JAX threefry keys
     comm key  = fold_in(fold_in(rng, round_idx), 1)
     step key  = fold_in(comm key, t)            t = gossip step in the round
     node key  = fold_in(step key, i)            i = node
-    leaf keys = split(node key, n_leaves)       leaves in sorted-name order
+    leaf keys = split(node key, n_leaves)       leaves in tree order
 
 and each compressor draws ``uniform(leaf key, shape)``. A torch generator
 cannot reproduce threefry's bits, so the port asks one object instead::
@@ -41,6 +41,7 @@ from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.tree import leaf_order
 from repro_torch.device import resolve_device, to_device
 
 __all__ = ["Draws", "GeneratorDraws", "KeyedDraws", "ReplayDraws"]
@@ -82,7 +83,8 @@ def _ids(node_ids, num_nodes: int) -> List[int]:
 
 class GeneratorDraws(Draws):
     """Counter-based draws on ``device``: SplitMix64. Element e of node i's
-    row of the leaf whose name has place l in sorted order is the top 24
+    row of the leaf whose name has place l in the reference's leaf order
+    (``tree.leaf_order``; sorted for flat names) is the top 24
     bits of ``mix(k + o_l + GAMMA * (i * 2**32 + e))`` (mod 2**64) times
     2**-24, where k is splitmix64 folded over (seed, round_idx, step), o_l
     = splitmix64(l) and ``mix`` SplitMix64's finalizer (its last xor-shift
@@ -93,9 +95,15 @@ class GeneratorDraws(Draws):
     ``uniform_many`` draws every leaf of a gossip step in 13 elementwise
     int64 ops over one block, whatever the node and leaf counts; the
     counters' fixed part ``o_l + GAMMA * (i * 2**32 + e)`` is built once
-    per (id set, leaves, sizes), the id set's part uploaded then."""
+    per (id set, leaves, sizes), the id set's part uploaded then. A step of
+    more than ``BLOCK_MAX`` elements (an LM tree: 1.65 G for four nodes of
+    Qwen3-1.7B at two layers) is drawn leaf by leaf and chunk by chunk,
+    its counters built on the fly and never cached, with the same bits."""
 
     _KEEP_BASES = 2
+    # elements of a step's draw above which the counters are built chunk by
+    # chunk (``_draw_chunked``) instead of cached as one block
+    BLOCK_MAX = 1 << 26
 
     def __init__(self, seed: int, num_nodes: int, leaves: Iterable[str],
                  device="cuda"):
@@ -103,9 +111,40 @@ class GeneratorDraws(Draws):
         self.num_nodes = int(num_nodes)
         if self.num_nodes > 1 << 31:
             raise ValueError(f"at most 2**31 nodes, got {self.num_nodes}")
-        self.leaves = tuple(sorted(leaves))
+        self.leaves = tuple(leaf_order(leaves))
         self.device = resolve_device(device)
         self._bases: Dict[tuple, torch.Tensor] = {}
+
+    def _rows(self, ids: Optional[bytes],
+              keep: Optional[Dict[tuple, torch.Tensor]] = None
+              ) -> torch.Tensor:
+        """``GAMMA * (i * 2**32)`` for each node i of the id set ``ids``
+        (int64 bytes; None: every node) on the device, as int64; kept in
+        ``keep`` when given, else uploaded anew."""
+        key = ("rows", ids)
+        cache = {} if keep is None else keep
+        if key not in cache:
+            nodes = np.arange(self.num_nodes, dtype=np.int64) if ids is None \
+                else np.frombuffer(ids, np.int64)
+            if nodes.size and not (0 <= nodes.min() <= nodes.max()
+                                   < self.num_nodes):
+                raise ValueError(f"node ids must lie in [0, {self.num_nodes})"
+                                 f", got [{nodes.min()}, {nodes.max()}]")
+            with np.errstate(over="ignore"):       # GAMMA * i * 2**32
+                rows = (nodes.astype(np.uint64) << np.uint64(32)) \
+                    * np.uint64(_GAMMA)
+            cache[key] = to_device(torch.from_numpy(rows.view(np.int64)),
+                                   self.device)
+        return cache[key]
+
+    def _elems(self, leaf: str, begin: int, end: int) -> torch.Tensor:
+        """``o_l + GAMMA * e`` for the elements ``begin .. end - 1`` of the
+        leaf ``leaf``, int64 (wrapping)."""
+        if end > 1 << 32:
+            raise ValueError(f"at most 2**32 draws a row, got {end}")
+        elem = torch.arange(begin, end, dtype=torch.int64, device=self.device)
+        return elem.mul_(_signed(_GAMMA)).add_(_signed(
+            _splitmix(0, self.leaves.index(leaf))))
 
     def _base(self, ids: Optional[bytes], leaves: Tuple[str, ...],
               numels: Tuple[int, ...],
@@ -118,25 +157,9 @@ class GeneratorDraws(Draws):
         key = (ids, leaves, numels)
         cache = self._bases if keep is None else keep
         if key not in cache:
-            nodes = np.arange(self.num_nodes, dtype=np.int64) if ids is None \
-                else np.frombuffer(ids, np.int64)
-            if nodes.size and not (0 <= nodes.min() <= nodes.max()
-                                   < self.num_nodes):
-                raise ValueError(f"node ids must lie in [0, {self.num_nodes})"
-                                 f", got [{nodes.min()}, {nodes.max()}]")
-            with np.errstate(over="ignore"):       # GAMMA * i * 2**32
-                rows = (nodes.astype(np.uint64) << np.uint64(32)) \
-                    * np.uint64(_GAMMA)
-            rows = to_device(torch.from_numpy(rows.view(np.int64)),
-                             self.device)
-            blocks = []
-            for leaf, n in zip(leaves, numels):
-                if n > 1 << 32:
-                    raise ValueError(f"at most 2**32 draws a row, got {n}")
-                elem = torch.arange(n, dtype=torch.int64, device=self.device)
-                elem.mul_(_signed(_GAMMA)).add_(_signed(
-                    _splitmix(0, self.leaves.index(leaf))))
-                blocks.append((rows[:, None] + elem[None, :]).reshape(-1))
+            rows = self._rows(ids, keep)
+            blocks = [(rows[:, None] + self._elems(leaf, 0, n)[None, :])
+                      .reshape(-1) for leaf, n in zip(leaves, numels)]
             while keep is None and len(cache) >= self._KEEP_BASES:
                 cache.pop(next(iter(cache)))
             cache[key] = torch.cat(blocks) if blocks else torch.empty(
@@ -169,22 +192,52 @@ class GeneratorDraws(Draws):
                 ) -> List[torch.Tensor]:
         """``uniform_many``'s blocks under ``key``, a Python int or an int64
         tensor of one element on the seam's device (the same bits either
-        way: one wrapping int64 add); ``keep`` caches the counter bases."""
+        way: one wrapping int64 add); ``keep`` caches the counter bases.
+        A step of more than ``BLOCK_MAX`` elements is drawn chunk by chunk
+        from the same counters (``_draw_chunked``), bitwise the one
+        block."""
         shapes = [tuple(s) for s in shapes]
         numels = tuple(int(np.prod(s, dtype=np.int64)) for s in shapes)
         ids = None if node_ids is None else np.asarray(
             _ids(node_ids, self.num_nodes), np.int64).tobytes()
-        base = self._base(ids, tuple(leaves), numels, keep)
         rows = self.num_nodes if ids is None else len(ids) // 8
-        z = base + key
-        for shift, mult in ((30, _SPLITMIX[1]), (27, _SPLITMIX[2])):
-            z.bitwise_xor_(z.bitwise_right_shift(shift).bitwise_and_(
-                (1 << 64 - shift) - 1))          # a logical shift
-            z.mul_(_signed(mult))
-        u = z.bitwise_right_shift_(40).bitwise_and_((1 << 24) - 1).to(
-            torch.float32).mul_(2.0 ** -24)
+        if rows * sum(numels) > self.BLOCK_MAX:
+            return self._draw_chunked(key, leaves, shapes, numels, ids, rows,
+                                      keep)
+        u = _finish(self._base(ids, tuple(leaves), numels, keep) + key)
         return [block.view(rows, *shape) for block, shape in
                 zip(u.split([rows * n for n in numels]), shapes)]
+
+    def _draw_chunked(self, key, leaves, shapes, numels, ids, rows, keep
+                      ) -> List[torch.Tensor]:
+        """Each leaf drawn into its own f32 output a column chunk at a time,
+        the chunk's counters built on the fly: the int64 temporaries stay
+        near ``BLOCK_MAX`` elements whatever the tree's size, where the one
+        block would hold the whole step's counters (8 bytes an element,
+        cached) and its temporaries."""
+        node_part = self._rows(ids, keep)
+        width = max(1, self.BLOCK_MAX // max(rows, 1))
+        outs = []
+        for leaf, n, shape in zip(leaves, numels, shapes):
+            out = torch.empty((rows, n), dtype=torch.float32,
+                              device=self.device)
+            for c0 in range(0, n, width):
+                c1 = min(n, c0 + width)
+                z = node_part[:, None] + self._elems(leaf, c0, c1)[None, :]
+                out[:, c0:c1] = _finish(z.add_(key))
+            outs.append(out.view(rows, *shape))
+        return outs
+
+
+def _finish(z: torch.Tensor) -> torch.Tensor:
+    """SplitMix64's finalizer (its last xor-shift left out) on the int64
+    counters ``z``, in place, then the top 24 bits as f32 in [0, 1)."""
+    for shift, mult in ((30, _SPLITMIX[1]), (27, _SPLITMIX[2])):
+        z.bitwise_xor_(z.bitwise_right_shift(shift).bitwise_and_(
+            (1 << 64 - shift) - 1))          # a logical shift
+        z.mul_(_signed(mult))
+    return z.bitwise_right_shift_(40).bitwise_and_((1 << 24) - 1).to(
+        torch.float32).mul_(2.0 ** -24)
 
 
 class KeyedDraws(Draws):

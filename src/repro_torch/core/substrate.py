@@ -47,7 +47,7 @@ import torch
 from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.compression import QSGD, Compressor, TopK
 from repro_torch.core.topology import Topology
-from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.core.tree import leaf_order, tree_leaves, tree_map
 from repro_torch.device import to_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.choco_fused import gap
@@ -187,11 +187,13 @@ class NodeSubstrate:
                     x[name].shape) for name in x})
 
     def consensus_sq(self, params: Params) -> torch.Tensor:
-        """||X (I - J)||_F^2 / N (Lemma 1's drift), in f32."""
+        """||X (I - J)||_F^2 / N (Lemma 1's drift), in f32, the per-node
+        sums added leaf by leaf in the reference's leaf order
+        (``tree.leaf_order``), whatever the dict's order."""
         mean = self.mean_tree(params)
         dev = None
-        for name, leaf in params.items():
-            d = (leaf.float() - mean[name].float()) ** 2
+        for name in leaf_order(params):
+            d = (params[name].float() - mean[name].float()) ** 2
             per_node = self.sum_per_node(d)
             dev = per_node if dev is None else dev + per_node
         return self.mean_over_nodes(dev)

@@ -37,12 +37,27 @@ def move(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,
     return x.float() + gamma * (my.float() - y.float())
 
 
+# elements of a leaf above which ``gap`` works a column chunk at a time
+GAP_CHUNK = 1 << 26
+
+
 def gap(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,
         gamma: float) -> torch.Tensor:
     """The compressed gap (x + gamma (my - y)) - y, computed in f32 and
     materialised in the leaf dtype: the tensor K4 thresholds and K3 masks,
-    and whose norm K2 takes (the reference's ``ops._fused_diff``)."""
-    return (move(x, y, my, gamma) - y.float()).to(x.dtype)
+    and whose norm K2 takes (the reference's ``ops._fused_diff``). A leaf
+    ``[rows, cols]`` of more than ``GAP_CHUNK`` elements (an LM's
+    embedding: 1.24 G for four nodes) is done in column chunks, so its f32
+    temporaries stay near ``GAP_CHUNK`` elements; every element is the
+    same arithmetic either way."""
+    if x.numel() <= GAP_CHUNK:
+        return (move(x, y, my, gamma) - y.float()).to(x.dtype)
+    out = torch.empty_like(x)
+    width = max(1, GAP_CHUNK // x.shape[0])
+    for c0 in range(0, x.shape[1], width):
+        cols = slice(c0, c0 + width)
+        out[:, cols] = gap(x[:, cols], y[:, cols], my[:, cols], gamma)
+    return out
 
 
 def plain(x, y, my, d, thresh, gamma: float):

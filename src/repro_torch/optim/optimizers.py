@@ -130,9 +130,11 @@ def adamw(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.95,
 
 def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
     """Scale one node's gradient tree to global norm at most ``max_norm``;
-    the squares are summed leaf by leaf in sorted-name order, as the
-    reference flattens a dict."""
+    the squares are summed leaf by leaf in the reference's leaf order
+    (``core.tree.leaf_order``)."""
+    from repro_torch.core.tree import leaf_order
+
     gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[name].float()))
-                           for name in sorted(grads)))
+                           for name in leaf_order(grads)))
     scale = torch.clamp(max_norm / (gnorm + 1e-12), max=1.0)
     return {name: g * scale for name, g in grads.items()}

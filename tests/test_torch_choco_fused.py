@@ -246,3 +246,17 @@ def test_wrapper_rejects_bad_operands():
         ops.choco_topk(x, x, x, torch.zeros(2, 9), t, GAMMA)
     with pytest.raises(ValueError, match="thresh"):
         ops.choco_topk(x, x, x, x, torch.zeros(3), GAMMA)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gap_in_column_chunks_is_bitwise_the_whole(monkeypatch, dtype):
+    """A leaf above ``GAP_CHUNK`` elements takes its gap a column chunk at
+    a time (bounded f32 temporaries): bitwise the one-pass gap, ragged last
+    chunk included."""
+    gen = torch.Generator().manual_seed(4)
+    x, y, my = (torch.randn(4, 1001, generator=gen).to(dtype)
+                for _ in range(3))
+    want = choco_fused.gap(x, y, my, 0.6)
+    monkeypatch.setattr(choco_fused, "GAP_CHUNK", 4 * 64)
+    got = choco_fused.gap(x, y, my, 0.6)
+    assert got.dtype == dtype and torch.equal(got, want)

@@ -13,7 +13,9 @@ from repro_torch import resolve_device
 from repro_torch.convert import params_from_jax
 from repro_torch.core.rng import GeneratorDraws, ReplayDraws
 from repro_torch.kernels import build
-from repro_torch.launch import cnn_run
+from repro_torch.configs import REGISTRY
+from repro_torch.launch import cnn_run, train
+from repro_torch.models import init_params
 from repro_torch.models.cnn import init_cnn
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -56,8 +58,18 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.benchmarks.bench_trajectory",
             "repro_torch.examples.plan_schedule",
             "repro_torch.examples.compression_sweep",
-            "repro_torch.launch.planned_run"} <= set(mods)
-    bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+            "repro_torch.launch.planned_run",
+            "repro_torch.models.common", "repro_torch.models.policy",
+            "repro_torch.models.attention", "repro_torch.models.moe",
+            "repro_torch.models.mamba", "repro_torch.models.transformer",
+            "repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.qwen3_1_7b",
+            "repro_torch.configs.jamba_1_5_large_398b",
+            "repro_torch.data.lm", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.io", "repro_torch.launch.steps",
+            "repro_torch.launch.train"} <= set(mods)
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro",
+                                                  "ml_dtypes")]
     assert bad == []
 
 
@@ -76,6 +88,11 @@ def test_default_device_raises_without_cuda():
         GeneratorDraws(0, 4, ["w"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ReplayDraws({})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(REGISTRY["qwen3-1.7b"].reduced,
+                    torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "qwen3-1.7b", "--rounds", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

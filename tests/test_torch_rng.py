@@ -187,3 +187,28 @@ def test_a_step_drawn_at_once_is_bitwise_its_leaves_one_by_one():
                           (0, 0, "b"): np.zeros((4, 3))}, device="cpu")
     a, b = replay.uniform_many(0, 0, ["a", "b"], [(2,), (3,)], [1, 3])
     assert a.shape == (2, 2) and b.shape == (2, 3)
+
+
+@pytest.mark.parametrize("block_max", [1, 37, 1000])
+def test_a_large_step_drawn_in_chunks_is_bitwise_the_one_block(
+        monkeypatch, block_max):
+    """A step of more than ``BLOCK_MAX`` elements (an LM tree) is drawn leaf
+    by leaf and chunk by chunk from the same counters: bitwise the one
+    cached block, for every node, for an id set, and under a device key
+    (``KeyedDraws``), with path-keyed leaves in the reference's order."""
+    names = ["embed", "blocks/10/w", "blocks/2/w", "final_norm"]
+    shapes = [(7, 5), (13,), (1000,), (3, 11)]
+    g = GeneratorDraws(5, 4, names, "cpu")
+    assert g.leaves == ("blocks/2/w", "blocks/10/w", "embed", "final_norm")
+    want = g.uniform_many(3, 1, names, shapes)
+    want_ids = g.uniform_many(3, 1, names, shapes, node_ids=[3, 0])
+    cached = list(g._bases)
+    monkeypatch.setattr(GeneratorDraws, "BLOCK_MAX", block_max)
+    got = g.uniform_many(3, 1, names, shapes)
+    got_ids = g.uniform_many(3, 1, names, shapes, node_ids=[3, 0])
+    keyed = g.keyed(torch.tensor(g.step_key(3, 1))).uniform_many(
+        0, 0, names, shapes)
+    for a, b, c, d, e in zip(want, got, keyed, want_ids, got_ids):
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(d, e)
+    assert list(g._bases) == cached     # the chunked path caches nothing
