@@ -123,7 +123,28 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``--only lm_calibrate`` prints (a)'s readings and controls
    ungated and (d) the full-width QSGD run with the RNG seam drawing one
    cached block (the path before large trees were drawn in chunks).
-12. Print the kernels line, the build and total wall times, the card's
+12. Serving (``run_serve_phase``, ``repro_torch.serving``): (a) every
+   architecture's reduced config in f32, prefill and ``SERVE_STEPS``
+   greedy decode steps replayed from the engine's CUDA graph bitwise the
+   same steps run eagerly, one capture; the card's logits against the
+   port's CPU run fed the same tokens (``SERVE_CPU_RTOL``, which a control
+   with ``final_norm`` shifted must break). (b) Qwen3-1.7B and (c)
+   Gemma3-4B at their published widths and depth (``SERVE_FULL``: 8
+   prompts of one bucket, 64 new tokens; Gemma3's prompts of 1536 outrun
+   its window of 1024, so its ring buffers wrap): a second flight of the
+   same signature captures nothing, stops the request given an EOS, and
+   makes one synchronizing call a decode step plus the first token's
+   read; graphed steps bitwise eager; every cache holds exactly the
+   positions it should; prefill and the decode steps against ``forward``
+   (``SERVE_FULL_RTOL``, its control beyond it); prefill ms and tokens/s
+   (the prompt tokens sent, not the bucket's padding),
+   decode ms a step (graph replay, CUDA events) and tokens/s against the
+   bound (weights plus the KV read at ``HBM_BYTES_PER_S``), the busy share
+   of a profiled flight and the peak memory. (d) The serve CLI's body on
+   Qwen3-1.7B at full width, depth cut to ``LM_FULL_LAYERS``, and the
+   serving example on the reduced Gemma3, one capture each. ``--only serve_calibrate``
+   prints the readings and several controls ungated.
+13. Print the kernels line, the build and total wall times, the card's
    name and power limit, and the final ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when ``torch.cuda.is_available()`` is
@@ -135,8 +156,8 @@ seam check, the readings behind the whole-run limits of phases 5, 6 and
 controls, ``cifar_sensitivity``, phase 6 with controls), holding none of
 them, and exits. ``python3 chip_smoke.py --only NAME ...`` runs the named
 phases after the build (``graphs``, ``pipeline``, ``pipeline_calibrate``:
-phase 4c's readings and controls ungated, ``lm``, ``lm_calibrate``, ...)
-and prints no result.
+phase 4c's readings and controls ungated, ``lm``, ``lm_calibrate``,
+``serve``, ``serve_calibrate``, ...) and prints no result.
 """
 import dataclasses
 import json
@@ -3013,6 +3034,413 @@ def run_lm_phase(K, gate=True):
     print("lm phase seconds " + json.dumps(times))
 
 
+SERVE_STEPS = 8             # decode steps held graphed vs eager
+# (a) the reduced archs in f32, card vs CPU under teacher forcing: the
+# largest relative logit difference over prefill and the 8 steps. The
+# control adds SERVE_CONTROL to ``final_norm`` on the card only (every
+# logit scaled by 1 + delta), which must break the limit. Readings
+# (``--only serve_calibrate``, PERF.md §6): sound 7.8e-7 to 2.04e-6
+# (granite's MoE), control 1.04e-5 to 1.08e-5.
+SERVE_CPU_RTOL = 5e-6
+SERVE_CONTROL = 1e-5
+SERVE_CONTROLS = (1e-6, 1e-5, 1e-4)
+# (b), (c) full width in bf16: prefill and the 8 eager decode steps
+# against ``forward`` over the prompt and the same tokens, relative to the
+# largest logit; the control adds SERVE_FULL_CONTROL to ``final_norm``.
+# Readings: sound 6.2e-3 to 7.8e-3 (about one bf16 ulp of the largest
+# logit), control 1e-2 -> 1.39e-2 to 1.55e-2, 5e-2 -> 5.6e-2.
+SERVE_FULL_RTOL = 1.2e-2
+SERVE_FULL_CONTROL = 2e-2
+SERVE_FULL_CONTROLS = (1e-2, 2e-2, 5e-2)
+SERVE_FULL = {
+    # 8 prompts of 900-1024 tokens: one bucket of 1024
+    "qwen3-1.7b": {"max_batch": 8, "bucket": 128, "max_len": 1152,
+                   "prompt": (900, 1024), "gen": 64},
+    # 8 prompts of 1536, past the local layers' window of 1024
+    "gemma3-4b": {"max_batch": 8, "bucket": 128, "max_len": 1664,
+                  "prompt": (1536, 1536), "gen": 64},
+}
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b|, in f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def with_final_norm(params, delta):
+    """``params`` with ``final_norm`` shifted by ``delta`` (every logit
+    scaled by 1 + delta): the serve phase's control."""
+    return dict(params, final_norm=params["final_norm"] + delta)
+
+
+def teacher_forced(params, cfg, batch, max_len, toks):
+    """Eager prefill, then one decode step per token of ``toks`` (each
+    [B, 1]); the logits of prefill and of each step."""
+    from repro_torch.models import decode_step, prefill
+
+    with torch.no_grad():
+        logits, state = prefill(params, batch, cfg, max_len)
+        out = [logits]
+        for t in toks:
+            logits, state = decode_step(params, state, t, cfg)
+            out.append(logits)
+    return out
+
+
+def graphed_and_eager(engine, params, cfg, batch, steps=SERVE_STEPS):
+    """One prefill of ``batch``; then ``steps`` decode steps through the
+    engine's decode step (a replayed graph on the card) and the same steps
+    eagerly (``decode_step``, greedy) from the prefill's own state. Returns
+    the prefill logits, the graphed and the eager (logits, token) pairs,
+    the token each step consumed, the decode step and the eager state."""
+    from repro_torch.models import decode_step, prefill
+
+    with torch.no_grad():
+        logits, state = prefill(params, batch, cfg, engine.max_len)
+        dec = engine.decoder(logits, state)
+        fed = [dec.tok.clone()]
+        graphed = []
+        for _ in range(steps):
+            dec.step()
+            graphed.append((dec.logits.clone(), dec.tok.clone()))
+            fed.append(dec.tok.clone())
+        tok, eager = engine.greedy(logits), []
+        for _ in range(steps):
+            lg, state = decode_step(params, state, tok, cfg)
+            tok = engine.greedy(lg)
+            eager.append((lg, tok))
+    return logits, graphed, eager, fed[:steps], dec, state
+
+
+def same_steps(graphed, eager):
+    return all(same_bits(a, c) and torch.equal(b, d)
+               for (a, b), (c, d) in zip(graphed, eager))
+
+
+def serve_reduced_runs(gate):
+    """(a) Every architecture's reduced config in f32 on the card: prefill
+    of 2 prompts of 16 tokens, ``SERVE_STEPS`` greedy decode steps replayed
+    from the engine's graph (one capture) bitwise the same steps run
+    eagerly, finite logits; the card's logits against the port's CPU run
+    fed the same tokens, within ``SERVE_CPU_RTOL``, and the control
+    (``SERVE_CONTROL``) beyond it."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    for arch in sorted(REGISTRY):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(REGISTRY[arch].reduced, dtype=torch.float32)
+        host, _ = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        params = {k: v.cuda() for k, v in host.items()}
+        rng = np.random.default_rng(0)
+        cpu_batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 16)).astype(np.int32))}
+        if cfg.has_memory_input:
+            cpu_batch["memory"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.memory_tokens or 16, cfg.memory_dim or cfg.d_model)
+            ).astype(np.float32))
+        batch = {k: v.cuda() for k, v in cpu_batch.items()}
+        engine = ServingEngine(cfg, params, max_batch=2,
+                               max_len=16 + SERVE_STEPS, device="cuda")
+        logits, graphed, eager, fed, _, _ = graphed_and_eager(
+            engine, params, cfg, batch)
+        card = [logits] + [lg for lg, _ in graphed]
+        cpu = teacher_forced(host, cfg, cpu_batch, engine.max_len,
+                             [t.cpu() for t in fed])
+        controls = {}
+        for delta in ((SERVE_CONTROL,) if gate else SERVE_CONTROLS):
+            ctl = teacher_forced(with_final_norm(params, delta), cfg, batch,
+                                 engine.max_len, fed)
+            controls[delta] = max(rel_err(a, b.cuda())
+                                  for a, b in zip(ctl, cpu))
+        line = {"arch": arch, "captures": engine.capture_count,
+                "graphed_bitwise_eager": same_steps(graphed, eager),
+                "finite": all(bool(torch.isfinite(t).all()) for t in card),
+                "card_vs_cpu": max(rel_err(a, b.cuda())
+                                   for a, b in zip(card, cpu)),
+                "control_vs_cpu": controls, "rtol": SERVE_CPU_RTOL,
+                "tokens": [t[:, 0].tolist() for t in fed],
+                "wall_s": time.perf_counter() - t0}
+        print("serve reduced " + json.dumps(line))
+        checks = {"one capture": line["captures"] == 1,
+                  "graphed bitwise eager": line["graphed_bitwise_eager"],
+                  "finite logits": line["finite"],
+                  "card vs CPU": line["card_vs_cpu"] <= SERVE_CPU_RTOL,
+                  "control breaks the limit":
+                      controls[SERVE_CONTROL] > SERVE_CPU_RTOL}
+        failed = [k for k, ok in checks.items() if not ok]
+        if gate:
+            require(not failed, f"serve reduced {arch}: {failed}")
+        elif failed:
+            print(f"serve reduced {arch}: NOT MET {failed}")
+
+
+def kv_bytes_read(cfg, batch, position):
+    """Bytes of K and V a decode step at ``position`` must read: the
+    filled slots of every attention layer's cache (a window's ring buffer
+    holds at most its size)."""
+    elt = torch.empty((), dtype=cfg.dtype).element_size()
+    total = 0
+    for spec in cfg.layer_specs():
+        if spec.mixer == "attn":
+            slots = min(spec.window, position) if spec.window else position
+            total += 2 * batch * slots * cfg.num_kv_heads * cfg.head_dim * elt
+    return total
+
+
+def caches_hold_last_positions(cfg, state):
+    """Every attention cache of ``state`` holds exactly the positions it
+    should at ``state.position``: all of them up to it, or a window's
+    ring buffer the last ``size`` (wrapped at ``p % size``)."""
+    n = int(state.position)
+    for spec, cache in zip(cfg.pattern, state.caches):
+        if spec.mixer != "attn":
+            continue
+        pos = cache["pos"]                      # [num_periods, size]
+        size = pos.shape[1]
+        first = max(n - size, 0)
+        want = torch.full((size,), -1, dtype=torch.int32, device=pos.device)
+        kept = torch.arange(first, n, dtype=torch.int32, device=pos.device)
+        want[(kept % size).long() if spec.window else kept.long()] = kept
+        if not bool((pos == want).all()):
+            return False
+    return True
+
+
+def serve_full(arch, gate, cfg=None, spec=None):
+    """(b) / (c) ``arch`` at its published widths and depth (``cfg``, for a
+    rehearsal, and ``spec`` override ``REGISTRY[arch].model`` and
+    ``SERVE_FULL[arch]``): random weights from a seed, a ``ServingEngine``
+    over 8 prompts of one bucket, 64 new tokens each. Flight 1 captures
+    the decode graph; flight 2 (the same signature, one request given as
+    EOS the flight-1 token whose first appearance came latest) captures
+    nothing, stops that request there, repeats every other completion
+    and makes one synchronizing
+    call per decode step plus the first token's read; flight 3 is
+    profiled (busy share over flight 4's wall). Then on the flight's
+    batch: prefill timed, ``SERVE_STEPS`` graphed decode steps bitwise
+    eager, prefill's and the eager steps' logits against ``forward`` over
+    the prompt and the same tokens (``SERVE_FULL_RTOL``; the control
+    ``SERVE_FULL_CONTROL`` must break it), and one replayed step timed
+    between CUDA events against its bound (weight bytes plus the KV bytes
+    read, at ``HBM_BYTES_PER_S``)."""
+    import gc
+
+    from repro_torch.benchmarks.bench_round_overhead import syncs_in_dispatch
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import forward, init_params, prefill
+    from repro_torch.models.transformer import _unembed
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = cfg or REGISTRY[arch].model
+    spec = spec or SERVE_FULL[arch]
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            "cuda")
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    rng = np.random.default_rng(1)
+    lo, hi = spec["prompt"]
+    b, gen = spec["max_batch"], spec["gen"]
+    lens = [hi] + rng.integers(lo, hi + 1, b - 1).tolist()
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    engine = ServingEngine(cfg, params, max_batch=b, bucket=spec["bucket"],
+                           max_len=spec["max_len"], device="cuda")
+
+    def submit(eos_uid=-1, eos=-1):
+        reqs = [Request(uid=i, tokens=p, max_new_tokens=gen,
+                        eos_id=eos if i == eos_uid else -1)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        return reqs
+
+    line = {"arch": arch, "params_b": sum(t.numel() for t in
+                                          params.values()) / 1e9,
+            "weight_gb": weight_bytes / 1e9, "batch": b,
+            "prompt_lens": lens, "gen": gen, "max_len": engine.max_len}
+    reqs = submit()
+    t1 = time.perf_counter()
+    first = engine.run_until_drained()
+    line["flight1_s"] = time.perf_counter() - t1
+    captures = engine.capture_count
+    # the EOS: the token whose first appearance in one completion comes
+    # latest (random weights repeat a few tokens)
+    stop, eos_uid, eos = max(
+        (i + 1, uid, t) for uid, c in first.items()
+        for i, t in enumerate(c.tokens[:gen - 1]) if c.tokens.index(t) == i)
+    submit(eos_uid, eos)
+    steps0 = engine.decode_steps
+    second, syncs = syncs_in_dispatch(engine.run_until_drained)
+    steps = engine.decode_steps - steps0
+    line.update({"captures_flight1": captures,
+                 "captures_flight2": engine.capture_count - captures,
+                 "eos_uid": eos_uid, "eos_stop": stop,
+                 "decode_steps_flight2": steps,
+                 "syncs_flight2": len(syncs), "sync_sites": syncs[:3]})
+    same_rest = all(second[i].tokens == first[i].tokens[
+        :stop if i == eos_uid else gen] for i in range(b))
+    submit()
+    busy, kernels = device_busy_ms(engine.run_until_drained)
+    submit()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    engine.run_until_drained()
+    wall = (time.perf_counter() - t1) * 1e3
+    line.update({"flight_ms": wall, "busy_ms": busy,
+                 "busy_share": busy / wall,
+                 "top_kernels_ms_per_flight": top_kernels(kernels, 1, n=6,
+                                                          width=80)})
+    del kernels
+
+    batch = engine.flight_batch(reqs)
+    plen = batch["tokens"].shape[1]
+    prefill_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            out = prefill(params, batch, cfg, engine.max_len)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t1) * 1e3)
+        del out
+    # the rate counts the prompt tokens sent, not the bucket's left padding
+    sent = sum(lens)
+    line.update({"prompt_tokens": sent, "padded_tokens": b * plen,
+                 "prefill_ms": prefill_ms,
+                 "prefill_tok_s": sent / (min(prefill_ms) / 1e3)})
+    logits, graphed, eager, fed, dec, state = graphed_and_eager(
+        engine, params, cfg, batch)
+    line["graphed_bitwise_eager"] = same_steps(graphed, eager)
+    line["caches_hold_last_positions"] = caches_hold_last_positions(
+        cfg, state)
+    del state
+    step_ms = replay_ms(dec.step, reps=20)
+    step_busy, kernels = device_busy_ms(lambda: [dec.step()
+                                                 for _ in range(4)])
+    line.update({"step_busy_ms": step_busy / 4,
+                 "step_top_kernels_ms": top_kernels(kernels, 4, n=8,
+                                                    width=80)})
+    del kernels
+    position = plen + SERVE_STEPS + 1
+    kv = kv_bytes_read(cfg, b, position)
+    line.update({"decode_ms_per_step": step_ms,
+                 "decode_tok_s": b / (step_ms / 1e3),
+                 "kv_gb_read": kv / 1e9,
+                 "bound_ms": (weight_bytes + kv) / HBM_BYTES_PER_S * 1e3})
+    line["bound_share"] = line["bound_ms"] / step_ms
+    got = [logits] + [lg for lg, _ in eager]
+    del graphed, dec
+    with torch.no_grad():
+        h, _ = forward(params, torch.cat([batch["tokens"]] + fed, 1), cfg)
+        ref = [_unembed(params, h[:, plen - 1 + k], cfg)
+               for k in range(SERVE_STEPS + 1)]
+        del h
+    controls = {}
+    for delta in ((SERVE_FULL_CONTROL,) if gate else SERVE_FULL_CONTROLS):
+        ctl = teacher_forced(with_final_norm(params, delta), cfg, batch,
+                             engine.max_len, fed)
+        controls[delta] = max(rel_err(a, r) for a, r in zip(ctl, ref))
+        del ctl
+    line.update({
+        "vs_forward": [rel_err(a, r) for a, r in zip(got, ref)],
+        "control_vs_forward": controls, "rtol": SERVE_FULL_RTOL,
+        "finite": all(bool(torch.isfinite(t).all()) for t in got),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "wall_s": time.perf_counter() - t0})
+    print(f"serve full {arch} " + json.dumps(line))
+    checks = {
+        "one capture in flight 1": captures == 1,
+        "no capture in flight 2": line["captures_flight2"] == 0,
+        "EOS stops its request early":
+            len(second[eos_uid].tokens) == stop < gen,
+        "flight 2 repeats flight 1": same_rest,
+        "one sync per decode step and the first token's":
+            line["syncs_flight2"] == steps + 1,
+        "graphed bitwise eager": line["graphed_bitwise_eager"],
+        "caches hold the last positions":
+            line["caches_hold_last_positions"],
+        "finite logits": line["finite"],
+        "prefill and decode vs forward":
+            max(line["vs_forward"]) <= SERVE_FULL_RTOL,
+        "control breaks the limit":
+            controls[SERVE_FULL_CONTROL] > SERVE_FULL_RTOL}
+    failed = [k for k, ok in checks.items() if not ok]
+    if gate:
+        require(not failed, f"serve full {arch}: {failed}")
+    elif failed:
+        print(f"serve full {arch}: NOT MET {failed}")
+    del params, engine, ref, got, eager, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_cli_runs(cfg=None):
+    """(d) The serve CLI's body (``launch.serve.run``) on the card with
+    Qwen3-1.7B at its published widths, its depth cut to
+    ``LM_FULL_LAYERS`` (``cfg`` overrides it, for a rehearsal; (b) already
+    serves the full depth), 8 prompts of 1024, 16 tokens, and the serving
+    example (``examples.serve_decode``) on the reduced Gemma3: one
+    capture each, finite logits, every token in the vocabulary."""
+    import gc
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.examples import serve_decode
+    from repro_torch.launch import serve
+
+    cfg = cfg or dataclasses.replace(REGISTRY["qwen3-1.7b"].model,
+                                     num_layers=LM_FULL_LAYERS)
+    for label, vocab, call in (
+            ("serve.run " + cfg.name, cfg.vocab_size, lambda: serve.run(
+                serve.parse_args(["--arch", "qwen3-1.7b", "--batch", "8",
+                                  "--prompt-len", "1024", "--gen", "16",
+                                  "--device", "cuda"]), cfg)),
+            ("serve_decode gemma3-4b", REGISTRY["gemma3-4b"].reduced
+             .vocab_size, lambda: serve_decode.main(["--device", "cuda"]))):
+        rec = call()
+        toks = rec["tokens"]
+        line = {"run": label, "tokens_shape": list(toks.shape),
+                "captures": rec["capture_count"],
+                "prefill_s": rec["prefill_s"], "capture_s": rec["capture_s"],
+                "decode_s": rec["decode_s"]}
+        print("serve cli " + json.dumps(line))
+        require(rec["capture_count"] == 1
+                and bool(torch.isfinite(rec["logits"].float()).all())
+                and int(toks.min()) >= 0 and int(toks.max()) < vocab,
+                f"serve cli {label}: {line}")
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def run_serve_phase(gate=True):
+    """Phase 12, serving (``repro_torch.serving``): (a)
+    ``serve_reduced_runs``, (b) ``serve_full`` on Qwen3-1.7B, (c) on
+    Gemma3-4B, (d) ``serve_cli_runs``. ``gate=False`` (``--only
+    serve_calibrate``) prints the readings and the controls and holds none
+    of the limits."""
+    parts = [("reduced", lambda: serve_reduced_runs(gate))] + [
+        (arch, lambda arch=arch: serve_full(arch, gate))
+        for arch in SERVE_FULL] + [("cli", serve_cli_runs)]
+    times = {}
+    for name, part in parts:
+        t0 = time.perf_counter()
+        if gate:
+            part()
+        else:       # calibration: every part, whatever failed before
+            import traceback
+            try:
+                part()
+            except Exception:
+                traceback.print_exc(file=sys.stdout)
+        times[name] = round(time.perf_counter() - t0, 1)
+    print("serve phase seconds " + json.dumps(times))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -3078,8 +3506,10 @@ def main():
         "benches": lambda: run_bench_phase(K),
         "determinism": run_determinism_phase,
         "planner": lambda: run_planner_phase(K),
-        "lm": lambda: run_lm_phase(K)}
+        "lm": lambda: run_lm_phase(K),
+        "serve": run_serve_phase}
     phases["lm_calibrate"] = lambda: run_lm_phase(K, gate=False)
+    phases["serve_calibrate"] = lambda: run_serve_phase(gate=False)
     phases["pipeline_calibrate"] = lambda: run_pipeline_phase(
         K, gate=False, controls=(("gossip_mix_many", "x_shift", 1e-4),
                                  ("gossip_mix_many", "x_shift", 1e-3),
@@ -3093,7 +3523,7 @@ def main():
             print(f"phase {name} time: {time.perf_counter() - t0:.1f} s")
         return 0
     for name, phase in phases.items():
-        if name in ("pipeline_calibrate", "lm_calibrate"):
+        if name in ("pipeline_calibrate", "lm_calibrate", "serve_calibrate"):
             continue
         t0 = time.perf_counter()
         phase()

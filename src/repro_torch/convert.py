@@ -1,11 +1,14 @@
-"""Parameters of the JAX reference, given as numpy arrays, as the port's.
+"""Parameters and decode states of the JAX reference, given as numpy
+arrays, as the port's.
 
 Both packages keep the same layout (HWIO conv kernels, ``[fin, fout]``
 dense weights, an optional leading node axis), so the conversion copies
 bytes and changes no axis; the same seed's weights then drive both. A
 nested reference tree (the LM's dicts and lists of stacked blocks) becomes
 the port's flat dict keyed by the joined tree path
-(``checkpoint/io.py:_key_of``), in the reference's leaf order.
+(``checkpoint/io.py:_key_of``), in the reference's leaf order. A
+reference ``DecodeState`` becomes the port's ``models.DecodeState``, leaf
+for leaf.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import flatten
+from repro_torch.models.common import ModelConfig, flatten
+from repro_torch.models.transformer import DecodeState
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -36,3 +40,20 @@ def params_from_jax(tree: Any, device="cuda") -> Dict[str, torch.Tensor]:
     else:
         items = flatten(tree)
     return {name: _to_tensor(a).to(dev) for name, a in items}
+
+
+def decode_state_from_jax(state: Any, cfg: ModelConfig,
+                          device="cuda") -> DecodeState:
+    """The reference's ``DecodeState`` (``caches``: per period position a
+    dict of leaves stacked over periods; ``memory``; the 0-d ``position``;
+    numpy leaves) as the port's on ``device``, bit for bit."""
+    dev = resolve_device(device)
+    if len(state.caches) != len(cfg.pattern):
+        raise ValueError(f"{cfg.name}: {len(state.caches)} cache positions "
+                         f"for a period of {len(cfg.pattern)}")
+    caches = tuple({n: _to_tensor(a).to(dev) for n, a in c.items()}
+                   for c in state.caches)
+    memory = (None if state.memory is None
+              else _to_tensor(state.memory).to(dev))
+    position = _to_tensor(np.asarray(state.position, np.int32)).to(dev)
+    return DecodeState(caches=caches, memory=memory, position=position)

@@ -1,6 +1,6 @@
 """The paper's CNNs (``models.cnn``) and the LM model zoo: one generic
-stack, six architecture families (the reference's exports that the port
-has; the decode path waits for serving, ROADMAP.md item 8)."""
+stack, six architecture families, with the reference's exports (training,
+prefill and KV-cache / SSM-state decode)."""
 from repro_torch.models.common import (
     Annotated,
     LayerSpec,
@@ -12,10 +12,19 @@ from repro_torch.models.common import (
     split_annotations,
     swiglu,
 )
-from repro_torch.models.transformer import forward, init_params, train_loss
+from repro_torch.models.transformer import (
+    DecodeState,
+    decode_step,
+    forward,
+    init_decode_state,
+    init_params,
+    prefill,
+    train_loss,
+)
 
 __all__ = [
     "Annotated", "LayerSpec", "ModelConfig", "ParamFactory", "pad_vocab",
     "rms_norm", "rope", "split_annotations", "swiglu",
-    "forward", "init_params", "train_loss",
+    "DecodeState", "decode_step", "forward", "init_decode_state",
+    "init_params", "prefill", "train_loss",
 ]

@@ -1,5 +1,6 @@
-"""GQA attention, the training path: chunked (flash-style) attention with
-sliding windows, qk-norm, RoPE and cross-attention.
+"""GQA attention: chunked (flash-style) training / prefill path and the
+KV-cache decode path, with sliding windows, qk-norm, RoPE and
+cross-attention.
 
 Ported from ``repro.models.attention``. The reference writes attention in
 plain ``jnp``, outside any Pallas kernel, and so does the port in plain
@@ -7,13 +8,21 @@ torch ops. The chunked path never materializes the full [S, T] score
 matrix: it loops over query chunks and, inside each, over key/value chunks
 with an online softmax. Scores and the softmax-weighted sum are taken in
 f32 from the model-dtype operands, as the reference's
-``preferred_element_type=float32`` does. The decode path (KV cache,
-``prefill_attention``, ``decode_attention``) waits for serving (ROADMAP.md
-item 8).
+``preferred_element_type=float32`` does.
+
+The decode path keeps the reference's cache, ``{"k", "v": [B, size, KVH,
+hd], "pos": [size] int32}`` with ``pos = -1`` for an empty slot, and a
+sliding-window layer's ring buffer at ``slot(p) = p % size``.
+``decode_attention`` writes the new token's k, v and position into the
+cache's own tensors (``index_copy_`` at a slot computed on the device from
+the 0-d position tensor), so a decode step reads nothing back to the host
+and can be captured in a CUDA graph; the reference returns a new cache.
+A full-attention layer's slot is clamped to the cache, as the reference's
+``dynamic_update_slice`` clamps its start index.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -23,6 +32,7 @@ from repro_torch.models.common import (LayerSpec, ModelConfig, ParamFactory,
 NEG_INF = -1e9
 
 __all__ = ["attn_params", "chunked_attention", "self_attention",
+           "init_kv_cache", "prefill_attention", "decode_attention",
            "cross_attention"]
 
 
@@ -169,6 +179,84 @@ def self_attention(
         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk,
         checkpoint=checkpoint)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def init_kv_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                  max_len: int, device="cuda") -> Dict[str, torch.Tensor]:
+    """An empty cache of one layer: ``size = min(window, max_len)`` slots
+    for a sliding-window layer, else ``max_len``; k and v zeros in the
+    model dtype, every ``pos`` -1."""
+    size = min(spec.window, max_len) if spec.window else max_len
+    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "pos": torch.full((size,), -1, dtype=torch.int32, device=device)}
+
+
+def prefill_attention(
+    p: Dict,
+    x: torch.Tensor,                # [B, S, D]
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    cache: Dict[str, torch.Tensor],
+    *,
+    positions: torch.Tensor,        # [S]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence attention that also fills the KV cache, writing into
+    ``cache``'s tensors in place. When the prompt outruns the cache the
+    last ``size`` rows are kept, rolled so that position p sits at slot
+    ``p % size``, as decode writes them. Returns (out, cache)."""
+    theta = spec.rope_theta or cfg.rope_theta
+    q = _project_q(p, x, positions, theta)
+    k, v = _project_kv(p, x, positions, theta)
+    out = chunked_attention(
+        q, k, v, q_positions=positions, kv_positions=positions,
+        causal=True, window=spec.window, cap=cfg.logit_softcap,
+        q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+    size, s = cache["k"].shape[1], k.shape[1]
+    if size >= s:
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+        cache["pos"][:s] = positions
+    else:
+        shift = (s - size) % size
+        cache["k"].copy_(torch.roll(k[:, s - size:], shift, dims=1))
+        cache["v"].copy_(torch.roll(v[:, s - size:], shift, dims=1))
+        cache["pos"].copy_(torch.roll(positions[s - size:], shift, dims=0))
+    proj = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return proj, cache
+
+
+def decode_attention(
+    p: Dict,
+    x: torch.Tensor,                # [B, 1, D]
+    cfg: ModelConfig,
+    spec: LayerSpec,
+    cache: Dict[str, torch.Tensor],
+    *,
+    position: torch.Tensor,         # 0-d int32: the token's position
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token against the cache. Writes k, v and ``position`` into
+    ``cache``'s tensors at ``position % size`` (window) or ``position``
+    (clamped to the last slot), then attends over the whole cache; the
+    empty slots (``pos = -1``) are masked. Returns (out, cache)."""
+    theta = spec.rope_theta or cfg.rope_theta
+    pos_arr = position.reshape(1)
+    q = _project_q(p, x, pos_arr, theta)
+    k_new, v_new = _project_kv(p, x, pos_arr, theta)
+    size = cache["k"].shape[1]
+    slot = (pos_arr % size if spec.window
+            else torch.clamp(pos_arr, max=size - 1)).long()
+    cache["k"].index_copy_(1, slot, k_new)
+    cache["v"].index_copy_(1, slot, v_new)
+    cache["pos"].index_copy_(0, slot, pos_arr.to(torch.int32))
+    out = chunked_attention(
+        q, cache["k"], cache["v"], q_positions=pos_arr,
+        kv_positions=cache["pos"], causal=True, window=spec.window,
+        cap=cfg.logit_softcap, q_chunk=1,
+        kv_chunk=size if cfg.decode_unchunked else cfg.attn_kv_chunk)
+    proj = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    return proj, cache
 
 
 def cross_attention(

@@ -1,5 +1,5 @@
-"""Mamba-1 selective-SSM mixer (falcon-mamba / jamba layers), the training
-path.
+"""Mamba-1 selective-SSM mixer (falcon-mamba / jamba layers): the
+full-sequence mixer (training, prefill) and the O(1) recurrent decode step.
 
 Ported from ``repro.models.mamba``. Sequences are processed in chunks of
 ``cfg.ssm_chunk``; within a chunk the recurrence h_t = a_t h_{t-1} + u_t
@@ -10,12 +10,14 @@ another order, so they agree to a tolerance, not bitwise
 (``tests/test_torch_lm_models.py``). The [B, chunk, d_inner, state]
 intermediate lives only inside one chunk. The leaves keep the reference's
 mix of dtypes: ``a_log`` and ``d_skip`` are f32 whatever the model dtype.
-``init_mamba_state`` and ``mamba_decode`` wait for serving (ROADMAP.md
-item 8).
+Decode is the recurrent step on ``{"conv": [B, K-1, di] model dtype,
+"ssm": [B, di, st] f32}``; ``mamba_decode`` writes the new state into
+those tensors (the reference returns a new state), so a decode step can be
+captured in a CUDA graph.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, ParamFactory
 
-__all__ = ["mamba_params", "mamba_mixer"]
+__all__ = ["mamba_params", "mamba_mixer", "init_mamba_state", "mamba_decode"]
 
 
 def mamba_params(f: ParamFactory, cfg: ModelConfig) -> Dict:
@@ -96,9 +98,13 @@ def mamba_mixer(
     cfg: ModelConfig,
     *,
     checkpoint: bool = False,
-) -> torch.Tensor:
-    """Full-sequence mamba block (train). ``checkpoint`` has no effect
-    (no remat under the port's ``vmap(grad)``)."""
+    return_state: bool = False,
+):
+    """Full-sequence mamba block (train / prefill). ``checkpoint`` has no
+    effect (no remat under the port's ``vmap(grad)``). ``return_state``:
+    also the decode state after the sequence, ``{"conv": the last K-1
+    rows of the conv input (left-padded with zeros when S < K-1), "ssm":
+    h_last}``."""
     del checkpoint
     b, s, _ = x.shape
     di, st = cfg.d_inner, cfg.ssm_state
@@ -125,4 +131,49 @@ def mamba_mixer(
     y = torch.cat(ys, dim=1)
 
     y = y * F.silu(z.float()).to(x.dtype)
-    return torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
+    if return_state:
+        k = cfg.ssm_conv
+        conv_state = xin[:, s - (k - 1):] if s >= k - 1 else F.pad(
+            xin, (0, 0, k - 1 - s, 0))
+        return out, {"conv": conv_state, "ssm": h}
+    return out
+
+
+def init_mamba_state(cfg: ModelConfig, batch: int,
+                     device="cuda") -> Dict[str, torch.Tensor]:
+    """Zero decode state: the conv history in the model dtype, the SSM
+    state in f32."""
+    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                                dtype=cfg.dtype, device=device),
+            "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                               dtype=torch.float32, device=device)}
+
+
+def mamba_decode(
+    p: Dict,
+    x: torch.Tensor,                # [B, 1, D]
+    cfg: ModelConfig,
+    state: Dict[str, torch.Tensor],
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token recurrent step; the new conv history and SSM state are
+    written into ``state``'s tensors. Returns (out, state)."""
+    xin = torch.einsum("bsd,de->bse", x, p["wx"].to(x.dtype))   # [B,1,di]
+    z = torch.einsum("bsd,de->bse", x, p["wz"].to(x.dtype))
+    conv_hist = state["conv"].to(x.dtype)
+    xc = _causal_conv(xin, p["conv_w"], p["conv_b"], history=conv_hist)
+    xc = F.silu(xc.float()).to(x.dtype)
+    new_conv = torch.cat([conv_hist[:, 1:], xin], dim=1)
+
+    dt, bmat, cmat = _ssm_inputs(p, xc, cfg)
+    a = -torch.exp(p["a_log"].float())
+    decay = torch.exp(dt[:, 0, :, None] * a)                 # [B,di,st]
+    u = (dt[:, 0] * xc[:, 0].float())[..., None] * bmat[:, 0, None, :]
+    h = decay * state["ssm"] + u
+    y = torch.einsum("bds,bs->bd", h, cmat[:, 0])
+    y = y + p["d_skip"].float() * xc[:, 0].float()
+    y = y[:, None].to(x.dtype) * F.silu(z.float()).to(x.dtype)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
+    state["conv"].copy_(new_conv)
+    state["ssm"].copy_(h)
+    return out, state

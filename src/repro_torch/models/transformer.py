@@ -1,5 +1,5 @@
-"""The generic decoder / encoder-decoder stack over LayerSpec patterns, the
-training path.
+"""The generic decoder / encoder-decoder stack over LayerSpec patterns:
+training, prefill and one-token decode.
 
 Ported from ``repro.models.transformer``. One code path serves all ten
 architectures: the config chooses the repeating ``pattern`` of layers
@@ -15,17 +15,24 @@ Entry points:
   init_params(cfg, generator, device)        -> (params, logical_axes)
   forward(params, tokens, cfg, memory=None)  -> (hidden, moe_aux)
   train_loss(params, batch, cfg)             -> scalar loss (+ aux)
+  prefill(params, batch, cfg, max_len)       -> (last_logits, DecodeState)
+  decode_step(params, state, tokens, cfg)    -> (logits, DecodeState)
+  init_decode_state(cfg, batch, max_len)     -> DecodeState (empty)
 
-``prefill``, ``decode_step`` and ``DecodeState`` wait for serving
-(ROADMAP.md item 8).
+``DecodeState`` keeps the reference's layout: per position in the period,
+the cache leaves stacked ``[num_periods, ...]``. ``decode_step`` writes
+the caches and advances the 0-d ``position`` tensor in place and returns
+the same state (the reference returns a new one): a step reads nothing
+back to the host, so the serving engine replays it as a CUDA graph.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -36,7 +43,8 @@ from repro_torch.models.policy import shard_hidden
 
 Params = Dict[str, torch.Tensor]
 
-__all__ = ["init_params", "forward", "train_loss"]
+__all__ = ["init_params", "forward", "train_loss", "DecodeState",
+           "init_decode_state", "prefill", "decode_step"]
 
 
 def _mlp_params(f: ParamFactory, cfg: ModelConfig) -> Dict:
@@ -150,7 +158,6 @@ def _apply_layer(lp: Params, spec: LayerSpec, h: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One layer on the residual stream ``h``; returns (h', MoE aux or
     None)."""
-    aux = None
     x = rms_norm(h, lp["ln1"])
     mixer = sub_tree(lp, "mixer")
     if spec.mixer == "attn":
@@ -158,7 +165,15 @@ def _apply_layer(lp: Params, spec: LayerSpec, h: torch.Tensor,
                                         positions=positions)
     else:
         mixed = mamba_lib.mamba_mixer(mixer, x, cfg)
-    h = h + mixed
+    return _after_mixer(lp, spec, h + mixed, cfg, memory)
+
+
+def _after_mixer(lp: Params, spec: LayerSpec, h: torch.Tensor,
+                 cfg: ModelConfig, memory: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A layer's cross-attention and FFN sub-blocks, on the residual
+    stream after its mixer; returns (h', MoE aux or None)."""
+    aux = None
     if spec.cross_attn:
         assert memory is not None, f"{cfg.name}: cross-attn layer needs memory"
         xc = rms_norm(h, lp["ln_cross"])
@@ -228,3 +243,100 @@ def train_loss(params: Params, batch: Dict[str, torch.Tensor],
         total = total + torch.sum(logz - gold)
     loss = total / (b * s)
     return loss + cfg.router_aux_coef * aux
+
+
+class DecodeState(NamedTuple):
+    caches: Tuple[Dict[str, torch.Tensor], ...]  # per period position,
+    #                                              stacked over periods
+    memory: Optional[torch.Tensor]   # encoder output / projected patches
+    position: torch.Tensor           # 0-d int32: next position to write
+
+
+def _empty_caches(cfg: ModelConfig, batch: int, max_len: int,
+                  device: torch.device) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """Per pattern position, an empty layer cache stacked over periods."""
+    caches = []
+    for spec in cfg.pattern:
+        if spec.mixer == "attn":
+            one = attn_lib.init_kv_cache(cfg, spec, batch, max_len, device)
+        else:
+            one = mamba_lib.init_mamba_state(cfg, batch, device)
+        caches.append({n: torch.stack([t] * cfg.num_periods)
+                       for n, t in one.items()})
+    return tuple(caches)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device="cuda") -> DecodeState:
+    """An empty state: every KV slot empty (``pos`` -1), zero SSM states,
+    zero memory of ``memory_tokens`` (256 when unset) rows, position 0."""
+    device = resolve_device(device)
+    caches = _empty_caches(cfg, batch, max_len, device)
+    mem = None
+    if cfg.has_memory_input:
+        mem = torch.zeros((batch, cfg.memory_tokens or 256, cfg.d_model),
+                          dtype=cfg.dtype, device=device)
+    return DecodeState(caches=caches, memory=mem,
+                       position=torch.zeros((), dtype=torch.int32,
+                                            device=device))
+
+
+def prefill(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, max_len: int
+            ) -> Tuple[torch.Tensor, DecodeState]:
+    """Process the prompt ``batch["tokens"]`` [B, S] (and ``"memory"``
+    where the config reads one); returns (logits of the last token
+    [B, pad_vocab(V)], a new state with ``position`` S)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    h = F.embedding(tokens.long(), params["embed"].to(cfg.dtype))
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)
+    mem = None
+    if cfg.has_memory_input:
+        mem = _encode_memory(params, batch["memory"], cfg)
+    h = shard_hidden(h)
+    caches = _empty_caches(cfg, b, max_len, h.device)
+    for period in range(cfg.num_periods):
+        for pos, spec in enumerate(cfg.pattern):
+            lp = sub_tree(params, f"blocks/{pos}", period)
+            x = rms_norm(h, lp["ln1"])
+            mixer = sub_tree(lp, "mixer")
+            cache = {n: t[period] for n, t in caches[pos].items()}
+            if spec.mixer == "attn":
+                mixed, _ = attn_lib.prefill_attention(
+                    mixer, x, cfg, spec, cache, positions=positions)
+            else:
+                mixed, last = mamba_lib.mamba_mixer(mixer, x, cfg,
+                                                    return_state=True)
+                for n, t in last.items():
+                    cache[n].copy_(t)
+            h, _ = _after_mixer(lp, spec, h + mixed, cfg, mem)
+        h = shard_hidden(h)
+    h = rms_norm(h, params["final_norm"])
+    state = DecodeState(
+        caches=caches, memory=mem,
+        position=torch.full((), s, dtype=torch.int32, device=h.device))
+    return _unembed(params, h[:, -1], cfg), state
+
+
+def decode_step(params: Params, state: DecodeState, tokens: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, DecodeState]:
+    """One token [B, 1] against the caches and SSM states; writes them and
+    advances ``state.position`` in place. Returns (logits [B,
+    pad_vocab(V)], state)."""
+    h = F.embedding(tokens.long(), params["embed"].to(cfg.dtype))
+    for period in range(cfg.num_periods):
+        for pos, spec in enumerate(cfg.pattern):
+            lp = sub_tree(params, f"blocks/{pos}", period)
+            cache = {n: t[period] for n, t in state.caches[pos].items()}
+            x = rms_norm(h, lp["ln1"])
+            mixer = sub_tree(lp, "mixer")
+            if spec.mixer == "attn":
+                mixed, _ = attn_lib.decode_attention(
+                    mixer, x, cfg, spec, cache, position=state.position)
+            else:
+                mixed, _ = mamba_lib.mamba_decode(mixer, x, cfg, cache)
+            h, _ = _after_mixer(lp, spec, h + mixed, cfg, state.memory)
+    h = rms_norm(h, params["final_norm"])
+    state.position.add_(1)
+    return _unembed(params, h[:, -1], cfg), state

@@ -14,9 +14,10 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.rng import GeneratorDraws, ReplayDraws
 from repro_torch.kernels import build
 from repro_torch.configs import REGISTRY
-from repro_torch.launch import cnn_run, train
-from repro_torch.models import init_params
+from repro_torch.launch import cnn_run, serve, train
+from repro_torch.models import init_decode_state, init_params
 from repro_torch.models.cnn import init_cnn
+from repro_torch.serving import ServingEngine
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
@@ -67,7 +68,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.configs.jamba_1_5_large_398b",
             "repro_torch.data.lm", "repro_torch.checkpoint",
             "repro_torch.checkpoint.io", "repro_torch.launch.steps",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.serving",
+            "repro_torch.serving.engine", "repro_torch.launch.serve",
+            "repro_torch.examples.serve_decode"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                                   "ml_dtypes")]
     assert bad == []
@@ -93,6 +96,12 @@ def test_default_device_raises_without_cuda():
                     torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", "qwen3-1.7b", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen3-1.7b", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(REGISTRY["qwen3-1.7b"].reduced, {})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_decode_state(REGISTRY["qwen3-1.7b"].reduced, 1, 8)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
