@@ -8,7 +8,16 @@ round on an NVIDIA Hopper card through kernels written by hand in CUDA C++
 Every public entry point that creates tensors takes ``device=`` and
 defaults to ``"cuda"``; without a card it raises unless the caller asks
 for ``"cpu"``, where each kernel runs its plain PyTorch version.
+``repro_torch.obs`` (the telemetry stream and its CLI) is stdlib only, so
+importing the package imports torch only when ``resolve_device`` is first
+asked for.
 """
-from repro_torch.device import resolve_device
 
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from repro_torch.device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")

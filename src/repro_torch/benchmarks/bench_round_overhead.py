@@ -2,8 +2,8 @@
 K-round supersteps of the ``RoundExecutor``.
 
 The port of ``benchmarks/bench_round_overhead.py``'s executor measurements
-(its ``--arch`` LM path and its telemetry measurement wait for the port's
-LM stack and telemetry). Two measurements (``--measure``):
+(its ``--arch`` LM measurement is still to port, ROADMAP.md item 10).
+Three measurements (``--measure``):
 
   * ``cnn`` (default): the paper's CIFAR CNN at full width on a 10-node
     ring; the device's work per round is large, so it shows what the
@@ -13,6 +13,15 @@ LM stack and telemetry). Two measurements (``--measure``):
     so per-round dispatch and host syncs dominate. Schedule (2, 2) then
     (4, 1) half way, supersteps of 10; ``--check`` asserts the
     reference's bar, superstep rounds/s at least 2x legacy.
+  * ``telemetry``: the reference's third measurement, the quadratic
+    superstep path (dimension 4096, (2, 2), supersteps of 10) with a live
+    ``repro_torch.obs.Telemetry`` sink against ``telemetry=None``: one
+    executor of each dispatches in turn over the same batches (the order
+    flipped every pass), and the overhead is the median of the paired
+    time differences over the median time without the sink, with the
+    cyclic garbage collector off in the timed loop, as the reference's;
+    neither executor may build or capture after its warmup. ``--check``
+    holds the throughput loss under 2%.
 
 Three strategies run the same schedule over the same batches, staged on
 the device before the clock starts:
@@ -37,9 +46,12 @@ dispatch (``torch.cuda.set_sync_debug_mode``), naming where each is made.
         [--compression top_k] [--rounds 24] [--superstep 6] [--device cuda]
     PYTHONPATH=src python -m repro_torch.benchmarks.bench_round_overhead \\
         --measure dispatch [--check] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.benchmarks.bench_round_overhead \
+        --measure telemetry [--check] [--device cuda]
 
-Writes ``results/repro_torch/bench_round_overhead.json`` (``cnn``) or
-``bench_round_overhead_dispatch.json`` (``dispatch``).
+Writes ``results/repro_torch/bench_round_overhead.json`` (``cnn``),
+``bench_round_overhead_dispatch.json`` (``dispatch``) or
+``bench_round_overhead_telemetry.json`` (``telemetry``).
 """
 from __future__ import annotations
 
@@ -290,9 +302,70 @@ def bench_dispatch(s: Setup, schedule: Schedule, superstep: int,
     return out
 
 
+def bench_telemetry(s: Setup, superstep: int, rounds: int, passes: int = 24
+                    ) -> Dict:
+    """The reference's telemetry measurement on ``s``: superstep dispatches
+    of a uniform (tau1_max, tau2_max) schedule, an executor with a live
+    sink and one without dispatching in turn (the order flipped every
+    pass), each dispatch ended by a read of its last loss; the overhead is
+    the median paired difference over the median time without the sink.
+    Neither executor may build or capture after its warmup."""
+    import gc
+
+    from repro_torch.obs import Telemetry
+
+    tel = Telemetry()
+    cfg = s.cfg(s.tau1_max, s.tau2_max)
+    exes = {"off": RoundExecutor(cfg, s.loss_fn, s.opt),
+            "on": RoundExecutor(cfg, s.loss_fn, s.opt, telemetry=tel)}
+    states = {mode: s.fresh() for mode in exes}
+    todo = chunks(s, [(s.tau1_max, s.tau2_max)] * rounds, superstep)
+    for mode, ex in exes.items():
+        for kk in sorted({c[0][0].shape[0] for c in todo}):
+            ex.warmup(states[mode], next(c[0] for c in todo
+                                         if c[0][0].shape[0] == kk))
+    warm = {mode: (ex.compile_count, ex.capture_count)
+            for mode, ex in exes.items()}
+    diffs: List[float] = []
+    base: List[float] = []
+    ks: List[int] = []
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for p in range(passes):
+            order = ("off", "on") if p % 2 == 0 else ("on", "off")
+            for batches, t1, t2, _ in todo:
+                ks.append(batches[0].shape[0])
+                pair = {}
+                for mode in order:
+                    t0 = time.perf_counter()
+                    states[mode], m = exes[mode].dispatch(states[mode],
+                                                          batches, t1, t2)
+                    float(m["loss"][-1])
+                    pair[mode] = time.perf_counter() - t0
+                diffs.append(pair["on"] - pair["off"])
+                base.append(pair["off"])
+    finally:
+        if gc_was_enabled:
+            gc.enable()
+    for mode, ex in exes.items():
+        if (ex.compile_count, ex.capture_count) != warm[mode]:
+            raise RuntimeError(f"the telemetry bench built or captured after "
+                               f"the warmup (executor {mode!r})")
+    k_mean = sum(ks) / len(ks)
+    off_s = float(np.median(base))
+    diff_s = float(np.median(diffs))
+    return {"rounds_per_s_off": k_mean / off_s,
+            "rounds_per_s_on": k_mean / (off_s + diff_s),
+            "overhead_pct": 100.0 * diff_s / off_s,
+            "events_per_run": len(tel.events), "dispatch_pairs": len(diffs),
+            "superstep": superstep}
+
+
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--measure", default="cnn", choices=("cnn", "dispatch"))
+    ap.add_argument("--measure", default="cnn",
+                    choices=("cnn", "dispatch", "telemetry"))
     ap.add_argument("--compression", default="", choices=("", "top_k"))
     ap.add_argument("--rounds", type=int, default=None,
                     help="cnn: 24; dispatch: 20")
@@ -303,14 +376,17 @@ def main(argv=None) -> Dict:
                          "reverse order")
     ap.add_argument("--flavor", default="cifar", choices=("mnist", "cifar"))
     ap.add_argument("--check", action="store_true",
-                    help="dispatch: assert superstep >= 2x legacy rounds/s")
+                    help="dispatch: assert superstep >= 2x legacy rounds/s; "
+                         "telemetry: assert the sink costs < 2%%")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
     if a.measure == "dispatch":
         return main_dispatch(a)
+    if a.measure == "telemetry":
+        return main_telemetry(a)
     if a.check:
-        ap.error("--check applies to --measure dispatch")
+        ap.error("--check applies to --measure dispatch and telemetry")
     a.rounds = 24 if a.rounds is None else a.rounds
     a.superstep = 6 if a.superstep is None else a.superstep
     a.out = a.out or "bench_round_overhead"
@@ -384,6 +460,37 @@ def main_dispatch(a) -> Dict:
                              f"{speedup:.2f}x legacy (< 2x bar)")
         print("check OK: superstep >= 2x legacy, no build on re-plan")
     return result
+
+
+def main_telemetry(a) -> Dict:
+    """``--measure telemetry``: the quadratic testbed at dimension 4096,
+    (2, 2), supersteps of 10, 20 rounds cycled over 24 passes, with and
+    without a sink."""
+    rounds = 20 if a.rounds is None else a.rounds
+    superstep = 10 if a.superstep is None else a.superstep
+    s = quad_setup(rounds, tau1_max=2, tau2_max=2, dim=4096,
+                   device=a.device)
+    out = bench_telemetry(s, superstep, rounds)
+    dev = s.device
+    out["config"] = {"measure": "telemetry", "nodes": 8, "dim": 4096,
+                     "rounds": rounds, "superstep": superstep,
+                     "schedule": [[2, 2]], "device": str(dev),
+                     "device_name": (torch.cuda.get_device_name(dev)
+                                     if dev.type == "cuda" else "cpu")}
+    print(f"[telemetry/quad] off {out['rounds_per_s_off']:.1f} r/s | on "
+          f"{out['rounds_per_s_on']:.1f} r/s -> {out['overhead_pct']:+.2f}% "
+          f"overhead ({out['events_per_run']} events, paired over "
+          f"{out['dispatch_pairs']} dispatch pairs)")
+    print(f"wrote "
+          f"{save_result(a.out or 'bench_round_overhead_telemetry', out)}")
+    if a.check:
+        if out["overhead_pct"] >= 2.0:
+            raise SystemExit(f"check failed: telemetry costs "
+                             f"{out['overhead_pct']:.2f}% of superstep "
+                             "throughput (>= 2% bar)")
+        print(f"check OK: telemetry overhead {out['overhead_pct']:+.2f}% < "
+              "2%, no build or capture after the warmup")
+    return out
 
 
 if __name__ == "__main__":

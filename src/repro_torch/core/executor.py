@@ -14,24 +14,29 @@ contract:
   validated, and copied to the state's device, once per distinct content
   (memoized); the rounds read their step counts from the host copy, so
   nothing inside a dispatch waits for the device.
-* **Graphs** (the dense engine, ``dynamic=True``: plain and C-DFL, with
-  and without participation masks, and ``overlap="pipeline"``). The
-  round is captured step by step into CUDA graphs (``core.graphs``): one
-  local SGD step, one gossip step, the round's tail, and the masked and
-  pipelined steps; the host keeps the loops over K, tau1 and tau2 and
-  replays them. ``warmup`` (or the first dispatch) captures every graph a
-  later dispatch can need, so a re-plan, a new K, new masks or a new
-  trajectory capture nothing after it (``capture_count``). A dispatch is
-  bitwise ``make_round_fn``'s eager rounds on the same device. A capture
-  that fails raises: the card never runs these rounds eagerly. On a CPU
-  state the same steps run eagerly into the same buffers (the CPU path).
-  The batched engine and the static fallback run eagerly (ROADMAP.md
-  queues their capture).
+* **Graphs** (every mode). In the dynamic mode (plain and C-DFL, with
+  and without participation masks, ``overlap="pipeline"`` and the batched
+  engine) the round is captured step by step into CUDA graphs
+  (``core.graphs``): one local SGD step, one gossip step, the round's
+  tail, and the masked and pipelined steps; the host keeps the loops over
+  K, tau1 and tau2 and replays them. ``warmup`` (or the first dispatch)
+  captures every graph a later dispatch can need, so a re-plan, a new K,
+  new masks, new cohorts or a new trajectory capture nothing after it
+  (``capture_count``). On the batched engine each round gathers its
+  cohort's rows of the ``[V, ...]`` state into the graphs' ``[C, ...]``
+  buffers and writes them back, outside the graphs. The static fallback
+  captures one whole round per distinct (tau1, tau2) on its first use
+  (``core.graphs.StaticRounds``). A dispatch is bitwise ``make_round_fn``'s
+  eager rounds on the same device. A capture that fails raises: the card
+  never runs these rounds eagerly. On a CPU state the same steps run
+  eagerly into the same buffers (the CPU path).
 * **Builds.** ``compile_count`` counts builds of the round: 1 in the
   dynamic mode whatever the schedule or K (the step round, or the batched
   engine's round function); the static fallback (``dynamic=False``, which
   ``mixing_impl='dense_power'`` needs) builds one static round per
-  distinct (tau1, tau2) and caches it.
+  distinct (tau1, tau2) and caches it. ``capture_count`` counts the
+  captured graphs of the dynamic mode, or the graph sets of the static
+  fallback (one a (tau1, tau2)).
 * **Donation.** ``donate=True`` (default) keeps the state in place: the
   returned state's leaves are the passed state's tensors, overwritten with
   the result, so every ``data_ptr()`` comes back; ``donate=False`` leaves
@@ -69,12 +74,21 @@ thread; the copy to the card stays on the caller's thread
 (``stack_round_batches``). ``MetricsBuffer`` keeps dispatched metrics on
 the device until a flush, which waits for the device once.
 
-The sparse engine and telemetry raise ``NotImplementedError``; ROADMAP.md
-queues them.
+**Telemetry** (``telemetry=``, a ``repro_torch.obs.Telemetry``): the
+reference's events. The executor emits ``compile`` on each build of the
+round and on each capture of graphs (``count`` the builds, ``captures``
+the captures so far), ``superstep`` per dispatch and ``overlap`` per
+pipelined dispatch; ``HostPrefetcher`` its ``prefetch`` spans from the
+worker thread; ``MetricsBuffer`` a ``flush`` when it waits. Events are
+host-side appends around the replays: a dispatch with a sink is bitwise
+the same dispatch without one, builds and captures the same, and no event
+reads a device tensor (metric values reach events only through a flush).
+
+The sparse engine raises ``NotImplementedError``; ROADMAP.md queues it.
 """
 from __future__ import annotations
 
-import dataclasses
+import contextlib
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -83,8 +97,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.dfl import (DFLConfig, DFLState, check_pipeline,
-                                  check_taus, make_round_fn)
-from repro_torch.core.graphs import GraphedRounds
+                                  check_taus)
+from repro_torch.core.graphs import GraphedRounds, StaticRounds
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import (deterministic_algorithms, resolve_device,
                                 to_device)
@@ -198,7 +212,9 @@ class RoundExecutor:
       overlap: ``"none"`` (default), or ``"pipeline"``: round k's exchange
         runs beside round k+1's local steps and is folded one round late,
         drained inside each dispatch (dense engine, ``dynamic=True``).
-      telemetry and ``engine="sparse"``: the reference's other modes; raise
+      telemetry: a ``repro_torch.obs.Telemetry`` sink for the dispatch
+        events (module docstring), or None.
+      ``engine="sparse"``: the reference's sharded engine; raises
         ``NotImplementedError``.
     """
 
@@ -214,11 +230,9 @@ class RoundExecutor:
                 f"unknown overlap mode {overlap!r} (use 'none'|'pipeline')")
         if engine == "auto":
             engine = "batched" if population is not None else "dense"
-        for flag, name, item in (
-                (engine not in ("dense", "batched"), f"engine={engine!r}", 6),
-                (telemetry is not None, "telemetry", 9)):
-            if flag:
-                raise NotImplementedError(f"{name} {_NOT_PORTED.format(item)}")
+        if engine not in ("dense", "batched"):
+            raise NotImplementedError(
+                f"engine={engine!r} {_NOT_PORTED.format(6)}")
         if overlap == "pipeline" and not dynamic:
             raise ValueError(
                 "overlap='pipeline' rides the dynamic superstep scan; the "
@@ -265,13 +279,16 @@ class RoundExecutor:
         self.population = population
         self.num_nodes = cfg.topology.num_nodes
         self.num_edges = cfg.topology.num_edges
-        self._loss_fn = loss_fn
-        self._opt = opt
-        self._round_fns: Dict[Any, Callable] = {}
+        self._tel = telemetry
+        self._in_warmup = False
         self._graph = (GraphedRounds(cfg, loss_fn, opt,
                                      participation=participation,
-                                     pipeline=overlap == "pipeline")
-                       if dynamic and not self.batched else None)
+                                     pipeline=overlap == "pipeline",
+                                     population=population)
+                       if dynamic else None)
+        self._static = None if dynamic else StaticRounds(cfg, loss_fn, opt)
+        self._kind = ("static" if not dynamic else "batched" if self.batched
+                      else "pipeline" if overlap == "pipeline" else "dynamic")
         self._traj_cache: Dict[Any, Tuple[np.ndarray, torch.Tensor]] = {}
         self.dispatch_count = 0
         self.rounds_dispatched = 0
@@ -289,15 +306,19 @@ class RoundExecutor:
         """Builds of the round so far: 1 in the dynamic mode after the first
         dispatch or the warmup, whatever the schedules; one per distinct
         (tau1, tau2) in the static fallback."""
-        graphed = self._graph is not None and self._graph.built
-        return len(self._round_fns) + int(graphed)
+        if self._static is not None:
+            return self._static.build_count
+        return int(self._graph.built)
 
     @property
     def capture_count(self) -> int:
-        """Step graphs captured so far (on a CPU state: steps bound to run
-        eagerly); fixed once ``warmup`` or the first dispatch has run,
-        whatever the schedules, masks or K."""
-        return 0 if self._graph is None else self._graph.capture_count
+        """Graphs captured so far (on a CPU state: steps bound to run
+        eagerly). Dynamic mode: the step graphs, fixed once ``warmup`` or
+        the first dispatch has run, whatever the schedules, masks, cohorts
+        or K. Static fallback: one graph set per distinct (tau1, tau2)."""
+        if self._static is not None:
+            return self._static.capture_count
+        return self._graph.capture_count
 
     @property
     def row_width(self) -> int:
@@ -309,21 +330,6 @@ class RoundExecutor:
         if self.participation:
             return 2 + self.num_nodes + self.num_edges
         return 2
-
-    def _round_fn(self, key) -> Callable:
-        """The batched engine's dynamic round (``key`` None) or the static
-        round at ``key = (tau1, tau2)``, built on first use."""
-        fn = self._round_fns.get(key)
-        if fn is None:
-            if key is None:
-                fn = make_round_fn(
-                    self.cfg, self._loss_fn, self._opt, dynamic_taus=True,
-                    engine="batched", population=self.population)
-            else:
-                cfg = dataclasses.replace(self.cfg, tau1=key[0], tau2=key[1])
-                fn = make_round_fn(cfg, self._loss_fn, self._opt)
-            self._round_fns[key] = fn
-        return fn
 
     def _check_trajectory(self, taus, k: int) -> np.ndarray:
         arr = np.asarray(taus, dtype=np.int32)
@@ -424,36 +430,60 @@ class RoundExecutor:
              dev: torch.Tensor, k: int) -> Tuple[DFLState, dict]:
         self.dispatch_count += 1
         self.rounds_dispatched += k
+        builds, captures = self.compile_count, self.capture_count
+        t0 = self._tel.now() if self._tel is not None else 0.0
         with deterministic_algorithms(self.deterministic):
-            return self._rounds(state, batches, arr, dev, k)
+            out = self._rounds(state, batches, arr, dev, k)
+        if self._tel is None:
+            return out
+        # on the card the dispatch enqueues its replays and returns: dur is
+        # the host's time to enqueue them, and the flush event carries the
+        # wait for the device
+        dur = self._tel.now() - t0
+        self._note_builds(builds, captures)
+        prefix = "warmup-superstep" if self._in_warmup else "superstep"
+        self._tel.emit("superstep", track="dispatch", name=f"{prefix}-k{k}",
+                       t=t0, dur=dur, k=k, warmup=self._in_warmup,
+                       dispatch=self.dispatch_count)
+        if self.overlap == "pipeline" and not self._in_warmup:
+            # the exchange of rounds [0, k) is in flight inside this
+            # dispatch window (drained before it returns)
+            self._tel.emit("overlap", track="overlap",
+                           name=f"gossip-inflight-k{k}", t=t0, dur=dur,
+                           mode=self.overlap, k=k,
+                           dispatch=self.dispatch_count)
+        return out
+
+    def _note_builds(self, builds: int, captures: int) -> None:
+        """``compile`` events for the builds and captures since the counts
+        ``builds`` and ``captures`` were read (host counters, no device
+        read)."""
+        if self.compile_count > builds:
+            self._tel.emit("compile", track="dispatch",
+                           name=f"round-build-{self._kind}",
+                           count=self.compile_count,
+                           captures=self.capture_count)
+        if self.capture_count > captures:
+            self._tel.emit("compile", track="dispatch",
+                           name=f"graph-capture-{self._kind}",
+                           count=self.compile_count,
+                           captures=self.capture_count,
+                           new_captures=self.capture_count - captures)
 
     def _rounds(self, state: DFLState, batches: Any, arr: np.ndarray,
                 dev: torch.Tensor, k: int) -> Tuple[DFLState, dict]:
-        c = self.num_nodes
-        if self._graph is not None:
-            self._graph.prepare(state, tree_map(lambda b: b[0, 0], batches))
-            out, metrics = self._graph.run(state, batches, arr, k,
-                                           self.donate)
+        if self._static is not None:
+            self._static.prepare(state, batches)
+            out, metrics = self._static.run(state, batches, arr, k,
+                                            self.donate)
             return out, self._tag(metrics, arr, dev)
-        # the batched round writes into the state's tensors: keep the
+        self._graph.prepare(state, tree_map(lambda b: b[0, 0], batches))
+        # the batched rounds write into the state's tensors: keep the
         # caller's state when it is not donated
-        out = (_clone_state(state) if self.batched and not self.donate
-               else state)
-        rows = []
-        for i in range(k):
-            t1, t2 = int(arr[i, 0]), int(arr[i, 1])
-            if self.batched:
-                out, m = self._round_fn(None)(
-                    out, tree_map(lambda b: b[i], batches), t1, t2,
-                    arr[i, 2:2 + c], arr[i, 2 + c:2 + 2 * c],
-                    arr[i, 2 + 2 * c:])
-            else:
-                out, m = self._round_fn((t1, t2))(
-                    out, tree_map(lambda b: b[i, :t1], batches))
-            rows.append(m)
-        metrics = {key: torch.stack([m[key] for m in rows]) for key in rows[0]}
-        if self.donate:
-            out = _donate(state, out)
+        if self.batched and not self.donate:
+            state = _clone_state(state)
+        out, metrics = self._graph.run(state, batches, arr, k, self.donate,
+                                       dev)
         return out, self._tag(metrics, arr, dev)
 
     def _tag(self, metrics: dict, arr: np.ndarray, dev: torch.Tensor) -> dict:
@@ -480,19 +510,32 @@ class RoundExecutor:
         dispatch statistics are left as they were. The graphs' copy is
         their own static buffers (``GraphedRounds.buffer_state``), so the
         warmup of a replaying executor holds no second copy of the state
-        (an LM tree's is gigabytes)."""
+        (an LM tree's is gigabytes). The batched engine's warmup runs on a
+        copy of the population. The static fallback captures the graph set
+        of (tau1, tau2) here: warm every (tau1, tau2) it will dispatch."""
         n_dispatch, n_rounds = self.dispatch_count, self.rounds_dispatched
-        if self._graph is not None:
-            with deterministic_algorithms(self.deterministic):
-                self._graph.prepare(state,
-                                    tree_map(lambda b: b[0, 0], batches))
-            dummy = self._graph.buffer_state(state)
-        else:
-            dummy = _clone_state(state)
+        self._in_warmup = True
+        span = (self._tel.span("warmup", track="dispatch")
+                if self._tel is not None else contextlib.nullcontext())
         try:
-            self.dispatch(dummy, batches, tau1, tau2)
-            _sync(_state_device(state))
+            with span:
+                builds, captures = self.compile_count, self.capture_count
+                with deterministic_algorithms(self.deterministic):
+                    if self._static is not None:
+                        self._static.prepare(state, batches)
+                        dummy = self._static.buffer_state(state)
+                    elif self.batched:
+                        dummy = _clone_state(state)
+                    else:
+                        self._graph.prepare(
+                            state, tree_map(lambda b: b[0, 0], batches))
+                        dummy = self._graph.buffer_state(state)
+                if self._tel is not None:
+                    self._note_builds(builds, captures)
+                self.dispatch(dummy, batches, tau1, tau2)
+                _sync(_state_device(state))
         finally:
+            self._in_warmup = False
             self.dispatch_count, self.rounds_dispatched = n_dispatch, n_rounds
 
 
@@ -500,17 +543,6 @@ def _clone_state(state: DFLState) -> DFLState:
     return state._replace(params=tree_map(torch.clone, state.params),
                           opt_state=tree_map(torch.clone, state.opt_state),
                           hat_params=tree_map(torch.clone, state.hat_params))
-
-
-def _donate(old: DFLState, new: DFLState) -> DFLState:
-    """``new``'s values written into ``old``'s tensors, which are returned
-    with ``new``'s round index."""
-    for field in ("params", "opt_state", "hat_params"):
-        for o, n in zip(tree_leaves(getattr(old, field)),
-                        tree_leaves(getattr(new, field))):
-            if o is not n:
-                o.copy_(n)
-    return old._replace(round_idx=new.round_idx, draws=new.draws)
 
 
 class HostPrefetcher:
@@ -530,15 +562,16 @@ class HostPrefetcher:
     ``retries`` times, with a backoff of ``backoff_s`` doubling per attempt.
     ``close()`` stops any backoff, joins the worker and drops its result;
     later schedules raise. ``stats`` counts scheduled, taken, cancelled,
-    stale, errors and retries.
+    stale, errors and retries. With a ``telemetry`` sink, each build is a
+    ``prefetch`` span emitted from the worker thread, and retries, cancels,
+    stale takes and the close are ``prefetch`` events.
     """
 
     def __init__(self, telemetry=None, retries: int = 0,
                  backoff_s: float = 0.05):
-        if telemetry is not None:
-            raise NotImplementedError(f"telemetry {_NOT_PORTED.format(9)}")
         if retries < 0 or backoff_s < 0.0:
             raise ValueError("retries and backoff_s must be >= 0")
+        self._tel = telemetry
         self._pending: Optional[Tuple[threading.Thread, dict, Any]] = None
         self._retries = int(retries)
         self._backoff_s = float(backoff_s)
@@ -556,21 +589,33 @@ class HostPrefetcher:
                 "before scheduling another build")
         self.stats["scheduled"] += 1
         box: dict = {}
+        tel = self._tel
 
         def work():
-            for attempt in range(self._retries + 1):
-                try:
-                    box["out"] = fn(*args)
-                    box.pop("err", None)
-                    return
-                except BaseException as e:  # raised again by take()
-                    box["err"] = e
-                    if (attempt >= self._retries
-                            or not isinstance(e, Exception)):
+            t0 = tel.now() if tel is not None else 0.0
+            try:
+                for attempt in range(self._retries + 1):
+                    try:
+                        box["out"] = fn(*args)
+                        box.pop("err", None)
                         return
-                    self.stats["retries"] += 1
-                    if self._stop.wait(self._backoff_s * (2 ** attempt)):
-                        return
+                    except BaseException as e:  # raised again by take()
+                        box["err"] = e
+                        if (attempt >= self._retries
+                                or not isinstance(e, Exception)):
+                            return
+                        self.stats["retries"] += 1
+                        if tel is not None:
+                            tel.emit("prefetch", track="prefetch",
+                                     name="retry", action="retry",
+                                     attempt=attempt + 1)
+                        if self._stop.wait(self._backoff_s * (2 ** attempt)):
+                            return
+            finally:
+                if tel is not None:
+                    tel.emit("prefetch", track="prefetch", name="build",
+                             t=t0, dur=tel.now() - t0, action="build",
+                             ok="err" not in box)
 
         t = threading.Thread(target=work, daemon=True)
         t.start()
@@ -601,20 +646,30 @@ class HostPrefetcher:
         self._pending = None
         t.join()
         self.stats["cancelled"] += 1
+        if self._tel is not None:
+            self._tel.emit("prefetch", track="prefetch", name="cancel",
+                           action="cancel")
 
     def mark_stale(self) -> None:
         """Count a prefetched chunk the caller rebuilt after a re-plan."""
         self.stats["stale"] += 1
+        if self._tel is not None:
+            self._tel.emit("prefetch", track="prefetch", name="stale",
+                           action="stale")
 
     def close(self) -> None:
         """Wake any backoff, join the pending worker and drop its result;
         idempotent, and later schedules raise."""
+        already = self._stop.is_set()
         self._stop.set()
         if self._pending is not None:
             t, _box, _meta = self._pending
             self._pending = None
             t.join()
             self.stats["cancelled"] += 1
+        if self._tel is not None and not already:
+            self._tel.emit("prefetch", track="prefetch", name="close",
+                           action="close")
 
 
 class MetricsBuffer:
@@ -624,12 +679,13 @@ class MetricsBuffer:
     for the device once, turns them into one host row per round, and
     spreads the wall time since the window opened over its rounds.
     ``dispatched_at``: a ``time.perf_counter()`` taken before the dispatch,
-    the window's origin (the clock is monotonic).
+    the window's origin (the clock is monotonic). With a ``telemetry``
+    sink, ``flush`` emits a ``flush`` event spanning its wait for the
+    device.
     """
 
     def __init__(self, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(f"telemetry {_NOT_PORTED.format(9)}")
+        self._tel = telemetry
         self._pending: List[Tuple[int, int, Optional[int], Optional[int],
                                   dict]] = []
         self._window_start: Optional[float] = None
@@ -653,20 +709,29 @@ class MetricsBuffer:
         """Wait once; one row per completed round, in order."""
         if not self._pending:
             return []
+        block0 = time.perf_counter()
         for dev in {v.device for *_, m in self._pending for v in m.values()
                     if torch.is_tensor(v)}:
             _sync(dev)
         now = time.perf_counter()
-        per_round_s = (now - (self._window_start or now)) / max(
-            self.pending_rounds, 1)
+        elapsed = now - (self._window_start or now)
+        n = self.pending_rounds
+        if self._tel is not None:
+            block_s = now - block0
+            self._tel.emit("flush", track="metrics", name="metrics-flush",
+                           t=self._tel.now() - block_s, dur=block_s,
+                           rounds=n, window_s=elapsed)
+        per_round_s = elapsed / max(n, 1)
         rows: List[dict] = []
+        int_cols = ("active_nodes", "masked_edges")
         for round0, k, tau1, tau2, metrics in self._pending:
             host = {key: np.asarray(v.cpu() if torch.is_tensor(v) else v)
                     for key, v in metrics.items()}
             tau1s = host.pop("tau1", None)
             tau2s = host.pop("tau2", None)
             for i in range(k):
-                row = {key: float(v[i]) for key, v in host.items()}
+                row = {key: (int(v[i]) if key in int_cols else float(v[i]))
+                       for key, v in host.items()}
                 row.update(
                     round=round0 + i,
                     tau1=int(tau1s[i]) if tau1s is not None else tau1,

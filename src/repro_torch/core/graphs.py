@@ -1,4 +1,4 @@
-"""The dense executor's rounds as replays of captured step graphs.
+"""The executor's rounds as replays of captured CUDA graphs.
 
 Eager PyTorch launches every kernel of a round from Python, and on the
 CIFAR CNN that host work outlasts the card's (PERF.md §5). The reference
@@ -29,6 +29,16 @@ step up once on a side stream (``warm``), then captures each into a
 memory pool shared by the graphs of one stream; a replay adds the launches
 counted during the capture to ``kernels.ops.LAUNCHES``.
 
+On the batched engine (``population=V``) the same steps run over ``[C,
+...]`` buffers of one cohort: each round gathers its cohort's rows of the
+``[V, ...]`` state into them (``index_select`` by the ids in a device
+buffer, copied from the trajectory's device rows) and writes them back
+after its tail (``index_copy_``), both outside the graphs, since the
+state is the caller's; the seam reads the same id buffer
+(``KeyedDraws(ids=)``). The static fallback (``StaticRounds``) captures
+one whole static round per distinct (tau1, tau2), and per round of a
+topology schedule, on first use.
+
 On a CPU state ``capture`` returns the step itself, which runs eagerly
 into the same buffers: the CPU path, the same arithmetic as the card's.
 On the card a capture that fails raises; nothing runs eagerly there.
@@ -36,20 +46,22 @@ On the card a capture that fails raises; nothing runs eagerly there.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.core.dfl import DFLConfig, DFLState, loss_over_tau1
+from repro_torch.core.dfl import (DFLConfig, DFLState, loss_over_tau1,
+                                  make_round_fn)
 from repro_torch.core.rng import GeneratorDraws, KeyedDraws
 from repro_torch.core.substrate import DenseSubstrate
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import to_device
 from repro_torch.kernels import ops
 
-__all__ = ["warm", "capture", "StepRound", "GraphedRounds"]
+__all__ = ["warm", "capture", "StepRound", "GraphedRounds", "StaticRounds"]
 
 
 class _Eager:
@@ -121,8 +133,104 @@ def _clone(tree: Any) -> Any:
     return tree_map(lambda t: t.detach().clone(), tree)
 
 
-def _shapes(tree: Any):
-    return [(tuple(t.shape), t.dtype) for t in tree_leaves(tree)]
+def _shapes(tree: Any, lead: Optional[int] = None):
+    """The leaves' (shape, dtype), the leading dimension replaced by
+    ``lead`` when given."""
+    return [(((lead,) + tuple(t.shape[1:])) if lead is not None
+             else tuple(t.shape), t.dtype) for t in tree_leaves(tree)]
+
+
+def _load(bufs: Tuple[Any, Any, Any], state: DFLState) -> None:
+    """The state's (params, opt_state, hat) copied into the buffers."""
+    for buf, tree in zip(bufs, (state.params, state.opt_state,
+                                state.hat_params)):
+        _assign(buf, tree)
+
+
+def _result(bufs: Tuple[Any, Any, Any], state: DFLState, donate: bool,
+            round_idx: int) -> DFLState:
+    """The buffers as the dispatch's state at ``round_idx``: written into
+    ``state``'s own tensors under ``donate``, else clones."""
+    params, opt_state, hat = bufs
+    if donate:
+        for tree, buf in zip((state.params, state.opt_state,
+                              state.hat_params), bufs):
+            if buf is not None:
+                _assign(tree, buf)
+        new = state
+    else:
+        new = state._replace(params=_clone(params),
+                             opt_state=_clone(opt_state),
+                             hat_params=(_clone(hat) if hat is not None
+                                         else state.hat_params))
+    return new._replace(round_idx=round_idx)
+
+
+def _over(bufs: Tuple[Any, Any, Any], state: DFLState) -> DFLState:
+    """``state`` over the buffers: a dispatch of it copies nothing in or
+    out, and leaves ``state``'s own tensors alone (the executor's warmup
+    runs on it)."""
+    params, opt_state, hat = bufs
+    return state._replace(params=params, opt_state=opt_state,
+                          hat_params=hat if hat is not None
+                          else state.hat_params)
+
+
+def _check_state(state: DFLState, batch: Any, bufs: Tuple[Any, Any, Any],
+                 batch_buf: Any, device: torch.device,
+                 population: Optional[int] = None) -> None:
+    """Raise unless ``state`` (its leaves leading with ``population`` when
+    given) and ``batch`` have the shapes and dtypes of the buffers."""
+    if tree_leaves(state.params)[0].device != device:
+        raise ValueError(f"the executor's rounds run on {device}; dispatch a "
+                         "state on that device")
+    got = (state.params, state.opt_state,
+           state.hat_params if bufs[2] is not None else None)
+    for what, have, want, lead in (
+            ("state", got, bufs, population),
+            ("one step's batch", batch, batch_buf, None)):
+        if _shapes(have) != _shapes(want, lead):
+            raise ValueError(
+                f"{what} has leaves {_shapes(have)}; the executor's graphs "
+                f"were captured for {_shapes(want, lead)}")
+
+
+def _bind_keyed(draws, key: torch.Tensor, device: torch.device,
+                current, seam, ids: Optional[torch.Tensor] = None):
+    """The seam a captured round draws from, and its identity: ``draws``
+    under the device ``key`` (and ``ids``) when it is a ``GeneratorDraws``
+    (made once; a later state must bring the same seam), else ``draws``
+    itself, which only the CPU path can run (a graph would freeze the host
+    (round, step))."""
+    if isinstance(draws, GeneratorDraws):
+        new_seam = (draws.num_nodes, draws.leaves, draws.device)
+        if isinstance(current, KeyedDraws):
+            if new_seam != seam:
+                raise ValueError(
+                    "the state's seam has other nodes, leaves or device "
+                    "than the one the graphs were captured with")
+            return current, seam
+        if device.type == "cuda" and current is not None:
+            raise ValueError("the executor's graphs were captured without a "
+                             "device key")
+        return draws.keyed(key, ids), new_seam
+    if device.type == "cuda":
+        raise ValueError(
+            f"the executor's graphs draw from a device key: the state's seam "
+            f"must be a GeneratorDraws on the card, got "
+            f"{type(draws).__name__}")
+    return draws, seam
+
+
+def _upload_keys(draws, keyed, round0: int, k: int, steps: int,
+                 device: torch.device) -> Optional[torch.Tensor]:
+    """The ``[K, steps]`` keys of rounds ``round0 ..`` on ``device`` in one
+    copy (None unless the rounds draw from a ``KeyedDraws``)."""
+    if not isinstance(keyed, KeyedDraws):
+        return None
+    keys = np.array([[draws.step_key(round0 + i, t) for t in range(steps)]
+                     for i in range(k)], np.int64)
+    return to_device(torch.from_numpy(keys), device)
 
 
 class StepRound:
@@ -134,11 +242,14 @@ class StepRound:
     ``params0`` / ``opt0`` under ``masked``, ``operand`` (``mix_operand``'s
     tensors), ``key`` (the seam's key) and ``out`` (``loss``,
     ``consensus_sq``). Under ``pipeline``: ``held`` (z of the round before)
-    and ``chain`` (the exchange's params). Each step's results are copied
-    into the buffers, so every step reads the same addresses."""
+    and ``chain`` (the exchange's params). Under ``cohort`` (the batched
+    engine): ``ids``, the round's ``[C]`` global node ids, which the seam
+    draws for. Each step's results are copied into the buffers, so every
+    step reads the same addresses."""
 
     def __init__(self, cfg: DFLConfig, loss_fn, opt, state: DFLState,
-                 batch: Any, *, masked: bool, pipeline: bool):
+                 batch: Any, *, masked: bool, pipeline: bool,
+                 cohort: bool = False):
         if cfg.is_compressed and state.hat_params is None:
             raise ValueError("C-DFL needs init_state(..., compressed=True)")
         self.cfg, self.opt = cfg, opt
@@ -172,6 +283,8 @@ class StepRound:
             self.held = _clone(self.params)
             self.chain = _clone(self.params)
         self.key = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.ids = (torch.arange(self.sub.num_nodes, dtype=torch.int64,
+                                 device=self.device) if cohort else None)
         comp = cfg.compression
         self.draws_anything = comp is not None and any(
             comp.draw_shape(t[0].numel()) is not None
@@ -181,67 +294,39 @@ class StepRound:
 
     # -- the state and the seam -------------------------------------------
 
-    def check(self, state: DFLState, batch: Any) -> None:
-        """Raise unless ``state`` and one step's ``batch`` have the shapes
-        and dtypes the buffers were made for."""
-        if tree_leaves(state.params)[0].device != self.device:
-            raise ValueError(f"the executor's rounds run on {self.device}; "
-                             "dispatch a state on that device")
-        for what, got, want in (
-                ("state", (state.params, state.opt_state,
-                           state.hat_params if self.hat is not None
-                           else None),
-                 (self.params, self.opt_state, self.hat)),
-                ("one step's batch", batch, self.batch)):
-            if _shapes(got) != _shapes(want):
-                raise ValueError(
-                    f"{what} has leaves {_shapes(got)}; the executor's "
-                    f"graphs were captured for {_shapes(want)}")
+    def check(self, state: DFLState, batch: Any,
+              population: Optional[int] = None) -> None:
+        """Raise unless ``state`` (leaves leading with ``population`` on
+        the batched engine) and one step's ``batch`` have the shapes and
+        dtypes the buffers were made for."""
+        _check_state(state, batch, (self.params, self.opt_state, self.hat),
+                     self.batch, self.device, population)
 
     def bind_draws(self, draws) -> None:
         """The seam the gossip step draws from, for a compressor that
-        draws: a counter-based ``draws`` under this round's device key
-        (``KeyedDraws``, made once, its counter bases built here on the
-        current stream), else ``draws`` itself with the host (round, step),
-        which only the CPU path can run (a graph would freeze them)."""
+        draws: a counter-based ``draws`` under this round's device key (and
+        the cohort's device ids) (``KeyedDraws``, made once, its counter
+        bases built here on the current stream), else ``draws`` itself with
+        the host (round, step), which only the CPU path can run."""
         if not self.draws_anything:
             return
-        if isinstance(draws, GeneratorDraws):
-            seam = (draws.num_nodes, draws.leaves, draws.device)
-            if isinstance(self.draws, KeyedDraws):
-                if seam != self._seam:
-                    raise ValueError(
-                        "the state's seam has other nodes, leaves or device "
-                        "than the one the graphs were captured with")
-                return
-            if self.device.type == "cuda" and self.draws is not None:
-                raise ValueError("the executor's graphs were captured "
-                                 "without a device key")
-            self.draws, self._seam = draws.keyed(self.key), seam
+        fresh = not isinstance(self.draws, KeyedDraws)
+        self.draws, self._seam = _bind_keyed(draws, self.key, self.device,
+                                             self.draws, self._seam, self.ids)
+        if fresh and isinstance(self.draws, KeyedDraws):
             names = list(self.params)
             self.cfg.compression.draw_many(
                 self.draws, 0, 0, names,
                 [self.params[k][0].numel() for k in names],
                 self.sub.node_ids)
-        elif self.device.type == "cuda":
-            raise ValueError(
-                f"the executor's graphs draw from a device key: the state's "
-                f"seam must be a GeneratorDraws on the card, got "
-                f"{type(draws).__name__}")
-        else:
-            self.draws = draws
 
     def upload_keys(self, draws, round0: int, k: int
                     ) -> Optional[torch.Tensor]:
         """The ``[K, tau2_max]`` keys of rounds ``round0 ..`` on the device,
         in one copy (None for host-keyed draws or a compressor that draws
         nothing)."""
-        if not isinstance(self.draws, KeyedDraws):
-            return None
-        keys = np.array([[draws.step_key(round0 + i, t)
-                          for t in range(max(self.cfg.tau2, 1))]
-                         for i in range(k)], np.int64)
-        return to_device(torch.from_numpy(keys), self.device)
+        return _upload_keys(draws, self.draws, round0, k,
+                            max(self.cfg.tau2, 1), self.device)
 
     # -- the steps ----------------------------------------------------------
 
@@ -304,20 +389,26 @@ class StepRound:
 
 
 class GraphedRounds:
-    """The rounds of one dense dynamic executor (``RoundExecutor``) as step
+    """The rounds of one dynamic executor (``RoundExecutor``) as step
     replays. ``prepare(state, batch)`` builds the buffers and captures
     every step a later dispatch can need (the masked ones under
     ``participation``, the exchange's under ``pipeline``); ``run(state,
-    batches, rows, k)`` plays ``k`` rounds of the host rows ``[K, 2]`` or
-    ``[K, 2 + N + E]``. Under ``pipeline`` on the card the exchange's steps
+    batches, rows, k)`` plays ``k`` rounds of the host rows ``[K, 2]``,
+    ``[K, 2 + N + E]`` or, under ``population`` (the batched engine),
+    ``[K, 2 + 2C + E]``. Under ``pipeline`` on the card the exchange's steps
     replay on a second stream, each in its own memory pool, and events join
     the streams before each fold."""
 
     def __init__(self, cfg: DFLConfig, loss_fn, opt, *, participation: bool,
-                 pipeline: bool):
+                 pipeline: bool, population: Optional[int] = None):
         self.cfg, self._loss_fn, self._opt = cfg, loss_fn, opt
-        self.participation = participation
+        self.population = population
+        self.participation = participation or population is not None
         self.pipeline = pipeline
+        n = cfg.topology.num_nodes
+        # where a row's node mask and edge mask start
+        self._node_at = 2 + n if population is not None else 2
+        self._edge_at = self._node_at + n
         self.steps: Optional[StepRound] = None
         self._replays: Optional[Dict[str, Any]] = None
         self._side: Optional[torch.cuda.Stream] = None  # the exchange's
@@ -330,17 +421,27 @@ class GraphedRounds:
         return self.steps is not None
 
     def prepare(self, state: DFLState, batch: Any) -> None:
-        """Buffers shaped after ``state`` and one step's ``batch``, and the
-        steps captured; nothing is captured once every step is."""
+        """Buffers shaped after ``state`` (its first C rows on the batched
+        engine) and one step's ``batch``, and the steps captured; nothing
+        is captured once every step is."""
         if self.steps is None:
-            self.steps = StepRound(self.cfg, self._loss_fn, self._opt, state,
+            view = state
+            if self.population is not None:
+                c = self.cfg.topology.num_nodes
+                view = state._replace(
+                    params=tree_map(lambda x: x[:c], state.params),
+                    opt_state=tree_map(lambda x: x[:c], state.opt_state),
+                    hat_params=(None if state.hat_params is None else
+                                tree_map(lambda x: x[:c], state.hat_params)))
+            self.steps = StepRound(self.cfg, self._loss_fn, self._opt, view,
                                    batch, masked=self.participation,
-                                   pipeline=self.pipeline)
+                                   pipeline=self.pipeline,
+                                   cohort=self.population is not None)
             self._side = (torch.cuda.Stream(self.steps.device)
                           if self.pipeline and self.steps.device.type == "cuda"
                           else None)
         st = self.steps
-        st.check(state, batch)
+        st.check(state, batch, self.population)
         st.bind_draws(state.draws)
         if self._replays is not None:
             return
@@ -375,13 +476,10 @@ class GraphedRounds:
         self._replays = replays
 
     def buffer_state(self, state: DFLState) -> DFLState:
-        """``state`` over the static buffers: a dispatch of it copies
-        nothing in or out, and leaves ``state``'s own tensors alone (the
-        executor's warmup runs on it)."""
+        """``state`` over the static buffers (``_over``; not on the batched
+        engine, whose state is the population)."""
         st = self.steps
-        return state._replace(
-            params=st.params, opt_state=st.opt_state,
-            hat_params=st.hat if st.hat is not None else state.hat_params)
+        return _over((st.params, st.opt_state, st.hat), state)
 
     # -- one dispatch --------------------------------------------------------
 
@@ -396,7 +494,7 @@ class GraphedRounds:
 
     def _set_operand(self, row: np.ndarray, round_idx: int) -> None:
         """The round's gossip operand into the buffer, when it changed."""
-        st, cfg, n = self.steps, self.cfg, self.cfg.topology.num_nodes
+        st, cfg = self.steps, self.cfg
         if cfg.topology_schedule:
             i = round_idx % len(cfg.topology_schedule)
             key = ("schedule", i)
@@ -404,8 +502,8 @@ class GraphedRounds:
                 st.device, dtypes={t.dtype for t in st.params.values()},
                 topology=cfg.topology_schedule[i])
         else:
-            mask = st.sub.host_edge_mask(row[2 + n:] if row.shape[0] > 2
-                                     else None)
+            mask = st.sub.host_edge_mask(row[self._edge_at:]
+                                         if row.shape[0] > 2 else None)
             key = None if mask is None else mask.tobytes()
             get = lambda: st.sub.mix_operand(  # noqa: E731
                 st.device, mask, {t.dtype for t in st.params.values()})
@@ -414,14 +512,23 @@ class GraphedRounds:
             self._operand_key = key
 
     def run(self, state: DFLState, batches: Any, rows: np.ndarray, k: int,
-            donate: bool) -> Tuple[DFLState, Dict[str, torch.Tensor]]:
+            donate: bool, dev_rows: Optional[torch.Tensor] = None
+            ) -> Tuple[DFLState, Dict[str, torch.Tensor]]:
+        """``k`` rounds of ``rows`` from ``state``. On the batched engine
+        ``dev_rows`` is the rows' copy on the device (the cohort ids are
+        read from it) and the rounds write the cohorts' rows of ``state``
+        in place, whatever ``donate``."""
         st, rp, n = self.steps, self._replays, self.cfg.topology.num_nodes
         dev = st.device
+        batched = self.population is not None
         main = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
-        _assign(st.params, state.params)
-        _assign(st.opt_state, state.opt_state)
-        if st.hat is not None:
-            _assign(st.hat, state.hat_params)
+        bufs = (st.params, st.opt_state, st.hat)
+        if batched:
+            full = tree_leaves((state.params, state.opt_state,
+                                state.hat_params if st.hat is not None
+                                else None))
+        else:
+            _load(bufs, state)
         keys = st.upload_keys(state.draws, state.round_idx, k)
         out = {name: torch.empty(k, dtype=t.dtype, device=dev)
                for name, t in st.out.items()}
@@ -441,17 +548,24 @@ class GraphedRounds:
         for i in range(k):
             row = rows[i]
             t1 = int(row[0])
+            if batched:                 # the cohort's rows in
+                st.ids.copy_(dev_rows[i, 2:2 + n])
+                if not isinstance(st.draws, KeyedDraws):
+                    # a host seam (the CPU path) draws by the host ids
+                    st.sub.node_ids = row[2:2 + n].astype(np.int64)
+                for buf, f in zip(tree_leaves(bufs), full):
+                    torch.index_select(f, 0, st.ids, out=buf)
             if self.pipeline and i > 0:
                 with self._side_ctx():          # round i-1's exchange
                     rp["stage"].replay()
                     exchange(i - 1)
+            node_mask = row[self._node_at:self._node_at + n]
             masked = (self.participation
-                      and not bool(np.asarray(row[2:2 + n]).all()))
+                      and not bool(np.asarray(node_mask).all()))
             if masked:
-                key = row[2:2 + n].tobytes()
+                key = node_mask.tobytes()
                 if key != self._mask_key:
-                    _assign(st.node_mask, st.sub.node_mask_on(
-                        row[2:2 + n], dev))
+                    _assign(st.node_mask, st.sub.node_mask_on(node_mask, dev))
                     self._mask_key = key
                 rp["snapshot"].replay()
             for t in range(t1):
@@ -469,6 +583,9 @@ class GraphedRounds:
             rp["tail_masked" if masked else "tail"].replay()
             for name, v in out.items():
                 v[i].copy_(st.out[name])
+            if batched:                 # and back, in place
+                for buf, f in zip(tree_leaves(bufs), full):
+                    f.index_copy_(0, st.ids, buf)
             if self.pipeline:
                 self._join(self._side, main)
         if self.pipeline:                       # the drain
@@ -477,16 +594,139 @@ class GraphedRounds:
                 exchange(k - 1)
             self._join(main, self._side)
             rp["fold"].replay()
-        if donate:
-            _assign(state.params, st.params)
-            _assign(state.opt_state, st.opt_state)
-            if st.hat is not None:
-                _assign(state.hat_params, st.hat)
-            new = state
+        if batched:             # the cohorts' rows are written already
+            return state._replace(round_idx=r0 + k), out
+        return _result(bufs, state, donate, r0 + k), out
+
+
+class StaticRounds:
+    """The static fallback's rounds (``RoundExecutor(dynamic=False)``, which
+    ``mixing_impl="dense_power"`` needs) as replays: one graph set per
+    distinct (tau1, tau2), built and captured on first use, each graph one
+    whole static round (``make_round_fn`` at that (tau1, tau2)) over static
+    buffers, one graph per round of a topology schedule. A dispatch copies
+    the state in, each round's batch and gossip keys (a ``[tau2]`` key
+    vector, ``KeyedDraws``) into their buffers, and the state out at its
+    end; a key seen before captures nothing, and a dispatch is bitwise the
+    eager static rounds. On a CPU state the rounds run eagerly over the
+    same buffers with the host round index (the CPU path)."""
+
+    def __init__(self, cfg: DFLConfig, loss_fn, opt):
+        self.cfg, self._loss_fn, self._opt = cfg, loss_fn, opt
+        self._fns: Dict[Tuple[int, int], Callable] = {}
+        self._sets: Dict[Tuple[int, int], list] = {}
+        self._pool = None
+        self.device: Optional[torch.device] = None
+        self.params = self.opt_state = self.hat = self.batch = None
+        self.out: Dict[str, torch.Tensor] = {}
+        self.keys: Optional[torch.Tensor] = None
+        self.draws = None
+        self._seam = None
+        self.draws_anything = False
+
+    @property
+    def build_count(self) -> int:
+        return len(self._fns)
+
+    @property
+    def capture_count(self) -> int:
+        """Graph sets captured (on a CPU state: sets bound to run
+        eagerly)."""
+        return len(self._sets)
+
+    def prepare(self, state: DFLState, batches: Any) -> None:
+        """The buffers, shaped after ``state`` and one round of
+        ``batches`` (leaves ``[K, T, N, ...]``) at ``cfg.tau1`` steps, and
+        the seam bound."""
+        if self.params is None:
+            cfg = self.cfg
+            if cfg.is_compressed and state.hat_params is None:
+                raise ValueError("C-DFL needs init_state(..., "
+                                 "compressed=True)")
+            self.device = tree_leaves(state.params)[0].device
+            self.params = _clone(state.params)
+            self.opt_state = _clone(state.opt_state)
+            self.hat = _clone(state.hat_params) if cfg.is_compressed else None
+            self.batch = tree_map(lambda b: torch.zeros(
+                (cfg.tau1,) + tuple(b.shape[2:]), dtype=b.dtype,
+                device=b.device), batches)
+            with torch.no_grad():   # the loss's shape and dtype
+                loss = vmap(self._loss_fn)(self.params, tree_map(
+                    lambda b: b[0], self.batch))
+            self.out = {"loss": torch.empty((), dtype=loss.dtype,
+                                            device=self.device),
+                        "consensus_sq": torch.empty((), dtype=torch.float32,
+                                                    device=self.device)}
+            self.keys = torch.zeros(max(cfg.tau2, 1), dtype=torch.int64,
+                                    device=self.device)
+            comp = cfg.compression
+            self.draws_anything = comp is not None and any(
+                comp.draw_shape(t[0].numel()) is not None
+                for t in self.params.values())
+            if self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+        _check_state(state, tree_map(lambda b: b[0, 0], batches),
+                     (self.params, self.opt_state, self.hat),
+                     tree_map(lambda b: b[0], self.batch), self.device)
+        if self.draws_anything:
+            self.draws, self._seam = _bind_keyed(
+                state.draws, self.keys, self.device, self.draws, self._seam)
         else:
-            new = state._replace(params=_clone(st.params),
-                                 opt_state=_clone(st.opt_state),
-                                 hat_params=(_clone(st.hat) if st.hat
-                                             is not None
-                                             else state.hat_params))
-        return new._replace(round_idx=r0 + k), out
+            self.draws = state.draws
+
+    def _round(self, key: Tuple[int, int], round_idx: int) -> None:
+        t1 = key[0]
+        st = DFLState(self.params, self.opt_state, self.hat, round_idx,
+                      self.draws)
+        new, m = self._fns[key](st, tree_map(lambda b: b[:t1], self.batch))
+        _assign(self.params, new.params)
+        _assign(self.opt_state, new.opt_state)
+        _assign(self.hat, new.hat_params)
+        _assign(self.out, m)
+
+    def ensure(self, key: Tuple[int, int]) -> None:
+        """Build and capture the graph set of ``key`` unless it exists.
+        Call before the state is copied in (a warm call runs the round on
+        the buffers)."""
+        if key in self._sets:
+            return
+        if key not in self._fns:
+            self._fns[key] = make_round_fn(
+                dataclasses.replace(self.cfg, tau1=key[0], tau2=key[1]),
+                self._loss_fn, self._opt)
+        phases = max(len(self.cfg.topology_schedule), 1)
+        # a graph replays the round of its schedule phase; the CPU path
+        # passes the host round index (a host seam draws by it)
+        fns = [lambda r=p: self._round(key, r) for p in range(phases)]
+        for fn in fns:
+            warm(fn, self.device)
+        self._sets[key] = [capture(fn, self.device, self._pool) for fn in fns]
+
+    def buffer_state(self, state: DFLState) -> DFLState:
+        """``state`` over the static buffers (``_over``)."""
+        return _over((self.params, self.opt_state, self.hat), state)
+
+    def run(self, state: DFLState, batches: Any, rows: np.ndarray, k: int,
+            donate: bool) -> Tuple[DFLState, Dict[str, torch.Tensor]]:
+        for t1, t2 in dict.fromkeys(map(tuple, rows[:, :2].tolist())):
+            self.ensure((int(t1), int(t2)))
+        dev, r0 = self.device, state.round_idx
+        bufs = (self.params, self.opt_state, self.hat)
+        _load(bufs, state)
+        keys = (_upload_keys(state.draws, self.draws, r0, k,
+                             self.keys.numel(), dev)
+                if self.draws_anything else None)
+        out = {name: torch.empty(k, dtype=t.dtype, device=dev)
+               for name, t in self.out.items()}
+        leaves, step_bufs = tree_leaves(batches), tree_leaves(self.batch)
+        phases = max(len(self.cfg.topology_schedule), 1)
+        for i in range(k):
+            t1, t2 = int(rows[i, 0]), int(rows[i, 1])
+            for buf, leaf in zip(step_bufs, leaves):
+                buf[:t1].copy_(leaf[i, :t1])
+            if keys is not None:
+                self.keys.copy_(keys[i])
+            self._sets[(t1, t2)][(r0 + i) % phases].replay(r0 + i)
+            for name, v in out.items():
+                v[i].copy_(self.out[name])
+        return _result(bufs, state, donate, r0 + k), out

@@ -74,6 +74,25 @@ def contract(cm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ji,j...->i...", cm, x.to(cm.dtype)).to(x.dtype)
 
 
+_MATRICES: Dict[tuple, torch.Tensor] = {}
+_MATRICES_MAX = 64
+
+
+def _matrix_on(mixing: np.ndarray, dtype, device) -> torch.Tensor:
+    """``mixing`` in ``dtype`` on ``device``, each distinct one copied there
+    once without blocking the host (a bounded FIFO): a captured round (the
+    executor's static graphs) then reads a tensor it holds, and copies
+    nothing from the host while it is captured."""
+    key = (mixing.tobytes(), mixing.shape, str(dtype), torch.device(device))
+    hit = _MATRICES.get(key)
+    if hit is None:
+        if len(_MATRICES) >= _MATRICES_MAX:
+            _MATRICES.pop(next(iter(_MATRICES)))
+        hit = _MATRICES[key] = to_device(torch.from_numpy(mixing).to(dtype),
+                                         torch.device(device))
+    return hit
+
+
 def mix_dense(params: Params, topology: Topology,
               edge_mask: Optional[torch.Tensor] = None) -> Params:
     """One gossip step as a dense contraction over the node axis: every
@@ -85,7 +104,7 @@ def mix_dense(params: Params, topology: Topology,
     def mix_leaf(x: torch.Tensor) -> torch.Tensor:
         dtype = torch.promote_types(x.dtype, torch.float32)
         if edge_mask is None:
-            cm = torch.as_tensor(topology.mixing, dtype=dtype, device=x.device)
+            cm = _matrix_on(topology.mixing, dtype, x.device)
         else:
             cm = masked_mixing_matrix(topology, edge_mask.to(x.device), dtype)
         return contract(cm, x)

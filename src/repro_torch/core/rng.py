@@ -31,7 +31,10 @@ indices, rows picked by id: the tests feed it the reference's own draws.
 ``KeyedDraws`` (``GeneratorDraws.keyed``) draws the same bits under a key
 read from a device tensor instead of folded from host ints: a captured
 CUDA graph cannot see a host scalar change, so the executor writes each
-replay's key (``GeneratorDraws.step_key``) into that tensor first.
+replay's key (``GeneratorDraws.step_key``) into that tensor first (one
+key, or one per gossip step of a round). Under ``ids`` it also reads the
+node ids from a device tensor (the batched engine's cohort, which changes
+between replays), bitwise ``GeneratorDraws`` at those ids.
 """
 from __future__ import annotations
 
@@ -175,9 +178,11 @@ class GeneratorDraws(Draws):
             k = _splitmix(k, v)
         return _signed(k)
 
-    def keyed(self, key: torch.Tensor) -> "KeyedDraws":
-        """These draws under the key held in ``key`` (see ``KeyedDraws``)."""
-        return KeyedDraws(self, key)
+    def keyed(self, key: torch.Tensor,
+              ids: Optional[torch.Tensor] = None) -> "KeyedDraws":
+        """These draws under the key held in ``key``, for the node ids held
+        in ``ids`` when given (see ``KeyedDraws``)."""
+        return KeyedDraws(self, key, ids)
 
     def uniform(self, round_idx, step, leaf, shape, node_ids=None):
         return self.uniform_many(round_idx, step, [leaf], [shape],
@@ -208,14 +213,46 @@ class GeneratorDraws(Draws):
         return [block.view(rows, *shape) for block, shape in
                 zip(u.split([rows * n for n in numels]), shapes)]
 
-    def _draw_chunked(self, key, leaves, shapes, numels, ids, rows, keep
+    def draw_ids(self, key, leaves, shapes, ids: torch.Tensor,
+                 keep: Optional[Dict[tuple, torch.Tensor]] = None
+                 ) -> List[torch.Tensor]:
+        """``draw_at``'s blocks for the node ids held in ``ids``, an int64
+        tensor on the seam's device, read when the draw runs (a graph reads
+        it by address). The counters' node part ``GAMMA * (i * 2**32)`` is
+        computed there in wrapping int64 ops, the same bits as the host's
+        uint64 product; the element part of each leaf is cached in
+        ``keep``."""
+        shapes = [tuple(s) for s in shapes]
+        numels = tuple(int(np.prod(s, dtype=np.int64)) for s in shapes)
+        rows = ids.numel()
+        node_part = ids.bitwise_left_shift(32).mul_(_signed(_GAMMA))
+        if rows * sum(numels) > self.BLOCK_MAX:
+            return self._draw_chunked(key, leaves, shapes, numels, None,
+                                      rows, keep, node_part)
+        cache = {} if keep is None else keep
+        blocks = []
+        for leaf, n in zip(leaves, numels):
+            if ("elems", leaf, n) not in cache:
+                cache[("elems", leaf, n)] = self._elems(leaf, 0, n)
+            blocks.append((node_part[:, None]
+                           + cache[("elems", leaf, n)][None, :]).reshape(-1))
+        base = torch.cat(blocks) if blocks else torch.empty(
+            0, dtype=torch.int64, device=self.device)
+        u = _finish(base + key)
+        return [block.view(rows, *shape) for block, shape in
+                zip(u.split([rows * n for n in numels]), shapes)]
+
+    def _draw_chunked(self, key, leaves, shapes, numels, ids, rows, keep,
+                      node_part: Optional[torch.Tensor] = None
                       ) -> List[torch.Tensor]:
         """Each leaf drawn into its own f32 output a column chunk at a time,
         the chunk's counters built on the fly: the int64 temporaries stay
         near ``BLOCK_MAX`` elements whatever the tree's size, where the one
         block would hold the whole step's counters (8 bytes an element,
-        cached) and its temporaries."""
-        node_part = self._rows(ids, keep)
+        cached) and its temporaries. ``node_part``: the ids' part of the
+        counters, computed already (``draw_ids``)."""
+        if node_part is None:
+            node_part = self._rows(ids, keep)
         width = max(1, self.BLOCK_MAX // max(rows, 1))
         outs = []
         for leaf, n, shape in zip(leaves, numels, shapes):
@@ -242,17 +279,28 @@ def _finish(z: torch.Tensor) -> torch.Tensor:
 
 class KeyedDraws(Draws):
     """``draws`` (a ``GeneratorDraws``) under the key held in ``key``, an
-    int64 tensor of one element on the seam's device, whatever (round_idx,
-    step) it is asked for: bitwise ``draws.uniform_many(r, t, ...)`` once
-    ``key`` holds ``draws.step_key(r, t)``. A captured graph reads ``key``
-    and the counter bases by address, so every base used is kept for the
-    life of this object."""
+    int64 tensor on the seam's device, whatever round it is asked for:
+    bitwise ``draws.uniform_many(r, t, ...)`` once ``key`` holds
+    ``draws.step_key(r, t)``. ``key`` is one element, read whatever the
+    step, or a ``[T]`` vector whose entry t is gossip step t's key (a
+    captured round of several steps). ``ids``: an int64 ``[C]`` tensor of
+    node ids on the device, the rows drawn when the caller asks for
+    ``node_ids=None`` (``GeneratorDraws.draw_ids``). A captured graph reads
+    ``key``, ``ids`` and the counter bases by address, so every base used
+    is kept for the life of this object."""
 
-    def __init__(self, draws: GeneratorDraws, key: torch.Tensor):
-        if key.dtype != torch.int64 or key.numel() != 1:
-            raise ValueError(f"the key must be one int64 element, got "
-                             f"{tuple(key.shape)} {key.dtype}")
-        self.draws, self.key = draws, key
+    def __init__(self, draws: GeneratorDraws, key: torch.Tensor,
+                 ids: Optional[torch.Tensor] = None):
+        if key.dtype != torch.int64 or key.dim() > 1 or (
+                key.dim() == 0 and key.numel() != 1):
+            raise ValueError(f"the key must be one int64 element or a [T] "
+                             f"int64 vector, got {tuple(key.shape)} "
+                             f"{key.dtype}")
+        if ids is not None and (ids.dtype != torch.int64 or ids.dim() != 1):
+            raise ValueError(f"node ids must be an int64 vector, got "
+                             f"{tuple(ids.shape)} {ids.dtype}")
+        self.draws, self.key, self.ids = draws, key, ids
+        self._per_step = key.dim() == 1 and key.numel() != 1
         self._bases: Dict[tuple, torch.Tensor] = {}
 
     def uniform(self, round_idx, step, leaf, shape, node_ids=None):
@@ -260,7 +308,11 @@ class KeyedDraws(Draws):
                                  node_ids)[0]
 
     def uniform_many(self, round_idx, step, leaves, shapes, node_ids=None):
-        return self.draws.draw_at(self.key, leaves, shapes, node_ids,
+        key = self.key[step] if self._per_step else self.key
+        if self.ids is not None and node_ids is None:
+            return self.draws.draw_ids(key, leaves, shapes, self.ids,
+                                       self._bases)
+        return self.draws.draw_at(key, leaves, shapes, node_ids,
                                   self._bases)
 
 

@@ -11,6 +11,14 @@ the same history keys. Run it as::
 (``--levels``) and rand_gossip (``--p``), or empty for plain DFL. The
 random compressors draw from a generator seeded by ``--seed``.
 
+The rounds run through ``core.executor.RoundExecutor`` at the spec's
+(tau1, tau2): the rounds between two log points are one superstep (on
+the card, replays of the executor's CUDA graphs), their host batches
+built on a worker thread (``HostPrefetcher``), and the metrics stay on
+the device until the log point (``MetricsBuffer``), as the reference
+reads its jitted round only there. Nothing inside a dispatch reads the
+device.
+
 On the card it turns TF32 off for cuDNN convolutions and cuBLAS matmuls,
 because the reference runs the CNN in f32, and by default holds cuDNN to
 deterministic algorithms for the run, so two runs give the same history
@@ -29,10 +37,13 @@ import torch
 
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.dfl import (DFLConfig, average_model, init_state,
-                                  make_round_fn, round_wire_bits)
+                                  round_wire_bits)
+from repro_torch.core.executor import (HostPrefetcher, MetricsBuffer,
+                                       RoundExecutor, stack_round_batches)
 from repro_torch.core.rng import Draws
 from repro_torch.core.topology import (fully_connected, paper_quasi_ring,
                                        ring)
+from repro_torch.core.tree import tree_map
 from repro_torch.data.images import SyntheticImages, image_batches_for_dfl
 from repro_torch.device import deterministic_algorithms, resolve_device
 from repro_torch.models.cnn import cnn_accuracy, cnn_loss, init_cnn
@@ -76,20 +87,37 @@ class RunSpec:
         raise ValueError(self.topology)
 
 
+def log_points(rounds: int, log_every: int, log_first: int = 0
+               ) -> List[int]:
+    """The 0-based rounds after which the history is logged: the first
+    ``log_first``, every ``log_every``-th and the last."""
+    return [r for r in range(rounds)
+            if r < log_first or (r + 1) % log_every == 0 or r == rounds - 1]
+
+
 def run_dfl_cnn(spec: RunSpec, device="cuda", log_every: int = 5,
                 draws: Optional[Draws] = None,
-                deterministic: bool = True) -> Dict:
+                deterministic: bool = True,
+                telemetry=None, log_first: int = 0) -> Dict:
     """Train ``spec`` on ``device``; returns the reference's result dict
-    plus ``round_ms`` (host clock per round, ended by a device sync).
-    ``draws`` replaces the RNG seam seeded by ``spec.seed``.
+    plus ``round_ms``: per round, the wall time of its superstep (the
+    rounds since the last log point, from before their dispatch to the log
+    point's wait for the device) divided by its K, in ms. ``draws``
+    replaces the RNG seam seeded by ``spec.seed`` (on the card it must be a
+    ``GeneratorDraws``: the executor's graphs draw under a device key).
     ``deterministic``: cuDNN's deterministic algorithms for the run, so
-    that two calls give the same history (the flags are restored after)."""
+    that two calls give the same history (the flags are restored after).
+    ``telemetry``: a ``repro_torch.obs.Telemetry`` sink for the executor's,
+    the prefetcher's and the metrics buffer's events. ``log_first``: the
+    first rounds, each logged too (``log_points``)."""
     with deterministic_algorithms(deterministic):
-        return _run(spec, resolve_device(device), log_every, draws)
+        return _run(spec, resolve_device(device),
+                    log_points(spec.rounds, log_every, log_first), draws,
+                    deterministic, telemetry)
 
 
-def _run(spec: RunSpec, dev: torch.device, log_every: int,
-         draws: Optional[Draws]) -> Dict:
+def _run(spec: RunSpec, dev: torch.device, ends: List[int],
+         draws: Optional[Draws], deterministic: bool, telemetry) -> Dict:
     if dev.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -109,7 +137,8 @@ def _run(spec: RunSpec, dev: torch.device, log_every: int,
                        device=dev)
     state = init_state(params0, spec.nodes, opt, compressed=cfg.is_compressed,
                        seed=spec.seed, draws=draws)
-    round_fn = make_round_fn(cfg, loss_fn, opt)
+    executor = RoundExecutor(cfg, loss_fn, opt, deterministic=deterministic,
+                             telemetry=telemetry)
     bits_per_round = round_wire_bits(cfg, params0, engine="sparse")
 
     test_x = torch.from_numpy(data.test_x).to(dev)
@@ -122,15 +151,34 @@ def _run(spec: RunSpec, dev: torch.device, log_every: int,
     }
     round_ms: List[float] = []
     t0 = time.perf_counter()
-    for r in range(spec.rounds):
-        xs, ys = image_batches_for_dfl(
-            data, parts, spec.tau1, spec.batch, r, seed=spec.seed)
-        batches = (torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev))
-        start = time.perf_counter()
-        state, m = round_fn(state, batches)
-        loss, consensus = float(m["loss"]), float(m["consensus_sq"])
-        round_ms.append((time.perf_counter() - start) * 1e3)
-        if (r + 1) % log_every == 0 or r == spec.rounds - 1:
+
+    def host_rounds(r0: int, k: int):
+        return [image_batches_for_dfl(data, parts, spec.tau1, spec.batch, r,
+                                      seed=spec.seed)
+                for r in range(r0, r0 + k)]
+
+    windows = [(a + 1, b - a) for a, b in zip([-1] + ends, ends)]
+    buffer = MetricsBuffer(telemetry=telemetry)
+    prefetch = HostPrefetcher(telemetry=telemetry)
+    try:
+        if windows:
+            prefetch.schedule(host_rounds, *windows[0])
+        for i, (r0, k) in enumerate(windows):
+            host, _ = prefetch.take()
+            if i + 1 < len(windows):
+                prefetch.schedule(host_rounds, *windows[i + 1])
+            batches = stack_round_batches(host, spec.tau1, dev)
+            if i == 0:      # the graphs, captured before the clock runs
+                executor.warmup(state, tree_map(lambda b: b[:1], batches))
+            t_dispatch = time.perf_counter()
+            state, m = executor.dispatch(state, batches, spec.tau1,
+                                         spec.tau2)
+            buffer.push(r0, k, spec.tau1, spec.tau2, m,
+                        dispatched_at=t_dispatch)
+            rows = buffer.flush()               # the log point's one wait
+            round_ms += [row["round_s"] * 1e3 for row in rows]
+            r = r0 + k - 1
+            loss, consensus = rows[-1]["loss"], rows[-1]["consensus_sq"]
             with torch.no_grad():
                 avg = average_model(state.params)
                 acc = float(cnn_accuracy(avg, test_x, test_y, spec.flavor))
@@ -143,6 +191,8 @@ def _run(spec: RunSpec, dev: torch.device, log_every: int,
             hist["consensus"].append(consensus)
             hist["test_acc"].append(acc)
             hist["gbits"].append((r + 1) * bits_per_round / 1e9)
+    finally:
+        prefetch.close()
     return {
         "spec": dataclasses.asdict(spec),
         "device": str(dev),

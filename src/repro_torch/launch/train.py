@@ -15,8 +15,9 @@ The hot loop runs on ``core.executor.RoundExecutor``. ``--dispatch fused``
 (default) builds one dynamic-(tau1, tau2) round and dispatches
 ``--superstep`` rounds a call; on the card the rounds replay CUDA graphs
 captured in the warmup (``core.graphs``), so a re-plan, a new K, new masks
-or a new cohort capture nothing after it. ``--dispatch static`` runs the
-eager round, one build per (tau1, tau2). Host batches for the next
+or a new cohort capture nothing after it. ``--dispatch static`` builds and
+captures one round per (tau1, tau2), each warmed before it is dispatched.
+Host batches for the next
 superstep are built on a worker thread while the device runs
 (``HostPrefetcher``). ``--plan-budget`` hands (tau1, tau2) to
 ``planner.AdaptiveController`` (``--schedule adaptive`` re-plans at
@@ -31,16 +32,28 @@ superstep edges) and at the end, in the reference's format.
 ``--engine`` takes auto or dense (one card runs the dense engine; sparse
 raises with the sharded engine's item). ``--use-kernels`` is accepted and
 changes nothing: a CUDA tensor always takes the kernels
-(``launch.steps.kernelize_compressor``). ``--telemetry-out``,
-``--history-out`` and ``--profile-dir`` raise ``NotImplementedError``: the
-reference's history JSON is a view over its telemetry stream, which waits
-for item 9 (ROADMAP.md). ``--device`` (default cuda) runs on the CPU when
-asked, with the kernels' plain versions.
+(``launch.steps.kernelize_compressor``). ``--device`` (default cuda) runs
+on the CPU when asked, with the kernels' plain versions.
+
+Telemetry, as the reference's: the run writes its events into a
+``repro_torch.obs.Telemetry`` sink (the executor's ``compile``,
+``superstep`` and ``overlap``, the prefetcher's and the metrics buffer's,
+the controller's plans, and ``round``, ``degraded``, ``fault``,
+``checkpoint`` and one ``counters`` event a superstep, with the
+``kernel_<name>`` launch deltas of ``kernels.ops.LAUNCHES``, replays
+counted). ``--telemetry-out F`` writes the stream as JSONL as it runs;
+``--history-out F`` writes ``obs.history_view`` of it, the reference's
+history JSON; ``--profile-dir D`` runs the loop under ``torch.profiler``
+(CPU activity, and CUDA activity on the card) and writes a Chrome trace
+into ``D``. ``python -m repro_torch.obs validate|report|trace export``
+reads the stream.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -60,8 +73,10 @@ from repro_torch.data.lm import (SyntheticLM, lm_batches_for_cohort,
                                  lm_batches_for_dfl)
 from repro_torch.device import resolve_device
 from repro_torch.faults import CohortSampler, FaultPlan, load_fault_spec
+from repro_torch.kernels import ops
 from repro_torch.launch.steps import kernelize_compressor
 from repro_torch.models import ModelConfig, init_params, train_loss
+from repro_torch.obs import Telemetry, history_view
 from repro_torch.optim import adamw, momentum_sgd, sgd
 from repro_torch.planner import (DEFAULT_GRID, AdaptiveController, Budget,
                                  unit_cost_model)
@@ -122,8 +137,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--dispatch", default="fused",
                     choices=["fused", "static"],
                     help="fused: one dynamic-tau round, replayed graphs on "
-                         "the card; static: one eager round per "
-                         "(tau1, tau2)")
+                         "the card; static: one round built and captured "
+                         "per (tau1, tau2)")
     ap.add_argument("--overlap", default="none",
                     choices=["none", "pipeline"],
                     help="'pipeline' folds round k's gossip exchange one "
@@ -152,11 +167,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--faults-seed", type=int, default=None,
                     help="override the fault spec's seed")
     ap.add_argument("--history-out", default="",
-                    help="not ported yet (the telemetry stream's view)")
+                    help="write the history JSON (a view over the "
+                         "telemetry stream)")
     ap.add_argument("--telemetry-out", default="",
-                    help="not ported yet")
+                    help="write the telemetry event stream (JSONL)")
     ap.add_argument("--profile-dir", default="",
-                    help="not ported yet")
+                    help="run under torch.profiler and write a Chrome "
+                         "trace into this directory")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
@@ -174,12 +191,8 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
     the run's record: the per-round rows (round, tau1, tau2, loss,
     consensus_sq, round_s, ...), the engine and schedule mode, the builds
     and captures at the end of the warmup and at the end, the wire bits,
-    the final state and the executor."""
-    for flag, value in (("--telemetry-out", args.telemetry_out),
-                        ("--history-out", args.history_out),
-                        ("--profile-dir", args.profile_dir)):
-        if value:
-            raise NotImplementedError(f"{flag} {_NOT_PORTED.format(9)}")
+    the telemetry events and the history view, the final state and the
+    executor."""
     if args.engine == "sparse":
         raise NotImplementedError(
             f"engine='sparse' {_NOT_PORTED.format(6)}")
@@ -230,6 +243,7 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
         log(f"fault plan: {len(fault_plan.faults)} fault(s), "
             f"seed={fault_plan.seed}")
 
+    tel = Telemetry(path=args.telemetry_out or None, meta=dict(vars(args)))
     corpus = SyntheticLM(vocab_size=cfg.vocab_size,
                          num_nodes=population or n,
                          noniid_alpha=args.noniid, lazy=bool(population))
@@ -275,7 +289,7 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
         controller = AdaptiveController(
             Budget(wall_clock_s=args.plan_budget), prior,
             sigma=1.0, f_gap=1.0, replan_every=args.replan_every,
-            compressors=(comp,))
+            compressors=(comp,), telemetry=tel)
         p = controller.initial_plan()
         tau1, tau2 = p.tau1, p.tau2
         log(f"planned tau=({tau1},{tau2}) for budget "
@@ -294,7 +308,7 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
         dcfg_max, loss_fn, opt, engine=engine,
         dynamic=args.dispatch == "fused",
         participation=fault_plan is not None, overlap=args.overlap,
-        population=population or None)
+        population=population or None, telemetry=tel)
 
     wire_cache: Dict[tuple, float] = {}
 
@@ -380,27 +394,77 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
         if controller is not None:
             controller.spend_overhead(time.perf_counter() - tw0)
 
+    profiler = None
+    if args.profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+        profiler = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+        profiler.start()
+        log(f"torch profiler trace -> {args.profile_dir}")
+
     t_warm = time.perf_counter()
     if args.rounds > 0:
         warm(remaining_chunk_lens(start_round, 0), tau1, tau2)
     warmup_s = time.perf_counter() - t_warm
     builds_warm, captures_warm = executor.compile_count, executor.capture_count
 
-    buffer = MetricsBuffer()
-    prefetch = HostPrefetcher(retries=2)
+    buffer = MetricsBuffer(telemetry=tel)
+    prefetch = HostPrefetcher(telemetry=tel, retries=2)
     t0 = time.perf_counter()
     rows_out: List[Dict[str, Any]] = []
     counters = {"rounds_done": 0, "wire": 0.0, "last_ckpt": start_round,
                 "last_loss": float("nan")}
 
+    def emit_counters(round0: int, kk: int, launches0: Dict[str, int]
+                      ) -> None:
+        """A superstep's counters: the kernel launches of its dispatch
+        (``ops.LAUNCHES`` deltas, replays counted), the builds and captures
+        and the wire and prefetch totals so far (host counters only)."""
+        tel.emit("counters", track="dispatch", name="superstep-counters",
+                 round0=round0, k=kk, compile_count=executor.compile_count,
+                 capture_count=executor.capture_count,
+                 wire_bits_total=counters["wire"],
+                 prefetch_taken=prefetch.stats["taken"],
+                 prefetch_stale=prefetch.stats["stale"],
+                 prefetch_cancelled=prefetch.stats["cancelled"],
+                 **{f"kernel_{key}": v - launches0.get(key, 0)
+                    for key, v in ops.LAUNCHES.items()})
+
     def do_checkpoint(step: int, extra: dict) -> None:
+        ck0 = tel.now()
         save_checkpoint(args.ckpt_dir, step, state.params, extra)
+        tel.emit("checkpoint", track="checkpoint", name=f"ckpt-{step}",
+                 t=ck0, dur=tel.now() - ck0, round=step)
 
     def flush_rows() -> None:
         rows = buffer.flush()
         for row in rows:
             r = row["round"]
             counters["wire"] += wire_bits_for(row["tau1"], row["tau2"])
+            extra: Dict[str, Any] = {}
+            if "active_nodes" in row:
+                # realized participation rides every round event
+                extra = dict(active_nodes=row["active_nodes"],
+                             masked_edges=row["masked_edges"],
+                             degraded=(row["active_nodes"] < n
+                                       or row["masked_edges"] > 0))
+            if sampler is not None:
+                extra.update(cohort_size=n, population=population)
+            tel.emit("round", track="rounds", name=f"round-{r}", round=r,
+                     tau1=row["tau1"], tau2=row["tau2"], loss=row["loss"],
+                     consensus_sq=row["consensus_sq"],
+                     round_s=row["round_s"],
+                     wire_bits=wire_bits_for(row["tau1"], row["tau2"]),
+                     **extra)
+            if extra.get("degraded"):
+                tel.emit("degraded", track="faults", name=f"degraded-{r}",
+                         round=r, active_nodes=row["active_nodes"],
+                         masked_edges=row["masked_edges"])
+            if fault_plan is not None:
+                for payload in fault_plan.events(r):
+                    tel.emit("fault", track="faults",
+                             name=f"{payload['kind']}-{payload['phase']}",
+                             round=r, **payload)
             if fault_plan is not None and controller is not None:
                 nm, em = fault_plan.masks(r)
                 controller.observe_participation(nm, em)
@@ -475,10 +539,13 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
                     else:
                         prefetch.mark_stale()
                 if host is None:
-                    host = host_rounds(r, taus[:, 0])
+                    with tel.span("stale-rebuild" if pending
+                                  else "batch-build", track="prefetch"):
+                        host = host_rounds(r, taus[:, 0])
                 batches = upload(host)
                 controller.spend_overhead(time.perf_counter() - tb0)
                 t_dispatch = time.perf_counter()
+                launches0 = dict(ops.LAUNCHES)
                 state, metrics = dispatch(executor, state, batches,
                                           widen(taus, r))
                 buffer.push(r, len(taus), None, None, metrics,
@@ -487,6 +554,7 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
                 counters["rounds_done"] += len(taus)
                 flush_rows()
                 pending = schedule_predicted(r, counters["rounds_done"])
+                emit_counters(r - len(taus), len(taus), launches0)
                 maybe_checkpoint(r)
 
         r = end if schedule_mode == "trajectory" else start_round
@@ -497,13 +565,16 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
             host, meta = prefetch.take()
             if meta != (r, k, tau1):   # stale after a re-plan changed tau1
                 prefetch.mark_stale()
-                host = host_rounds(r, [tau1] * k)
+                with tel.span("stale-rebuild", track="prefetch"):
+                    host = host_rounds(r, [tau1] * k)
             batches = upload(host)
             t_dispatch = time.perf_counter()
             rows = widen(np.tile(np.array([[tau1, tau2]], np.int32), (k, 1)),
                          r)
+            launches0 = dict(ops.LAUNCHES)
             state, metrics = dispatch(executor, state, batches, rows)
             buffer.push(r, k, tau1, tau2, metrics, dispatched_at=t_dispatch)
+            emit_counters(r, k, launches0)
             r += k
             counters["rounds_done"] += k
             k_next = chunk_len(r, counters["rounds_done"])
@@ -531,8 +602,38 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
             k = chunk_len(r, counters["rounds_done"])
     finally:
         prefetch.close()
+        if profiler is not None:
+            profiler.stop()
     if args.ckpt_dir:
         do_checkpoint(start_round + counters["rounds_done"], {})
+    if profiler is not None:
+        os.makedirs(args.profile_dir, exist_ok=True)
+        path = os.path.join(args.profile_dir, "trace.json")
+        profiler.export_chrome_trace(path)
+        log(f"profile -> {path}")
+    # run-level counters: the history view reads schedule_mode and the
+    # build counts from here; builds and captures after the warmup must
+    # be 0 under --dispatch fused
+    tel.emit("counters", track="run", name="run-summary",
+             schedule_mode=schedule_mode,
+             rounds_done=counters["rounds_done"], engine=engine,
+             compile_count_warmup=builds_warm,
+             compile_count=executor.compile_count,
+             capture_count_warmup=captures_warm,
+             capture_count=executor.capture_count,
+             wire_bits_total=counters["wire"],
+             prefetch_taken=prefetch.stats["taken"],
+             prefetch_stale=prefetch.stats["stale"],
+             prefetch_cancelled=prefetch.stats["cancelled"],
+             wall_s=time.perf_counter() - t0)
+    history = history_view(tel.events)
+    if args.history_out:
+        with open(args.history_out, "w") as f:
+            json.dump(history, f, indent=1)
+        log(f"history -> {args.history_out}")
+    if args.telemetry_out:
+        log(f"telemetry -> {args.telemetry_out} ({len(tel.events)} events)")
+    tel.close()
     log("done")
     return {
         "rows": rows_out, "engine": engine, "schedule_mode": schedule_mode,
@@ -543,6 +644,7 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
         "compile_count": executor.compile_count,
         "capture_count": executor.capture_count,
         "wire_bits_total": counters["wire"], "prefetch": dict(prefetch.stats),
+        "events": tel.events, "history": history,
         "state": state, "executor": executor,
     }
 

@@ -28,9 +28,10 @@ trajectory``, and ``repro_torch.launch.planned_run`` here). Every
 the emitted metrics show the schedule trajectory.
 
 Numpy only: a copy of ``repro.planner.adaptive`` over the port's planner,
-so the same observations give the reference's plans, bit for bit. The
-reference's telemetry sink (``telemetry=``) raises ``NotImplementedError``
-until the port has its event stream (ROADMAP.md).
+so the same observations give the reference's plans, bit for bit. With a
+``telemetry`` sink (``repro_torch.obs.Telemetry``) every plan record is
+mirrored into the event stream as a ``plan``, ``replan`` or ``probe``
+event, as the reference's.
 """
 from __future__ import annotations
 
@@ -50,7 +51,6 @@ from repro_torch.planner.optimize import (Budget, DEFAULT_GRID, Plan,
 __all__ = ["AdaptiveController"]
 
 _T_FLOOR = 1e-9  # seconds; keeps fitted per-step times strictly positive
-_NOT_PORTED = "is not ported yet (ROADMAP.md, modules to port, item {})"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +77,7 @@ class AdaptiveController:
         re-bases it on the measured-fit cost model each superstep, so the
         emitted per-round schedule routes around announced episodes while
         the base speeds stay measurement-driven.
-      telemetry: the reference's event sink; anything but None raises
-        ``NotImplementedError`` (not ported yet).
+      telemetry: an event sink (``repro_torch.obs.Telemetry``), or None.
     """
 
     def __init__(
@@ -96,8 +95,6 @@ class AdaptiveController:
         process: Optional[CostProcess] = None,
         telemetry=None,
     ):
-        if telemetry is not None:
-            raise NotImplementedError(f"telemetry {_NOT_PORTED.format(9)}")
         assert replan_every >= 1
         self.budget = budget
         self.cost_model = cost_model
@@ -120,6 +117,7 @@ class AdaptiveController:
         self._edge_up = 0
         self._edge_total = 0
         self.history: List[dict] = []   # one dict per (re)plan event
+        self._telemetry = telemetry     # optional repro_torch.obs sink
         self.current: Optional[Plan] = None
         self.exhausted = False
 
@@ -147,6 +145,11 @@ class AdaptiveController:
             return None
         return Budget(wall_clock_s=wall, wire_bits=bits, energy_j=joules)
 
+    # telemetry event type per plan cause ("trajectory" chunks are plan
+    # decisions too; probes get their own type so timelines can mark the
+    # identifiability injections).
+    _EVENT_TYPE = {"initial": "plan", "replan": "replan", "probe": "probe"}
+
     def _emit(self, round_idx: int, cause: str, **extra) -> None:
         p = self.current
         assert p is not None
@@ -165,6 +168,11 @@ class AdaptiveController:
             **extra,
         }
         self.history.append(rec)
+        if self._telemetry is not None:
+            # mirror the exact record into the event stream: the
+            # --history-out plan_events view reconstructs from these.
+            self._telemetry.emit(self._EVENT_TYPE.get(cause, "plan"),
+                                 track="planner", name=cause, **rec)
 
     def initial_plan(self) -> Plan:
         """Plan round 0 from the prior cost model and the full budget."""

@@ -396,14 +396,18 @@ def test_dispatch_rejects_out_of_bounds_taus():
 
 
 def test_unported_executor_modes_raise():
-    """The modes still to port raise, pointing at ROADMAP.md; participation,
-    sampled populations and the pipeline are ported and refuse what the
-    reference refuses (the static fallback, a population on the dense
-    engine)."""
+    """The mode still to port (the sparse engine) raises, pointing at
+    ROADMAP.md; participation, sampled populations, the pipeline and
+    telemetry are ported, and the modes refuse what the reference refuses
+    (the static fallback, a population on the dense engine)."""
+    from repro_torch.obs import Telemetry, validate_stream
+
     cfg = DFLConfig(tau1=2, tau2=1, topology=ring(N))
-    for kw in ({"engine": "sparse"}, {"telemetry": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RoundExecutor(cfg, quad_loss, sgd(0.1), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RoundExecutor(cfg, quad_loss, sgd(0.1), engine="sparse")
+    tel = Telemetry()
+    assert RoundExecutor(cfg, quad_loss, sgd(0.1),
+                         telemetry=tel)._tel is tel
     assert RoundExecutor(cfg, quad_loss, sgd(0.1),
                          overlap="pipeline").overlap == "pipeline"
     with pytest.raises(ValueError, match="overlap"):
@@ -418,9 +422,17 @@ def test_unported_executor_modes_raise():
                          participation=True).row_width == 2 + N + N
     assert RoundExecutor(cfg, quad_loss, sgd(0.1), engine="auto",
                          population=16).row_width == 2 + 2 * N + N
-    for cls in (HostPrefetcher, MetricsBuffer):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls(telemetry=object())
+    pf = HostPrefetcher(telemetry=tel)
+    pf.schedule(lambda: 1, meta="m")
+    assert pf.take() == (1, "m")
+    pf.close()
+    buf = MetricsBuffer(telemetry=tel)
+    buf.push(0, 1, 2, 1, {"loss": torch.ones(1)})
+    assert buf.flush()[0]["loss"] == 1.0
+    kinds = [(e["type"], e.get("name")) for e in tel.events]
+    assert kinds[1:] == [("prefetch", "build"), ("prefetch", "close"),
+                         ("flush", "metrics-flush")]
+    assert validate_stream(tel.events) == []
 
 
 # ---------------------------------------------------------------------------

@@ -64,8 +64,15 @@ def test_keyed_draws_bitwise_host_draws(round_idx, step, ids):
                                                   b.view(torch.int32))
     for name, shape, b in zip(names, shapes, want):
         assert torch.equal(keyed.uniform(0, 0, name, shape, ids), b)
+    # a [T] key is one key a gossip step (the static fallback's captured
+    # round); anything of more dimensions is refused
+    per_step = draws.keyed(torch.tensor(
+        [draws.step_key(round_idx, t) for t in range(step + 2)]))
+    for a, b in zip(per_step.uniform_many(round_idx + 5, step, names, shapes,
+                                          ids), want):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="int64"):
-        draws.keyed(torch.zeros(2, dtype=torch.int64))
+        draws.keyed(torch.zeros(2, 2, dtype=torch.int64))
 
 
 def test_loss_over_tau1_is_true_division():

@@ -31,6 +31,7 @@ What is held here, each with its tolerance:
 * The flags that wait for other items raise with their item's text.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -316,15 +317,48 @@ def test_full_state_checkpoint_resumes_cdfl_bitwise(tmp_path):
 @pytest.mark.parametrize("flag,item", [
     (["--telemetry-out", "x"], 9), (["--history-out", "x"], 9),
     (["--profile-dir", "x"], 9), (["--engine", "sparse"], 6)])
-def test_flags_waiting_for_other_items_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        train.main(["--arch", ARCH, "--rounds", "1", "--device", "cpu",
-                    *flag])
+def test_flags_waiting_for_other_items_raise(tmp_path, flag, item):
+    """``--engine sparse`` waits for item 6 and raises. Item 9's three
+    flags are ported: each writes its file, and the file validates (the
+    event stream under the reference's ``repro.obs`` too)."""
+    argv = ["--arch", ARCH, "--rounds", "2", "--device", "cpu", "--batch",
+            "1", "--seq", "16", "--tau1", "1", "--tau2", "1",
+            "--superstep", "1"]
+    if item == 6:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            train.main(argv + flag)
+        return
+    from repro.obs import validate_stream as jvalidate_stream
+    from repro_torch.obs import (HISTORY_SCHEMA_VERSION, history_view,
+                                 read_events, validate_stream)
+
+    path = tmp_path / "out"
+    out = train.main(argv + [flag[0], str(path)])
+    if flag[0] == "--telemetry-out":
+        events = read_events(str(path))
+        assert events == out["events"]
+        assert validate_stream(events) == [] == jvalidate_stream(events)
+        types = {e["type"] for e in events}
+        assert {"run", "compile", "superstep", "round", "counters",
+                "flush", "prefetch"} <= types
+        assert sum(e["type"] == "round" for e in events) == 2
+    elif flag[0] == "--history-out":
+        with open(path) as f:
+            h = json.load(f)
+        assert h == history_view(out["events"])
+        assert h["schema_version"] == HISTORY_SCHEMA_VERSION
+        assert h["round"] == [1, 2] and h["schedule"] == [[1, 1], [1, 1]]
+        assert h["compile_count"] == h["compile_count_warmup"] == 1
+    else:
+        with open(path / "trace.json") as f:
+            trace = json.load(f)
+        assert trace["traceEvents"]
 
 
 def test_use_kernels_and_static_dispatch_run(tmp_path):
-    """--use-kernels changes nothing on the port; --dispatch static runs
-    the eager round, one build per (tau1, tau2)."""
+    """--use-kernels changes nothing on the port; --dispatch static builds
+    and captures one round per (tau1, tau2): one build and one graph set
+    here."""
     base = ["--arch", ARCH, "--nodes", "4", "--rounds", "2", "--batch", "1",
             "--seq", "16", "--tau1", "1", "--tau2", "1", "--superstep", "1",
             "--device", "cpu", "--compression", "top_k"]
@@ -334,7 +368,7 @@ def test_use_kernels_and_static_dispatch_run(tmp_path):
     assert [r["loss"] for r in a["rows"]] == [r["loss"] for r in b["rows"]]
     np.testing.assert_allclose([r["loss"] for r in c["rows"]],
                                [r["loss"] for r in a["rows"]], rtol=1e-5)
-    assert c["compile_count"] == 1 and c["capture_count"] == 0
+    assert c["compile_count"] == 1 and c["capture_count"] == 1
 
 
 def test_consensus_sums_in_reference_leaf_order():

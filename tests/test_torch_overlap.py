@@ -412,3 +412,55 @@ def test_masked_round_cost_overlap_window():
         2 * t_c + max(0.0, (live_n.time_s - 2 * t_c) - 2 * t_c))
     assert live_p.time_s <= live_n.time_s
     assert live_p.wire_bits == live_n.wire_bits
+
+
+# ---------------------------------------------------------------------------
+# observability: the gossip slice rides its own track
+# ---------------------------------------------------------------------------
+
+
+def test_pipeline_emits_overlap_events():
+    """The reference's ``tests/test_overlap.py`` case on the port: one
+    ``overlap`` event a pipelined dispatch, on its own track; none under
+    ``overlap="none"``."""
+    from repro_torch.obs import Telemetry
+    from repro_torch.obs.events import validate_events
+
+    tel = Telemetry()
+    opt = sgd(0.1)
+    cfg = DFLConfig(tau1=3, tau2=2, topology=ring(N))
+    ex = RoundExecutor(cfg, quad_loss, opt, donate=False,
+                       overlap="pipeline", telemetry=tel)
+    batches = stacked(_round_batches(TAUS), cfg.tau1)
+    ex.dispatch_trajectory(fresh_state(opt), batches, TAUS)
+    ov = [e for e in tel.events if e["type"] == "overlap"]
+    assert len(ov) == 1
+    assert ov[0]["track"] == "overlap" and ov[0]["dur"] is not None
+    assert ov[0]["data"]["mode"] == "pipeline"
+    assert ov[0]["data"]["k"] == len(TAUS)
+    assert validate_events(tel.events) == []
+    tel2 = Telemetry()
+    ex_n = RoundExecutor(cfg, quad_loss, opt, donate=False,
+                         telemetry=tel2)
+    ex_n.dispatch_trajectory(fresh_state(opt), batches, TAUS)
+    assert not [e for e in tel2.events if e["type"] == "overlap"]
+
+
+def test_run_report_aggregates_overlap():
+    from repro_torch.obs.events import make_event
+    from repro_torch.obs.report import format_report, run_report
+
+    events = [
+        make_event("run", 0.0, "run",
+                   data={"schema": 3, "wall_start": 1.0}),
+        make_event("overlap", 0.5, "overlap", name="gossip-inflight-k4",
+                   dur=0.25, data={"mode": "pipeline", "k": 4,
+                                   "dispatch": 1}),
+        make_event("overlap", 1.0, "overlap", name="gossip-inflight-k4",
+                   dur=0.15, data={"mode": "pipeline", "k": 4,
+                                   "dispatch": 2}),
+    ]
+    rep = run_report(events)
+    assert rep["overlap"] == {"supersteps": 2, "mode": "pipeline",
+                              "inflight_s": pytest.approx(0.4)}
+    assert "overlap: mode=pipeline over 2 superstep(s)" in format_report(rep)

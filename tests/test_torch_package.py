@@ -70,10 +70,27 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.checkpoint.io", "repro_torch.launch.steps",
             "repro_torch.launch.train", "repro_torch.serving",
             "repro_torch.serving.engine", "repro_torch.launch.serve",
-            "repro_torch.examples.serve_decode"} <= set(mods)
+            "repro_torch.examples.serve_decode", "repro_torch.obs",
+            "repro_torch.obs.events", "repro_torch.obs.telemetry",
+            "repro_torch.obs.history", "repro_torch.obs.report",
+            "repro_torch.obs.trace", "repro_torch.obs.__main__"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                                   "ml_dtypes")]
     assert bad == []
+
+
+def test_obs_is_stdlib_only():
+    """The telemetry package and its CLI import neither torch nor numpy
+    (the reference's ``repro.obs`` is stdlib only too), so a stream can be
+    read wherever it is copied."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    probe = ("import json, sys, repro_torch.obs, repro_torch.obs.__main__; "
+             "print(json.dumps(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", probe], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    mods = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert not {"torch", "numpy", "jax", "repro"} & {m.split(".")[0]
+                                                     for m in mods}
 
 
 def test_default_device_raises_without_cuda():

@@ -108,10 +108,34 @@ def test_planner_exports_and_is_numpy_only():
 
 
 def test_controller_telemetry_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        AdaptiveController(Budget(wall_clock_s=1.0),
-                           unit_cost_model(TOPO, 1.0), sigma=1.0, f_gap=1.0,
-                           telemetry=object())
+    """The controller's telemetry, once raising, is ported: every plan
+    record goes into the stream as the reference's controller puts it
+    (``plan`` / ``replan`` / ``probe``), the same records."""
+    from repro.obs import Telemetry as JTelemetry
+    from repro.planner import Budget as JBudget
+    from repro.planner import unit_cost_model as junit_cost_model
+    from repro_torch.obs import Telemetry, validate_stream
+
+    def session(ctrl):
+        p = ctrl.initial_plan()
+        for r in range(1, 4):
+            ctrl.observe(p.tau1, p.tau2, 3.0 + r)
+            p = ctrl.maybe_replan(r) or p
+        return ctrl
+
+    tel, jtel = Telemetry(), JTelemetry()
+    ours = session(AdaptiveController(
+        Budget(wall_clock_s=60.0), unit_cost_model(TOPO, 1.0), sigma=1.0,
+        f_gap=1.0, replan_every=1, telemetry=tel))
+    ref = session(jadaptive.AdaptiveController(
+        JBudget(wall_clock_s=60.0), junit_cost_model(jtopology.ring(8), 1.0),
+        sigma=1.0, f_gap=1.0, replan_every=1, telemetry=jtel))
+    got = [(e["type"], e["data"]) for e in tel.events[1:]]
+    want = [(e["type"], e["data"]) for e in jtel.events[1:]]
+    assert got == want and len(got) == len(ours.history) >= 2
+    assert got[0][0] == "plan" and {t for t, _ in got[1:]} <= {"replan",
+                                                                "probe"}
+    assert validate_stream(tel.events) == []
 
 
 # -- acceptance: the paper's qualitative result end-to-end ------------------
@@ -1167,3 +1191,56 @@ def test_compression_sweep_runs_on_cpu(capsys):
                                             compression_sweep.VARIANTS]
     assert all(math.isfinite(r["loss"]) and r["gb_sent"] > 0 for r in rows)
     assert "loss/GB frontier" in capsys.readouterr().out
+
+
+# -- the train CLI's planner sessions (the reference's test_planner cases) --
+
+
+def test_train_cli_adaptive_session(tmp_path):
+    """``--plan-budget`` through the port's train CLI on the CPU: the
+    controller plans, measures, re-plans, and the (tau1, tau2) trajectory
+    lands in the history JSON (a view over the telemetry stream)."""
+    import json
+
+    from repro_torch.launch import train as train_cli
+
+    out = tmp_path / "hist.json"
+    train_cli.main([
+        "--arch", "qwen3-1.7b", "--nodes", "2", "--rounds", "3",
+        "--batch", "1", "--seq", "16", "--plan-budget", "3600",
+        "--replan-every", "1", "--log-every", "10",
+        "--history-out", str(out), "--device", "cpu"])
+    h = json.loads(out.read_text())
+    assert len(h["round"]) == 3
+    assert len(h["tau1"]) == 3 and len(h["tau2"]) == 3
+    assert all(t >= 1 for t in h["tau1"])
+    events = h["plan_events"]
+    assert events[0]["cause"] == "initial"
+    assert any(e["cause"] == "replan" for e in events)
+    assert (events[0]["tau1"], events[0]["tau2"]) == (h["tau1"][0],
+                                                     h["tau2"][0])
+
+
+def test_train_cli_trajectory_session(tmp_path):
+    """``--schedule trajectory``: per-round [K, 2] schedules dispatched
+    inside supersteps, the realized schedule in the history JSON, and no
+    build after the warmup."""
+    import json
+
+    from repro_torch.launch import train as train_cli
+
+    out = tmp_path / "hist.json"
+    train_cli.main([
+        "--arch", "qwen3-1.7b", "--nodes", "2", "--rounds", "6",
+        "--batch", "1", "--seq", "16", "--plan-budget", "3600",
+        "--schedule", "trajectory", "--superstep", "3",
+        "--log-every", "10", "--history-out", str(out), "--device", "cpu"])
+    h = json.loads(out.read_text())
+    assert h["schedule_mode"] == "trajectory"
+    assert len(h["round"]) == 6
+    assert h["schedule"] == [[t1, t2] for t1, t2 in
+                             zip(h["tau1"], h["tau2"])]
+    assert all(t1 >= 1 for t1, _ in h["schedule"])
+    assert h["compile_count"] == h["compile_count_warmup"]
+    causes = {e["cause"] for e in h["plan_events"]}
+    assert "initial" in causes and "trajectory" in causes
