@@ -164,7 +164,25 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    of superstep throughput); the train CLI's ``--telemetry-out``,
    ``--history-out`` and ``--profile-dir`` on the reduced Qwen3, each file
    written and valid, the counters' kernel launches those of the run.
-14. Print the kernels line, the build and total wall times, the card's
+14. The sparse engine, one node per process (``run_sparse_phase``,
+   ``repro_torch.core.sharded``): (a) K1's received-buffer form bitwise
+   its plain version and the dense K1 at the same weights (one CIFAR
+   node's leaves and the parity sizes, deg 1, 2, 7, f32 and bf16), timed
+   against its plain version, one ``torch.addmm`` a leaf and its bound on
+   the CIFAR node (deg 2 and 7) and one node of the full-width Qwen3 tree;
+   (b) 8 gloo ranks on the one card, the CIFAR CNN at full width on
+   ring(8) and fully_connected(8): one gossip step bitwise the dense
+   port's, 3 rounds of plain, TopK and QSGD held to it
+   (``SPARSE_RUN_RTOL``, which a control with K1-received shifted must
+   break), their final parameters bitwise the dense port's run with
+   per-node convolutions (plain, TopK: the witness that the rest of the
+   gap is the grouped convolutions' rounding), exact launches on every
+   rank, ms a round and the exchange's share; (c) the executor on the
+   sparse engine with a re-plan and masks, no build or capture after the
+   warmup; (d) the train CLI with
+   ``--engine sparse`` on 4 ranks against the dense CLI on the card.
+   ``--only sparse_calibrate`` prints (b)'s readings ungated.
+15. Print the kernels line, the build and total wall times, the card's
    name and power limit, and the final ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when ``torch.cuda.is_available()`` is
@@ -179,8 +197,10 @@ phases after the build (``graphs``, ``pipeline``, ``pipeline_calibrate``:
 phase 4c's readings and controls ungated, ``figures``,
 ``figures_calibrate``: phase 5's figure readings and three controls
 ungated, ``telemetry``, ``lm``, ``lm_calibrate``, ``serve``,
-``serve_calibrate``, ...) and prints no result.
+``serve_calibrate``, ``sparse``, ``sparse_calibrate``, ...) and prints
+no result.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -783,6 +803,8 @@ def run_main_path(K):
         for key in totals:
             totals[key] += counts[key]
     for key, n in totals.items():
+        if key == "gossip_mix_received":    # the sparse engine's (phase 15)
+            continue
         K[key].launches = n
         require(n > 0, f"{key} was never launched on the main path")
 
@@ -1204,7 +1226,8 @@ class perturbed:
             return t * (1 + eps) if kind == "x_scale" else t + eps
 
         def wrapped(x, *args):
-            on_card = (x[0] if op == "gossip_mix_many" else x).is_cuda
+            many = op in ("gossip_mix_many", "gossip_mix_received_many")
+            on_card = (x[0] if many else x).is_cuda
             if not on_card:
                 return orig(x, *args)
             if kind == "noise":
@@ -1212,7 +1235,7 @@ class perturbed:
                 noise = (noise + eps).clamp_(max=1 - 2.0 ** -24)
                 return orig(x, y, my, noise, *rest)
             out = orig(x, *args)
-            if op == "gossip_mix_many":
+            if many:
                 return [bias(t) for t in out]
             return (bias(out[0]), *out[1:])
         setattr(ops, op, wrapped)
@@ -3880,6 +3903,555 @@ def run_serve_phase(gate=True):
     print("serve phase seconds " + json.dumps(times))
 
 
+SPARSE_NODES = 8
+SPARSE_TAUS = (4, 4)
+SPARSE_BATCH = 16
+SPARSE_LR = 0.05
+SPARSE_RUNS = (("dfl", "", {}), ("cdfl_topk", "top_k", {"frac": 0.67}),
+               ("cdfl_qsgd", "qsgd", {"levels": 16}))
+SPARSE_TOPOS = ("ring", "full")
+SPARSE_TIMEOUT_S = 300.0
+# the sparse engine's 3 CIFAR rounds against the dense port's on the card,
+# relative, per round: the limits sit between the largest sound reading
+# and a control run with K1-received's output shifted by 1e-3 on every
+# rank (``--only sparse_calibrate``, PERF.md §6): sound loss 9.1e-3 (ring,
+# plain: the local steps' convolutions round differently at one node
+# than grouped over 8; the dense port with per-node convolutions reads
+# the same gap, and the sparse run's parameters are bitwise its),
+# consensus 0.51 (fully_connected(8), TopK, whose consensus is 6e-4 and
+# moves with every flipped selection); controls
+# loss 0.25 (QSGD) to 1.2e3 (plain), consensus 0.035 (QSGD) to 7.2e6. The
+# loss limit is the one the controls break; the consensus limit only
+# catches a run that drifts by more than its own size.
+SPARSE_RUN_RTOL = {"loss": 5e-2, "consensus_sq": 1.0}
+SPARSE_CONTROL = ("gossip_mix_received_many", "x_shift", 1e-3)
+SPARSE_ULPS = 8.0           # K2's y_new contract (test_torch_choco_fused)
+
+
+def sparse_topology(name):
+    from repro_torch.core.topology import fully_connected, ring
+    return (ring if name == "ring" else fully_connected)(SPARSE_NODES)
+
+
+def sparse_inputs():
+    """The CIFAR CNN's initial weights (CPU, seed 1) and 3 rounds of
+    batches ``[tau1, 8, 16, 32, 32, 3]`` (numpy), made alike in every
+    process."""
+    from repro_torch.data.images import SyntheticImages, image_batches_for_dfl
+    from repro_torch.models.cnn import init_cnn
+
+    data = SyntheticImages(flavor="cifar", train_size=2000, test_size=8,
+                           seed=3)
+    parts = data.partition(SPARSE_NODES, seed=0)
+    p0 = init_cnn(torch.Generator().manual_seed(1), "cifar", "cpu")
+    return p0, [image_batches_for_dfl(data, parts, SPARSE_TAUS[0],
+                                      SPARSE_BATCH, r)
+                for r in range(RUN_ROUNDS)]
+
+
+def sparse_cfg(topo, compression, kw):
+    """The run's config: TopK at gamma 0.6, QSGD at ``QSGD_GAMMA`` (at 0.6
+    its CIFAR rounds diverge, on both engines, within 3 rounds: the
+    consensus distance reaches 1e3, and a comparison of diverging runs
+    reads their chaos)."""
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.core.dfl import DFLConfig
+    comp = make_compressor(compression, **kw) if compression else None
+    gamma = (QSGD_GAMMA if compression == "qsgd" else 0.6) if comp else 1.0
+    return DFLConfig(tau1=SPARSE_TAUS[0], tau2=SPARSE_TAUS[1],
+                     topology=sparse_topology(topo), compression=comp,
+                     gamma=gamma)
+
+
+def sparse_state(p0, cfg, rows):
+    """The run's start on the card: ``rows`` copies of the weights, the
+    seam the dense engine's (GeneratorDraws, seed 0, all 8 nodes)."""
+    from repro_torch.core.dfl import init_state, replicate
+    from repro_torch.core.rng import GeneratorDraws
+    from repro_torch.optim import sgd
+    params = {k: v.cuda() for k, v in replicate(p0, rows).items()}
+    return init_state(params, rows, sgd(SPARSE_LR), stacked=True,
+                      compressed=cfg.is_compressed,
+                      draws=GeneratorDraws(0, SPARSE_NODES, p0, "cuda"))
+
+
+def sparse_step_state(p0):
+    """A per-node state for one gossip step: x and y the weights with
+    node-wise noise, [8, ...] on the CPU."""
+    gen = torch.Generator().manual_seed(7)
+    x = {k: v + 0.01 * torch.randn((SPARSE_NODES,) + v.shape, generator=gen)
+         for k, v in p0.items()}
+    y = {k: v + 0.01 * torch.randn(v.shape, generator=gen)
+         for k, v in x.items()}
+    return x, y
+
+
+def sparse_one_step(sub, x, y, draws):
+    """One plain gossip step of x, and one TopK and one QSGD CHOCO step
+    from (x, y), on the substrate ``sub``."""
+    from repro_torch.core.compression import make_compressor
+    out = {"plain": (sub.mix(x),)}
+    for label, compression, kw in SPARSE_RUNS[1:]:
+        out[label] = sub.choco_step(make_compressor(compression, **kw), x,
+                                    y, sub.mix(y), 0.6, draws, 0, 0)
+    return out
+
+
+def sparse_rounds(cfg, state, batches, round_fn, sync_group=None):
+    """3 rounds; per round the metrics, the host ms (synchronised) and the
+    share of it in the exchanges (``NodeGroup.exchange_s``)."""
+    rows = []
+    for b in batches:
+        torch.cuda.synchronize()
+        ex0 = sync_group.exchange_s if sync_group is not None else 0.0
+        t0 = time.perf_counter()
+        state, m = round_fn(state, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ex = (sync_group.exchange_s - ex0) if sync_group is not None else 0.0
+        rows.append({"loss": float(m["loss"]),
+                     "consensus_sq": float(m["consensus_sq"]),
+                     "ms": dt * 1e3, "exchange_share": ex / dt})
+    return state, rows
+
+
+def sparse_rank(group, out_dir, control):
+    """One rank of phase ``sparse`` (b, c): one gossip step from a given
+    state, the 3-round runs (each with its launch counts, set to 0 just
+    before it), the control runs, and the executor with a re-plan and
+    masks; writes ``rank<r>.pt``."""
+    from repro_torch.core.dfl import make_round_fn
+    from repro_torch.core.executor import RoundExecutor
+    from repro_torch.core.rng import GeneratorDraws
+    from repro_torch.core.sharded import local_rows
+    from repro_torch.core.substrate import ShardedSubstrate
+    from repro_torch.device import deterministic_algorithms
+    from repro_torch.kernels import ops
+    from repro_torch.optim import sgd
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p0, rounds = sparse_inputs()
+    res = {"steps": {}, "runs": {}, "controls": {}, "backend": group.backend}
+    mine = lambda t: local_rows(t, group)  # noqa: E731
+    with deterministic_algorithms(True):
+        x, y = sparse_step_state(p0)
+        draws = GeneratorDraws(0, SPARSE_NODES, p0, "cuda")
+        for topo in SPARSE_TOPOS:
+            sub = ShardedSubstrate(sparse_topology(topo), group)
+            out = sparse_one_step(sub, {k: v.cuda() for k, v in
+                                        mine(x).items()},
+                                  {k: v.cuda() for k, v in mine(y).items()},
+                                  draws)
+            res["steps"][topo] = {k: [{n: t.cpu() for n, t in tree.items()}
+                                      for tree in v]
+                                  for k, v in out.items()}
+        batches = [tuple(torch.from_numpy(a[:, group.rank:group.rank + 1])
+                         .cuda() for a in b) for b in rounds]
+        runs = [(topo, label, c, kw, None) for topo in SPARSE_TOPOS
+                for label, c, kw in SPARSE_RUNS]
+        runs += [("ring", label, c, kw, control)
+                 for label, c, kw in SPARSE_RUNS]
+        for topo, label, compression, kw, ctl in runs:
+            cfg = sparse_cfg(topo, compression, kw)
+            round_fn = make_round_fn(cfg, _cnn_loss, sgd(SPARSE_LR),
+                                     engine="sparse", group=group)
+            state = sparse_state(p0, cfg, 1)
+            ops.reset_launches()
+            with (perturbed(*ctl) if ctl else contextlib.nullcontext()):
+                state, rows = sparse_rounds(cfg, state, batches, round_fn,
+                                            group)
+            torch.cuda.synchronize()
+            rec = {"rows": rows, "launches": dict(ops.LAUNCHES),
+                   "params": {k: v.cpu() for k, v in state.params.items()}}
+            (res["controls"] if ctl else res["runs"])[(topo, label)] = rec
+        # the executor: plain DFL with participation masks, warmed, then a
+        # trajectory and a re-plan with other taus and masks
+        cfg = sparse_cfg("ring", "", {})
+        ex = RoundExecutor(cfg, _cnn_loss, sgd(SPARSE_LR), engine="sparse",
+                           group=group, participation=True)
+        state = sparse_state(p0, cfg, 1)
+        stacked = tuple(torch.stack([b[i] for b in batches[:2]])
+                        for i in (0, 1))
+        ex.warmup(state, stacked)
+        builds = ex.compile_count
+        e = cfg.topology.num_edges
+        traj = []
+        for taus, down in (([[4, 4], [2, 1]], (0, 5)), ([[1, 2], [3, 3]],
+                                                         (2, 7))):
+            rows = np.ones((2, 2 + SPARSE_NODES + e), np.int32)
+            rows[:, :2] = taus
+            rows[0, 2 + 3] = 0                       # node 3 out
+            rows[1, 2 + SPARSE_NODES + np.asarray(down)] = 0
+            traj.append(rows)
+        ops.reset_launches()
+        ms = []
+        for rows in traj:
+            state, m = ex.dispatch_trajectory(state, stacked, rows)
+            ms.append({k: v.cpu() for k, v in m.items()})
+        torch.cuda.synchronize()
+        res["executor"] = {"builds_after_warmup": ex.compile_count - builds,
+                           "captures": ex.capture_count,
+                           "launches": dict(ops.LAUNCHES),
+                           "gossip_steps": int(sum(r[:, 1].sum()
+                                                   for r in traj)),
+                           "metrics": ms}
+    torch.save(res, os.path.join(out_dir, f"rank{group.rank}.pt"))
+
+
+def _cnn_loss(p, b):
+    from repro_torch.models.cnn import cnn_loss
+    return cnn_loss(p, b, "cifar")
+
+
+def sparse_cli_rank(group, out_dir, argv):
+    """One rank of phase ``sparse`` (d): the train CLI's body with
+    ``--engine sparse``."""
+    from repro_torch.launch import train
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got = train.run(train.parse_args(argv), group=group, log=lambda _m: None)
+    torch.save({"rows": [{k: row[k] for k in ("loss", "consensus_sq")}
+                         for row in got["rows"]], "engine": got["engine"],
+                "builds_after_warmup": got["builds_after_warmup"]},
+               os.path.join(out_dir, f"cli{group.rank}.pt"))
+
+
+def received_kernel_checks(K, gen):
+    """(a) K1-received on the card, bitwise its plain version and the dense
+    K1 at the same weights (over [x; recv] with node 0 reading rows 1..deg)
+    at one CIFAR node's 10 leaves plus the parity sizes, deg 1, 2 and 7, f32
+    and bf16, the received rows at the packed exchange's strides."""
+    from repro_torch.kernels import gossip_mix, ops
+    from repro_torch.models.cnn import init_cnn
+
+    sizes = [v.numel() for v in init_cnn(torch.Generator().manual_seed(1),
+                                         "cifar", "cpu").values()]
+    sizes += list(PARITY_SIZES)
+    for dtype in (torch.float32, torch.bfloat16):
+        for deg in (1, 2, 7):
+            xs, recvs, w = received_operands(sizes, deg, dtype, gen)
+            got = ops.gossip_mix_received_many(xs, recvs, w)
+            nbr = torch.arange(1, deg + 1, dtype=torch.int32,
+                               device="cuda")[None].repeat(deg + 1, 1)
+            wt = w[None].repeat(deg + 1, 1).contiguous()
+            for x, r, g in zip(xs, recvs, got):
+                want = gossip_mix.plain_received(x, r, w)
+                require(same_bits(g, want), f"K1-received {dtype} deg {deg} "
+                        f"D {x.numel()}: differs from its plain version")
+                dense = ops.gossip_mix(torch.cat([x[None], r]), nbr, wt)[0]
+                require(same_bits(g, dense), f"K1-received {dtype} deg {deg} "
+                        f"D {x.numel()}: differs from the dense K1")
+                K["gossip_mix_received"].max_abs_err = max(
+                    K["gossip_mix_received"].max_abs_err,
+                    max_abs_err(g, want))
+    torch.cuda.synchronize()
+    print(f"K1-received: bitwise its plain version and the dense K1 over "
+          f"{len(sizes)} leaves x deg (1, 2, 7) x (f32, bf16)")
+
+
+def received_operands(sizes, deg, dtype, gen):
+    """Leaves ``[D]`` and their ``[deg, D]`` received rows, views of one
+    packed buffer as the exchange returns them (16-byte aligned leaves),
+    and normalised weights [deg + 1] on the card."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    offsets, total = [], 0
+    for d in sizes:
+        offsets.append(total)
+        total += -(-d * item // 16) * 16 // item
+    buf = torch.randn(deg, total, generator=gen, device="cuda").to(dtype)
+    xs = [torch.randn(d, generator=gen, device="cuda").to(dtype)
+          for d in sizes]
+    recvs = [buf[:, at:at + d] for at, d in zip(offsets, sizes)]
+    w = torch.rand(deg + 1, generator=gen, device="cuda") + 0.1
+    return xs, recvs, (w / w.sum()).contiguous()
+
+
+def received_times(sizes, deg, dtype, gen, big=False):
+    """K1-received over leaves of ``sizes`` in one call: device ms, the
+    plain version's, one ``torch.addmm`` a leaf (w0 x + w[1:] @ recv, the
+    same function), and the bound (deg + 2) D bytes at the memory rate."""
+    from repro_torch.kernels import gossip_mix, ops
+
+    xs, recvs, w = received_operands(sizes, deg, dtype, gen)
+    w0, wr = float(w[0]), w[1:][None].to(dtype)
+    kern = lambda: ops.gossip_mix_received_many(xs, recvs, w)  # noqa: E731
+    plain = lambda: [gossip_mix.plain_received(x, r, w)  # noqa: E731
+                     for x, r in zip(xs, recvs)]
+    lib = lambda: [torch.addmm(x[None], wr, r, beta=w0)  # noqa: E731
+                   for x, r in zip(xs, recvs)]
+    timer = (lambda f: event_ms(f)) if big else device_ms
+    if big:
+        require(all(same_bits(g, p) for g, p in zip(kern(), plain())),
+                f"K1-received differs from its plain version at {dtype} "
+                f"deg {deg} over {sum(sizes)} elements")
+    item = xs[0].element_size()
+    out = {"elements": sum(sizes), "deg": deg,
+           "ms": device_ms(kern, iters=2, reps=3) if big else device_ms(kern),
+           "plain_ms": timer(plain), "library_ms": timer(lib),
+           "bound_ms": (deg + 2) * sum(sizes) * item / HBM_BYTES_PER_S * 1e3}
+    del xs, recvs
+    return out
+
+
+def run_sparse_phase(K, gate=True):
+    """Phase 14, the sparse engine (``core.sharded``), one node per process:
+    (a) K1-received bitwise and timed; (b) 8 gloo ranks on the one card
+    (``sparse_rank``): the CIFAR CNN at full width on ring(8) and
+    fully_connected(8), tau (4, 4), batch 16: one gossip step from a given
+    state bitwise the dense port on the card (plain, TopK; QSGD ``x_new``
+    bitwise and ``y_new`` within K2's 8 ulps), 3 rounds of plain, TopK and
+    QSGD held to the dense port's within ``SPARSE_RUN_RTOL``, which a
+    control with K1-received shifted must break, plain and TopK bitwise
+    the dense port with per-node convolutions, exact launches on every
+    rank, ms a round and the exchange's share; (c) the executor on the
+    sparse engine, a trajectory and a re-plan with masks after the warmup:
+    no build, no capture, one K1-received launch a gossip step; (d) the
+    train CLI with ``--engine sparse`` on the reduced Qwen3, 4 ranks,
+    against the dense CLI on the card within ``LM_CPU_RTOL``. ``gate=False``
+    (``--only sparse_calibrate``) prints (b)'s readings and controls and
+    holds none of the run limits."""
+    import functools
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core import dfl
+    from repro_torch.core.dfl import make_round_fn
+    from repro_torch.core.rng import GeneratorDraws
+    from repro_torch.core.sharded import spawn
+    from repro_torch.core.substrate import DenseSubstrate
+    from repro_torch.device import deterministic_algorithms
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.optim import sgd
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    t0 = time.perf_counter()
+    received_kernel_checks(K, gen)
+    cifar = [v.numel() for v in init_cnn(torch.Generator().manual_seed(1),
+                                         "cifar", "cpu").values()]
+    times = {"cifar_deg2": received_times(cifar, 2, torch.float32, gen),
+             "cifar_deg7": received_times(cifar, 7, torch.float32, gen)}
+    lm = dataclasses.replace(REGISTRY[LM_FULL_ARCH].model,
+                             num_layers=LM_FULL_LAYERS)
+    lm_sizes = [int(np.prod(v.shape)) for v in init_params(
+        lm, None, "cpu", abstract=True)[0].values()]
+    times["lm_deg2"] = received_times(lm_sizes, 2, torch.bfloat16, gen,
+                                      big=True)
+    torch.cuda.empty_cache()
+    for name, t in times.items():
+        print(f"K1-received {name} " + json.dumps(t))
+    rec = K["gossip_mix_received"]
+    main = times["cifar_deg2"]
+    rec.ms, rec.plain_ms, rec.library_ms = (main["ms"], main["plain_ms"],
+                                            main["library_ms"])
+    rec.add_bound(main["bound_ms"] * 1e-3 * HBM_BYTES_PER_S,
+                  (2 * main["deg"] + 1) * main["elements"])
+    print(f"sparse (a) {time.perf_counter() - t0:.1f} s")
+
+    # (b, c): 8 ranks on the card
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="sparse_phase_")
+    spawn(sparse_rank, SPARSE_NODES, (out, SPARSE_CONTROL), device="cuda",
+          timeout_s=SPARSE_TIMEOUT_S)
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                        weights_only=False) for r in range(SPARSE_NODES)]
+    print(f"sparse (b, c) ranks {time.perf_counter() - t0:.1f} s, backend "
+          f"{ranks[0]['backend']}")
+    p0, rounds = sparse_inputs()
+    x, y = sparse_step_state(p0)
+    stack = lambda get: {k: torch.cat([get(r)[k] for r in ranks])  # noqa
+                         for k in get(ranks[0])}
+    with deterministic_algorithms(True):
+        for topo in SPARSE_TOPOS:
+            want = sparse_one_step(
+                DenseSubstrate(sparse_topology(topo)),
+                {k: v.cuda() for k, v in x.items()},
+                {k: v.cuda() for k, v in y.items()},
+                GeneratorDraws(0, SPARSE_NODES, p0, "cuda"))
+            for label, trees in want.items():
+                for i, tree in enumerate(trees):
+                    got = stack(lambda r: r["steps"][topo][label][i])
+                    for k, v in tree.items():
+                        g, w = got[k], v.cpu()
+                        if label == "cdfl_qsgd" and i == 1:
+                            ulps = y_new_ulps(g, w, y[k])
+                            print(f"sparse (b) {topo} QSGD step y_new {k}: "
+                                  f"{ulps} ulps (K2's contract "
+                                  f"{SPARSE_ULPS})")
+                            require(not gate or ulps <= SPARSE_ULPS,
+                                    f"{topo} {label} y_new {k}: {ulps} ulps")
+                        else:
+                            require(same_bits(g, w), f"{topo} {label} step "
+                                    f"output {i} leaf {k}: not bitwise the "
+                                    "dense port")
+        print("sparse (b) one gossip step bitwise the dense port on the card "
+              "(plain, TopK; QSGD x_new, y_new within 8 ulps), ring(8) and "
+              "fully_connected(8)")
+        batches = [tuple(torch.from_numpy(a).cuda() for a in b)
+                   for b in rounds]
+        sizes = [v.numel() for v in p0.values()]
+        total, readings, controls = 0, {}, {}
+        for topo in SPARSE_TOPOS:
+            for label, compression, kw in SPARSE_RUNS:
+                cfg = sparse_cfg(topo, compression, kw)
+                _, dense = sparse_rounds(cfg, sparse_state(p0, cfg,
+                                                           SPARSE_NODES),
+                                         batches, make_round_fn(
+                                             cfg, _cnn_loss,
+                                             sgd(SPARSE_LR)))
+                # the witness: the dense port with per-node convolutions
+                # (its vmap in chunks of one node, each a rank's own call)
+                with mock.patch.object(dfl, "vmap", functools.partial(
+                        torch.func.vmap, chunk_size=1)):
+                    wstate, witness = sparse_rounds(
+                        cfg, sparse_state(p0, cfg, SPARSE_NODES), batches,
+                        make_round_fn(cfg, _cnn_loss, sgd(SPARSE_LR)))
+                params = stack(lambda r: r["runs"][(topo, label)]["params"])
+                bitwise = all(same_bits(params[k], v.cpu())
+                              for k, v in wstate.params.items())
+                print(f"sparse (b) {topo} {label} witness, rel diffs a "
+                      "round: sparse vs dense " + json.dumps(round_diffs(
+                          ranks[0]["runs"][(topo, label)]["rows"], dense))
+                      + ", dense vs dense with per-node convolutions "
+                      + json.dumps(round_diffs(dense, witness))
+                      + ", sparse vs it " + json.dumps(round_diffs(
+                          ranks[0]["runs"][(topo, label)]["rows"], witness))
+                      + "; final parameters bitwise it: "
+                      + json.dumps(bitwise) + ", max abs diff " + json.dumps(
+                          max(max_abs_err(params[k], v.cpu())
+                              for k, v in wstate.params.items())))
+                # QSGD's row norm at [1, D] may differ in the last bit
+                require(not gate or bitwise or compression == "qsgd",
+                        f"{topo} {label}: the sparse run's parameters are "
+                        "not bitwise the dense port's with per-node "
+                        "convolutions")
+                per = step_launches(compression, sizes)
+                per["gossip_mix_received"] = per.pop("gossip_mix")
+                expect = expect_launches(K, **{
+                    k: v * SPARSE_TAUS[1] * RUN_ROUNDS
+                    for k, v in per.items()})
+                for r in ranks:
+                    got = r["runs"][(topo, label)]["launches"]
+                    require(got == expect, f"{topo} {label}: launches {got},"
+                            f" expected {expect}")
+                    total += got["gossip_mix_received"]
+                diffs = sparse_diffs(ranks, "runs", (topo, label), dense)
+                for k, v in diffs.items():
+                    readings[k] = max(readings.get(k, 0.0), v)
+                ms = [r["runs"][(topo, label)]["rows"] for r in ranks]
+                print(f"sparse (b) {topo} {label}: dense "
+                      + json.dumps([{k: d[k] for k in ("loss",
+                                                       "consensus_sq")}
+                                    for d in dense])
+                      + " sparse " + json.dumps(
+                          [{k: row[k] for k in ("loss", "consensus_sq")}
+                           for row in ms[0]])
+                      + " rel diffs " + json.dumps(diffs)
+                      + " ms a round (rank max, per round) " + json.dumps(
+                          [max(m[i]["ms"] for m in ms)
+                           for i in range(RUN_ROUNDS)])
+                      + " exchange share (rank mean) " + json.dumps(
+                          [float(np.mean([m[i]["exchange_share"]
+                                          for m in ms]))
+                           for i in range(RUN_ROUNDS)])
+                      + " dense ms " + json.dumps([d["ms"] for d in dense])
+                      + " launches a rank " + json.dumps(
+                          ranks[0]["runs"][(topo, label)]["launches"]))
+                if gate:
+                    for key, lim in SPARSE_RUN_RTOL.items():
+                        require(diffs[key] <= lim, f"{topo} {label}: {key} "
+                                f"rel diff {diffs[key]} beyond {lim}")
+                if topo == "ring":
+                    ctl = sparse_diffs(ranks, "controls", (topo, label),
+                                       dense)
+                    print(f"sparse (b) control {SPARSE_CONTROL} {label}: "
+                          f"rel diffs " + json.dumps(ctl))
+                    for k, v in ctl.items():
+                        controls[k] = min(controls.get(k, math.inf), v)
+                    if gate:
+                        require(any(ctl[k] > lim for k, lim in
+                                    SPARSE_RUN_RTOL.items()),
+                                f"control {label} within the limits {ctl}")
+        rec.launches = total
+        print("sparse (b) largest readings " + json.dumps(readings)
+              + " smallest control " + json.dumps(controls))
+        ex = [r["executor"] for r in ranks]
+        steps = ex[0]["gossip_steps"]
+        for r in ex:
+            require(r["builds_after_warmup"] == 0 and r["captures"] == 0,
+                    f"executor: builds {r['builds_after_warmup']} captures "
+                    f"{r['captures']} after the warmup")
+            require(r["launches"] == expect_launches(
+                K, gossip_mix_received=steps), f"executor launches "
+                f"{r['launches']}, expected {steps} K1-received")
+            require(all(torch.isfinite(v.float()).all() for m in r["metrics"]
+                        for v in m.values()), "executor: non-finite metrics")
+        print(f"sparse (c) executor: trajectory and re-plan with masks, 0 "
+              f"builds and 0 captures after the warmup, {steps} K1-received "
+              "launches a rank, metrics " + json.dumps(
+                  [{k: v.tolist() for k, v in m.items()}
+                   for m in ex[0]["metrics"]]))
+    print(f"sparse (b, c) {time.perf_counter() - t0:.1f} s")
+
+    # (d): the CLI on 4 ranks against the dense CLI, both on the card
+    t0 = time.perf_counter()
+    argv = lm_argv("qwen3-1.7b", "top_k", "cuda")
+    spawn(sparse_cli_rank, LM_NODES, (out, argv + ["--engine", "sparse"]),
+          device="cuda", timeout_s=SPARSE_TIMEOUT_S)
+    cli = [torch.load(os.path.join(out, f"cli{r}.pt"), weights_only=False)
+           for r in range(LM_NODES)]
+    dense = train.run(train.parse_args(argv + ["--engine", "dense"]),
+                      log=lambda _m: None)
+    require(all(c["engine"] == "sparse" and c["builds_after_warmup"] == 0
+                for c in cli), "CLI ranks: not the sparse engine, or a "
+            "build after the warmup")
+    lim = LM_CPU_RTOL["top_k"]
+    for c in cli:
+        for a, b in zip(c["rows"], dense["rows"]):
+            for key, rtol in lim.items():
+                require(not gate or abs(a[key] - b[key]) <= rtol * abs(
+                    b[key]), f"CLI --engine sparse {key} {a[key]} vs dense "
+                        f"{b[key]}, beyond rtol {rtol}")
+    print("sparse (d) CLI --engine sparse, 4 ranks, reduced Qwen3, TopK: "
+          + json.dumps(cli[0]["rows"]) + " dense " + json.dumps(
+              [{k: row[k] for k in ("loss", "consensus_sq")}
+               for row in dense["rows"]]) + f" (rtol {lim}) "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def y_new_ulps(got, want, y):
+    """Largest |got - want| of a CHOCO step's ``y_new`` in f32 ulps at the
+    larger of |y|, |q| = |want - y| and |y_new|, K2's contract's scale
+    (``tests/test_torch_choco_fused.py``)."""
+    g, w, y = (t.float().numpy() for t in (got, want, y))
+    scale = np.max([np.abs(y), np.abs(w - y), np.abs(w), np.abs(g)], axis=0)
+    return float(np.max(np.abs(g - w) / np.spacing(scale.astype(np.float32)),
+                        initial=0.0))
+
+
+def round_diffs(rows, want):
+    """Per round, the relative difference of ``rows``' loss and consensus
+    from ``want``'s (the consensus relative to at least
+    ``FIG_CONSENSUS_FLOOR``)."""
+    return {m: [abs(r[m] - w[m]) / max(abs(w[m]), FIG_CONSENSUS_FLOOR
+                                      if m == "consensus_sq" else 0.0)
+                for r, w in zip(rows, want)]
+            for m in ("loss", "consensus_sq")}
+
+
+def sparse_diffs(ranks, kind, key, dense):
+    """Largest ``round_diffs`` per metric, over rounds and ranks, of the
+    sparse runs against the dense port's rows (the consensus floor:
+    fully_connected(8) averages exactly, its consensus is rounding
+    noise)."""
+    per = [round_diffs(r[kind][key]["rows"], dense) for r in ranks]
+    return {m: max(max(p[m]) for p in per) for m in ("loss", "consensus_sq")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -3899,6 +4471,9 @@ def main():
 
     K = {k.name: k for k in (
         Kernel("gossip_mix", "src/repro_torch/kernels/csrc/gossip_mix.cu",
+               "src/repro/kernels/gossip_mix.py:34", True),
+        Kernel("gossip_mix_received",
+               "src/repro_torch/kernels/csrc/gossip_mix.cu",
                "src/repro/kernels/gossip_mix.py:34", True),
         Kernel("choco_qsgd", "src/repro_torch/kernels/csrc/choco_fused.cu",
                "src/repro/kernels/choco_fused.py:65", False),
@@ -3947,8 +4522,10 @@ def main():
         "planner": lambda: run_planner_phase(K),
         "lm": lambda: run_lm_phase(K),
         "serve": run_serve_phase,
-        "telemetry": lambda: run_telemetry_phase(K)}
+        "telemetry": lambda: run_telemetry_phase(K),
+        "sparse": lambda: run_sparse_phase(K)}
     phases["lm_calibrate"] = lambda: run_lm_phase(K, gate=False)
+    phases["sparse_calibrate"] = lambda: run_sparse_phase(K, gate=False)
     phases["serve_calibrate"] = lambda: run_serve_phase(gate=False)
     phases["figures_calibrate"] = lambda: run_figures(
         K, gate=False, controls=FIG_CONTROLS)

@@ -38,6 +38,7 @@ from repro_torch.core.dfl import (
     init_state,
     make_round_fn,
     round_wire_bits,
+    sparse_engine_eligible,
 )
 from repro_torch.core.executor import (
     HostPrefetcher,
@@ -46,8 +47,9 @@ from repro_torch.core.executor import (
     stack_round_batches,
 )
 from repro_torch.core.substrate import (BatchedSubstrate, DenseSubstrate,
-                                        NodeSubstrate)
-from repro_torch.core import mixing, metrics, substrate
+                                        NodeSubstrate, ShardedSubstrate)
+from repro_torch.core.sharded import NodeGroup
+from repro_torch.core import mixing, metrics, sharded, substrate
 
 __all__ = [
     "Topology", "ring", "quasi_ring", "paper_quasi_ring", "fully_connected",
@@ -58,8 +60,10 @@ __all__ = [
     "DFLConfig", "DFLState", "d_sgd_config", "c_sgd_config",
     "sync_sgd_config", "replicate", "average_model", "consensus_distance",
     "init_state", "make_round_fn", "round_wire_bits",
+    "sparse_engine_eligible",
     "RoundExecutor", "HostPrefetcher", "MetricsBuffer",
     "stack_round_batches",
     "NodeSubstrate", "DenseSubstrate", "BatchedSubstrate",
-    "mixing", "metrics", "substrate",
+    "ShardedSubstrate", "NodeGroup",
+    "mixing", "metrics", "sharded", "substrate",
 ]

@@ -33,8 +33,11 @@ local steps and keeps its state, a masked edge gossips nothing and its
 weight returns to the endpoints' self loops), the node-batched engine
 over a virtual population (``make_round_fn(..., population=V)``) and the
 one-round-stale pipeline (``make_pipeline_fns``: round k's local steps,
-round k-1's exchange folded one round late). The sparse engine raises
-``NotImplementedError``; ROADMAP.md queues it.
+round k-1's exchange folded one round late), and the sparse engine, one
+node per process of a ``torch.distributed`` group
+(``make_round_fn(..., engine="sparse", group=...)``, ``core.sharded``):
+the same ``round_body`` on a ``ShardedSubstrate``, every leaf the rank's
+``[1, ...]`` row.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.compression import Compressor, Identity, tree_wire_bits
 from repro_torch.core.rng import Draws, GeneratorDraws
 from repro_torch.core.substrate import (BatchedSubstrate, DenseSubstrate,
-                                        NodeSubstrate)
+                                        NodeSubstrate, ShardedSubstrate)
 from repro_torch.core.topology import Topology, fully_connected
 from repro_torch.core.tree import leaf_order, tree_map
 from repro_torch.optim import Optimizer
@@ -77,10 +80,10 @@ __all__ = [
     "pipeline_round_body",
     "pipeline_drain_body",
     "make_pipeline_fns",
+    "check_sparse",
+    "sparse_engine_eligible",
     "round_wire_bits",
 ]
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, modules to port)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,7 +348,7 @@ def check_taus(cfg: DFLConfig, tau1, tau2) -> Tuple[int, int]:
 def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
                   engine: str = "dense", dynamic_taus: bool = False,
                   participation: bool = False,
-                  population: Optional[int] = None):
+                  population: Optional[int] = None, group=None):
     """round_fn(state, batches) -> (state', metrics) on the dense engine;
     batch leaves [tau1, N, B, ...].
 
@@ -370,6 +373,15 @@ def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
     tensors in place (rows outside the cohort untouched). The identity
     cohort at full population is bitwise the dense round. Implies the
     participation constraints.
+
+    ``group``: the sparse engine (``engine="sparse"``, or "auto" when
+    ``sparse_engine_eligible``), one node per rank of a
+    ``core.sharded.NodeGroup``: the same signatures, state leaves
+    ``[1, ...]`` and batch leaves ``[tau1, 1, ...]`` of this rank's node
+    (``core.sharded.local_rows``), the round over a ``ShardedSubstrate``.
+    Every rank calls it the same number of times with the same host taus
+    and masks. Misuse raises ``ValueError`` with the reference's reasons
+    (``check_sparse``).
     """
     if dynamic_taus and cfg.mixing_impl == "dense_power":
         raise ValueError(
@@ -384,9 +396,10 @@ def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
                              "a round-varying topology schedule has no "
                              "stable edge list")
     if engine == "auto":
-        engine = "batched" if population is not None else "dense"
-    if engine not in ("dense", "batched"):
-        raise NotImplementedError(f"engine={engine!r} {_NOT_PORTED}")
+        engine = ("batched" if population is not None else "sparse"
+                  if sparse_engine_eligible(cfg, group) else "dense")
+    if engine not in ("dense", "batched", "sparse"):
+        raise ValueError(f"unknown engine {engine!r}")
     if engine == "batched":
         if population is None:
             raise ValueError("engine='batched' needs population=V (the "
@@ -413,8 +426,20 @@ def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
         raise ValueError(f"population= is a batched-engine parameter (got "
                          f"engine={engine!r}); the {engine} engine's node "
                          "count is the topology's")
-    sub = DenseSubstrate(cfg.topology)
+    if engine == "sparse":
+        check_sparse(cfg, group)
+        sub = ShardedSubstrate(cfg.topology, group)
+    else:
+        sub = DenseSubstrate(cfg.topology)
+    return round_fn_over(cfg, loss_fn, opt, sub, dynamic_taus=dynamic_taus,
+                         participation=participation)
 
+
+def round_fn_over(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
+                  sub: NodeSubstrate, *, dynamic_taus: bool = False,
+                  participation: bool = False):
+    """``make_round_fn``'s round over the substrate ``sub`` (dense or
+    sharded), static, dynamic or with participation masks."""
     def body(state: DFLState, batches: Batch, taus: Taus, masks: Masks = None):
         params, opt_state, hat, metrics = round_body(
             cfg, loss_fn, opt, sub, state.params, state.opt_state,
@@ -509,15 +534,16 @@ def check_pipeline(cfg: DFLConfig, engine: str = "dense",
         raise ValueError(
             "participation masks index cfg.topology.edges(); a "
             "round-varying topology schedule has no stable edge list")
-    if engine not in ("dense", "auto"):
-        raise NotImplementedError(f"engine={engine!r} {_NOT_PORTED}")
+    if engine not in ("dense", "auto", "sparse"):
+        raise ValueError(f"unknown engine {engine!r}")
 
 
 def make_pipeline_fns(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
-                      engine: str = "dense", participation: bool = False):
-    """The pipelined-round pair on the dense engine (``overlap=
-    "pipeline"``; ``core.executor.make_pipeline_superstep`` runs
-    ``pipe_fn`` per round and ``drain_fn`` once after)::
+                      engine: str = "dense", participation: bool = False,
+                      group=None):
+    """The pipelined-round pair (``overlap="pipeline"``;
+    ``core.executor.make_pipeline_superstep`` runs ``pipe_fn`` per round
+    and ``drain_fn`` once after)::
 
         pipe_fn(state, buf, have, prev_tau2, batches, tau1)
             -> (state', buf', metrics)                       plain
@@ -527,10 +553,26 @@ def make_pipeline_fns(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
 
     Host ints and 0/1 host masks; cfg.tau1 / cfg.tau2 are the maxima, as
     in the dynamic round. The current round's (tau2, edge mask) never enter
-    ``pipe_fn``: that exchange runs one round later."""
+    ``pipe_fn``: that exchange runs one round later. ``engine="sparse"``
+    (or "auto" when ``sparse_engine_eligible``) with ``group``: the same
+    pair on this rank's ``[1, ...]`` node; the in-flight buffer is this
+    rank's ``[1, ...]`` tree, and the superstep's first exchange,
+    discarded, still makes every send and receive on every rank."""
     check_pipeline(cfg, engine, participation)
-    sub = DenseSubstrate(cfg.topology)
+    if engine == "auto":
+        engine = "sparse" if sparse_engine_eligible(cfg, group) else "dense"
+    if engine == "sparse":
+        check_sparse(cfg, group)
+        sub = ShardedSubstrate(cfg.topology, group)
+    else:
+        sub = DenseSubstrate(cfg.topology)
+    return pipeline_fns_over(cfg, loss_fn, opt, sub,
+                             participation=participation)
 
+
+def pipeline_fns_over(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
+                      sub: NodeSubstrate, *, participation: bool = False):
+    """``make_pipeline_fns``' pair over the substrate ``sub``."""
     def pipe_body(state, buf, have, prev_tau2, batches, tau1, node_mask=None,
                   prev_edge_mask=None):
         tau1, prev_tau2 = check_taus(cfg, tau1, prev_tau2)
@@ -564,6 +606,43 @@ def make_pipeline_fns(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
             return drain_body(state, buf, prev_tau2)
 
     return pipe_fn, drain_fn
+
+
+def _sparse_refusal(cfg: DFLConfig, group) -> Optional[str]:
+    """Why the sparse engine cannot run ``cfg`` on ``group``, in the
+    reference's words, or None when it can."""
+    topo = cfg.topology
+    if group is None:
+        return ("sparse engine needs a process group, one rank per node "
+                "(group=core.sharded.NodeGroup)")
+    if not topo.is_shift_structured():
+        return (f"{topo.name} is not circulant; use the dense engine "
+                "(core.dfl.make_round_fn) for arbitrary topologies")
+    if group.world != topo.num_nodes:
+        return (f"the process group has {group.world} ranks but {topo.name} "
+                f"has {topo.num_nodes} nodes; one node per rank would "
+                "silently drop nodes")
+    if cfg.topology_schedule or cfg.mixing_impl != "dense":
+        return ("the sparse engine gossips over one circulant topology by "
+                "iterated mixing: a topology schedule or dense_power needs "
+                "the dense engine")
+    return None
+
+
+def check_sparse(cfg: DFLConfig, group) -> None:
+    """The sparse engine's preconditions, with the reference's reasons
+    (``ValueError``): a group (``core.sharded.NodeGroup``) of exactly N
+    ranks, a circulant C, and iterated mixing over one topology."""
+    reason = _sparse_refusal(cfg, group)
+    if reason is not None:
+        raise ValueError(reason)
+
+
+def sparse_engine_eligible(cfg: DFLConfig, group) -> bool:
+    """True when "auto" takes the sparse engine: ``check_sparse`` passes
+    and there is more than one node."""
+    return (cfg.topology.num_nodes > 1
+            and _sparse_refusal(cfg, group) is None)
 
 
 def round_wire_bits(cfg: DFLConfig, params_one_node,

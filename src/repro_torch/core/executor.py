@@ -1,7 +1,7 @@
 """The round executor: K DFL rounds a dispatch, the schedule as data.
 
-Ported from ``repro.core.executor`` for the dense engine. The reference
-compiles one XLA superstep, a ``lax.scan`` over K rounds with (tau1, tau2)
+Ported from ``repro.core.executor`` for the dense, batched and sparse
+engines. The reference compiles one XLA superstep, a ``lax.scan`` over K rounds with (tau1, tau2)
 as traced scalars; the port replays CUDA graphs instead, and keeps the
 contract:
 
@@ -84,11 +84,22 @@ host-side appends around the replays: a dispatch with a sink is bitwise
 the same dispatch without one, builds and captures the same, and no event
 reads a device tensor (metric values reach events only through a flush).
 
-The sparse engine raises ``NotImplementedError``; ROADMAP.md queues it.
+**The sparse engine** (``engine="sparse", group=...``, one node per
+process, ``core.sharded``): every rank runs the same executor over its
+``[1, ...]`` state and its ``[K, tau1_max, 1, ...]`` batches with the same
+trajectory rows, in every mode above but the batched one (dynamic taus
+and re-plans, the static fallback, participation masks,
+``overlap="pipeline"``, telemetry). Its rounds run eagerly
+(``EagerRounds``), by design and not as a fallback: a gossip step's
+exchange under gloo goes through the host, which a CUDA graph cannot
+capture. So ``capture_count`` stays 0 there, and ``compile_count`` counts
+the round functions built (1 in the dynamic mode, one per distinct
+(tau1, tau2) in the static fallback).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -97,16 +108,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.dfl import (DFLConfig, DFLState, check_pipeline,
-                                  check_taus)
+                                  check_sparse, check_taus,
+                                  make_pipeline_fns, make_round_fn,
+                                  sparse_engine_eligible)
 from repro_torch.core.graphs import GraphedRounds, StaticRounds
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import (deterministic_algorithms, resolve_device,
                                 to_device)
 
-__all__ = ["RoundExecutor", "HostPrefetcher", "MetricsBuffer",
-           "make_pipeline_superstep", "stack_round_batches"]
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, modules to port, item {})"
+__all__ = ["RoundExecutor", "EagerRounds", "HostPrefetcher",
+           "MetricsBuffer", "make_pipeline_superstep", "stack_round_batches"]
 
 
 def stack_round_batches(round_batches: Sequence[Any], tau1_max: int,
@@ -189,7 +200,8 @@ def _sync(device: torch.device) -> None:
 
 
 class RoundExecutor:
-    """Dispatch of DFL rounds and K-round supersteps on the dense engine.
+    """Dispatch of DFL rounds and K-round supersteps (dense, batched or
+    sparse engine).
 
     Args:
       cfg: the DFL config; its ``tau1`` / ``tau2`` are the maxima of the
@@ -206,7 +218,7 @@ class RoundExecutor:
       engine, population: ``"dense"`` (default), or ``"batched"`` with
         ``population=V`` (``"auto"`` picks it when ``population`` is
         given): rows ``[K, 2 + 2C + E]`` of sampled cohorts (dynamic mode
-        only).
+        only), or ``"sparse"`` with ``group`` (below).
       deterministic: hold cuDNN to deterministic algorithms during every
         dispatch and capture (the previous flags are restored after).
       overlap: ``"none"`` (default), or ``"pipeline"``: round k's exchange
@@ -214,8 +226,11 @@ class RoundExecutor:
         drained inside each dispatch (dense engine, ``dynamic=True``).
       telemetry: a ``repro_torch.obs.Telemetry`` sink for the dispatch
         events (module docstring), or None.
-      ``engine="sparse"``: the reference's sharded engine; raises
-        ``NotImplementedError``.
+      group: with ``engine="sparse"`` (or "auto" when
+        ``dfl.sparse_engine_eligible``), this rank's
+        ``core.sharded.NodeGroup``: the sparse engine's eager rounds
+        (``EagerRounds``); misuse raises ``ValueError`` with the
+        reference's reasons.
     """
 
     _TRAJ_CACHE_MAX = 128
@@ -224,15 +239,17 @@ class RoundExecutor:
                  dynamic: bool = True, participation: bool = False,
                  donate: bool = True, telemetry=None, overlap: str = "none",
                  population: Optional[int] = None,
-                 deterministic: bool = True):
+                 deterministic: bool = True, group=None):
         if overlap not in ("none", "pipeline"):
             raise ValueError(
                 f"unknown overlap mode {overlap!r} (use 'none'|'pipeline')")
         if engine == "auto":
-            engine = "batched" if population is not None else "dense"
-        if engine not in ("dense", "batched"):
-            raise NotImplementedError(
-                f"engine={engine!r} {_NOT_PORTED.format(6)}")
+            engine = ("batched" if population is not None else "sparse"
+                      if sparse_engine_eligible(cfg, group) else "dense")
+        if engine not in ("dense", "batched", "sparse"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if engine == "sparse":
+            check_sparse(cfg, group)
         if overlap == "pipeline" and not dynamic:
             raise ValueError(
                 "overlap='pipeline' rides the dynamic superstep scan; the "
@@ -281,12 +298,19 @@ class RoundExecutor:
         self.num_edges = cfg.topology.num_edges
         self._tel = telemetry
         self._in_warmup = False
+        self.engine = engine
+        self._eager = (EagerRounds(cfg, loss_fn, opt, group, dynamic=dynamic,
+                                   participation=participation,
+                                   pipeline=overlap == "pipeline")
+                       if engine == "sparse" else None)
+        graphed = dynamic and self._eager is None
         self._graph = (GraphedRounds(cfg, loss_fn, opt,
                                      participation=participation,
                                      pipeline=overlap == "pipeline",
                                      population=population)
-                       if dynamic else None)
-        self._static = None if dynamic else StaticRounds(cfg, loss_fn, opt)
+                       if graphed else None)
+        self._static = (StaticRounds(cfg, loss_fn, opt)
+                        if not dynamic and self._eager is None else None)
         self._kind = ("static" if not dynamic else "batched" if self.batched
                       else "pipeline" if overlap == "pipeline" else "dynamic")
         self._traj_cache: Dict[Any, Tuple[np.ndarray, torch.Tensor]] = {}
@@ -306,6 +330,8 @@ class RoundExecutor:
         """Builds of the round so far: 1 in the dynamic mode after the first
         dispatch or the warmup, whatever the schedules; one per distinct
         (tau1, tau2) in the static fallback."""
+        if self._eager is not None:
+            return self._eager.build_count
         if self._static is not None:
             return self._static.build_count
         return int(self._graph.built)
@@ -316,6 +342,8 @@ class RoundExecutor:
         eagerly). Dynamic mode: the step graphs, fixed once ``warmup`` or
         the first dispatch has run, whatever the schedules, masks, cohorts
         or K. Static fallback: one graph set per distinct (tau1, tau2)."""
+        if self._eager is not None:
+            return 0
         if self._static is not None:
             return self._static.capture_count
         return self._graph.capture_count
@@ -472,6 +500,10 @@ class RoundExecutor:
 
     def _rounds(self, state: DFLState, batches: Any, arr: np.ndarray,
                 dev: torch.Tensor, k: int) -> Tuple[DFLState, dict]:
+        if self._eager is not None:
+            out, metrics = self._eager.run(state, batches, arr, k,
+                                           self.donate)
+            return out, self._tag(metrics, arr, dev)
         if self._static is not None:
             self._static.prepare(state, batches)
             out, metrics = self._static.run(state, batches, arr, k,
@@ -521,7 +553,9 @@ class RoundExecutor:
             with span:
                 builds, captures = self.compile_count, self.capture_count
                 with deterministic_algorithms(self.deterministic):
-                    if self._static is not None:
+                    if self._eager is not None:
+                        dummy = _clone_state(state)
+                    elif self._static is not None:
                         self._static.prepare(state, batches)
                         dummy = self._static.buffer_state(state)
                     elif self.batched:
@@ -537,6 +571,81 @@ class RoundExecutor:
         finally:
             self._in_warmup = False
             self.dispatch_count, self.rounds_dispatched = n_dispatch, n_rounds
+
+
+class EagerRounds:
+    """The sparse engine's rounds for ``RoundExecutor``, run eagerly on this
+    rank: ``make_round_fn(engine="sparse")`` built once in the dynamic mode
+    (with participation masks), once per distinct (tau1, tau2) in the static
+    fallback, or ``make_pipeline_fns``' pair under ``pipeline``. A dispatch
+    is K sequential calls of those functions, so it is bitwise the eager
+    rounds; nothing is captured (a gloo exchange goes through the host)."""
+
+    def __init__(self, cfg: DFLConfig, loss_fn, opt, group, *, dynamic: bool,
+                 participation: bool, pipeline: bool):
+        self.cfg, self._loss_fn, self._opt, self._group = (cfg, loss_fn, opt,
+                                                           group)
+        self.dynamic, self.participation = dynamic, participation
+        self.pipeline = pipeline
+        self._fns: Dict[Any, Any] = {}
+
+    @property
+    def build_count(self) -> int:
+        return len(self._fns)
+
+    def _fn(self, key):
+        if key not in self._fns:
+            cfg, loss_fn, opt = self.cfg, self._loss_fn, self._opt
+            if key == "pipeline":
+                self._fns[key] = make_pipeline_superstep(
+                    *make_pipeline_fns(cfg, loss_fn, opt, engine="sparse",
+                                       participation=self.participation,
+                                       group=self._group),
+                    participation=self.participation,
+                    num_nodes=cfg.topology.num_nodes,
+                    num_edges=cfg.topology.num_edges)
+            elif key == "dynamic":
+                self._fns[key] = make_round_fn(
+                    cfg, loss_fn, opt, engine="sparse", dynamic_taus=True,
+                    participation=self.participation, group=self._group)
+            else:
+                self._fns[key] = make_round_fn(
+                    dataclasses.replace(cfg, tau1=key[0], tau2=key[1]),
+                    loss_fn, opt, engine="sparse", group=self._group)
+        return self._fns[key]
+
+    def run(self, state: DFLState, batches: Any, rows: np.ndarray, k: int,
+            donate: bool) -> Tuple[DFLState, Dict[str, torch.Tensor]]:
+        r0, n = state.round_idx, self.cfg.topology.num_nodes
+        if self.pipeline:
+            out, metrics = self._fn("pipeline")(state, batches, rows)
+        else:
+            out, ms = state, []
+            for i in range(k):
+                t1, t2 = int(rows[i, 0]), int(rows[i, 1])
+                b = tree_map(lambda x: x[i], batches)
+                if not self.dynamic:
+                    out, m = self._fn((t1, t2))(
+                        out, tree_map(lambda x: x[:t1], b))
+                elif self.participation:
+                    out, m = self._fn("dynamic")(out, b, t1, t2,
+                                                 rows[i, 2:2 + n],
+                                                 rows[i, 2 + n:])
+                else:
+                    out, m = self._fn("dynamic")(out, b, t1, t2)
+                ms.append(m)
+            metrics = {key: torch.stack([m[key] for m in ms])
+                       for key in ms[0]}
+        if donate:
+            for mine, new in ((state.params, out.params),
+                              (state.opt_state, out.opt_state),
+                              (state.hat_params, out.hat_params)):
+                if mine is not None:
+                    for d, src in zip(tree_leaves(mine), tree_leaves(new)):
+                        if d is not src:
+                            d.copy_(src)
+            out = state
+        return out._replace(round_idx=r0 + k), metrics
 
 
 def _clone_state(state: DFLState) -> DFLState:

@@ -7,17 +7,22 @@ optional edge mask (``masked_mixing_matrix``); ``mix_dense_power`` folds
 tau2 plain steps into one product with C^tau2. The circulant case runs the
 gossip kernel through ``gossip_table`` and
 ``repro_torch.kernels.ops.gossip_mix_many``
-(``core.substrate.DenseSubstrate``).
+(``core.substrate.DenseSubstrate``). On the sharded engine a node holds
+its own leaves only, and ``mix_shifts`` mixes them with the copies an
+exchange brings from its neighbours, one per shift of a circulant C,
+through K1's received-buffer form
+(``repro_torch.kernels.ops.gossip_mix_received_many``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.topology import Topology
 from repro_torch.device import to_device
+from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
 
@@ -29,6 +34,8 @@ __all__ = [
     "gossip_table",
     "masked_gossip_weights",
     "masked_shift_weights",
+    "shift_weights",
+    "mix_shifts",
     "gossip_copies_per_step",
     "mixing_bytes_per_step",
 ]
@@ -191,6 +198,61 @@ def masked_shift_weights(
     eff = tuple(torch.tensor(w, dtype=torch.float32) * m.to(torch.float32)
                 for (_, w), m in zip(shifts, shift_masks))
     return w_self, eff
+
+
+def shift_weights(shifts: Sequence[Tuple[int, float]], self_weight: float,
+                  shift_masks: Optional[Sequence] = None) -> np.ndarray:
+    """One node's K1 weights ``[deg + 1]`` float32, self weight first, in
+    the order of ``shifts``: the static ones, or those of
+    ``masked_shift_weights`` under the node's 0/1 ``shift_masks`` (host
+    values, one per shift)."""
+    if shift_masks is None:
+        return np.asarray([self_weight] + [w for _, w in shifts], np.float32)
+    if len(shift_masks) != len(shifts):
+        raise ValueError(f"{len(shift_masks)} shift masks for "
+                         f"{len(shifts)} shifts")
+    w_self, eff = masked_shift_weights(
+        shifts, self_weight, [torch.as_tensor(m) for m in shift_masks])
+    return torch.stack([w_self, *eff]).numpy()
+
+
+Exchange = Callable[[List[torch.Tensor], Sequence[int]], List[torch.Tensor]]
+
+
+def mix_shifts(params: Params, shifts: Sequence[Tuple[int, float]],
+               self_weight: float, exchange: Exchange,
+               shift_masks: Optional[Sequence] = None) -> Params:
+    """One gossip step of a circulant C for the one node whose leaves
+    ``params`` holds (any shapes, ``[1, ...]`` on the sharded engine).
+
+    ``shifts``: ``[(s, w)]``, the node i receives weight w from node
+    (i - s) mod N, as the reference's ``mix_ppermute_shifts``;
+    ``self_weight`` is C's diagonal. ``exchange(leaves, [s, ...])`` sends
+    the flat leaves to (i + s) mod N and returns, for each leaf, the
+    ``[deg, D]`` copies received from (i - s) mod N, one row per shift
+    (``core.sharded.NodeGroup.shift_exchange``). Every shift is exchanged
+    whatever the masks, so every node makes the same sends and receives:
+    ``shift_masks`` (this node's 0/1 host value per shift) gate the
+    weights (``shift_weights``), never the traffic. The weights go to the
+    leaves' device once per distinct value, and K1's received form mixes
+    the leaves of each dtype in one call. An empty shift list exchanges
+    nothing and keeps ``self_weight`` times each leaf (C = I)."""
+    if not params:
+        return {}
+    names = list(params)
+    flat = [params[name].reshape(-1) for name in names]
+    device = flat[0].device
+    w = _matrix_on(shift_weights(shifts, self_weight, shift_masks),
+                   torch.float32, device)
+    recvs = exchange(flat, [int(s) for s, _ in shifts])
+    out: Dict[str, torch.Tensor] = {}
+    for dtype in dict.fromkeys(x.dtype for x in flat):
+        idx = [i for i, x in enumerate(flat) if x.dtype == dtype]
+        mixed = ops.gossip_mix_received_many([flat[i] for i in idx],
+                                             [recvs[i] for i in idx], w)
+        for i, m in zip(idx, mixed):
+            out[names[i]] = m.reshape(params[names[i]].shape)
+    return {name: out[name] for name in names}
 
 
 def gossip_copies_per_step(topology: Topology, engine: str) -> int:

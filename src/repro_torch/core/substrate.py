@@ -35,6 +35,13 @@ goes to the device once, without blocking the host.
 ``BatchedSubstrate`` runs the same round over a sampled cohort of a
 virtual population stacked ``[V, ...]``: it gathers the cohort's rows,
 hands the seam the cohort's global ids, and writes the rows back in place.
+
+``ShardedSubstrate`` is the sparse engine's: one node per process, every
+leaf that node's ``[1, ...]`` row; ``mix`` exchanges the leaves over each
+shift of a circulant C (``core.sharded.NodeGroup``) and mixes the copies
+received with K1's received-buffer form; ``choco_step`` and ``compress``
+are the dense ones above (``NodeSubstrate``), on one row; the means over
+nodes are sums over the ranks.
 """
 from __future__ import annotations
 
@@ -54,7 +61,8 @@ from repro_torch.kernels.choco_fused import gap
 
 Params = Dict[str, torch.Tensor]
 
-__all__ = ["NodeSubstrate", "DenseSubstrate", "BatchedSubstrate"]
+__all__ = ["NodeSubstrate", "DenseSubstrate", "BatchedSubstrate",
+           "ShardedSubstrate"]
 
 
 def _by_dtype(leaves: List[torch.Tensor], fn: Callable) -> List[Any]:
@@ -123,11 +131,16 @@ class NodeSubstrate:
         over active nodes; bitwise ``mean_over_nodes`` at all ones.
 
     ``node_ids``: the ids the RNG seam draws for, one per node held (None:
-    every node of the seam, in order).
+    every node of the seam, in order). ``rows``: the node rows every leaf
+    holds (the leading dimension): all N stacked, or one node's.
     """
 
     num_nodes: int
     node_ids: Optional[np.ndarray] = None
+
+    @property
+    def rows(self) -> int:
+        return self.num_nodes
 
     def mix(self, tree: Params, edge_mask=None) -> Params:
         raise NotImplementedError
@@ -171,12 +184,50 @@ class NodeSubstrate:
                    round_idx: int = 0, step: int = 0
                    ) -> Tuple[Params, Params]:
         """Consensus move x += gamma (C y - y), compress the gap per node,
-        update the estimates y += Q(x_new - y) (Alg. 2 l.6-7, 11); returns
-        (x_new, y_new). The unfused composition: the move and the gap in
-        one pass (K7) per leaf, then ``compress`` on every gap with the
+        update the estimates y += Q(x_new - y) (Alg. 2 l.6-7, 11) with the
         draws for gossip step ``step`` of round ``round_idx`` from the seam
-        ``draws``, then the add."""
-        n = self.num_nodes
+        ``draws``; returns (x_new, y_new). TopK and QSGD run fused, emitting
+        (x_new, y_new) in one pass per leaf. TopK: every leaf's gap d in the
+        leaf dtype, the thresholds of the leaves of each dtype in one K4
+        call, then K3 per leaf. QSGD, per leaf: d's per-node f32 norm and
+        K2 (which recomputes d bitwise). Other compressors: the unfused
+        composition (``choco_unfused``)."""
+        if not isinstance(comp, (TopK, QSGD)):
+            return self.choco_unfused(comp, x, y, mixed_y, gamma, draws,
+                                      round_idx, step)
+        n = self.rows
+        rows = {name: tuple(t[name].reshape(n, -1) for t in (x, y, mixed_y))
+                for name in x}
+        x_new, y_new = {}, {}
+        if isinstance(comp, TopK):
+            gaps = [gap(a, b, my, gamma) for a, b, my in rows.values()]
+            threshs = _by_dtype(gaps, lambda ds: ops.topk_threshold_many(
+                ds, [comp._k(d.shape[1]) for d in ds]))
+            for (name, (a, b, my)), d, t in zip(rows.items(), gaps, threshs):
+                x_new[name], y_new[name] = ops.choco_topk(a, b, my, d, t,
+                                                          gamma)
+        else:
+            noises = comp.draw_many(draws, round_idx, step, list(rows),
+                                    [r[0].shape[1] for r in rows.values()],
+                                    self.node_ids)
+            for (name, (a, b, my)), noise in zip(rows.items(), noises):
+                d = gap(a, b, my, gamma)
+                norm = torch.linalg.vector_norm(d.float(), dim=1)
+                x_new[name], y_new[name] = ops.choco_qsgd(
+                    a, b, my, noise, norm, gamma, comp.levels,
+                    comp._c(d.shape[1]))
+        return ({name: v.reshape(x[name].shape) for name, v in x_new.items()},
+                {name: v.reshape(x[name].shape) for name, v in y_new.items()})
+
+    def choco_unfused(self, comp: Compressor, x: Params, y: Params,
+                      mixed_y: Params, gamma: float, draws=None,
+                      round_idx: int = 0, step: int = 0
+                      ) -> Tuple[Params, Params]:
+        """The unfused CHOCO-G composition: the move and the gap in one
+        pass (K7) per leaf, then ``compress`` on every gap with the draws
+        for gossip step ``step`` of round ``round_idx`` from the seam
+        ``draws``, then the add; returns (x_new, y_new)."""
+        n = self.rows
         x_new, gaps = {}, {}
         for name in x:
             a, b, my = (t[name].reshape(n, -1) for t in (x, y, mixed_y))
@@ -338,40 +389,6 @@ class DenseSubstrate(NodeSubstrate):
         return num / self.mean_over_nodes(m).clamp(
             min=1.0 / max(self.num_nodes, 1))
 
-    def choco_step(self, comp, x, y, mixed_y, gamma, draws=None,
-                   round_idx=0, step=0):
-        """TopK and QSGD run fused, emitting (x_new, y_new) in one pass per
-        leaf. TopK: every leaf's gap d in the leaf dtype, the thresholds of
-        the leaves of each dtype in one K4 call, then K3 per leaf. QSGD,
-        per leaf: d's per-node f32 norm and K2 (which recomputes d
-        bitwise). Other compressors: the unfused composition."""
-        if not isinstance(comp, (TopK, QSGD)):
-            return super().choco_step(comp, x, y, mixed_y, gamma, draws,
-                                      round_idx, step)
-        n = self.num_nodes
-        rows = {name: tuple(t[name].reshape(n, -1) for t in (x, y, mixed_y))
-                for name in x}
-        x_new, y_new = {}, {}
-        if isinstance(comp, TopK):
-            gaps = [gap(a, b, my, gamma) for a, b, my in rows.values()]
-            threshs = _by_dtype(gaps, lambda ds: ops.topk_threshold_many(
-                ds, [comp._k(d.shape[1]) for d in ds]))
-            for (name, (a, b, my)), d, t in zip(rows.items(), gaps, threshs):
-                x_new[name], y_new[name] = ops.choco_topk(a, b, my, d, t,
-                                                          gamma)
-        else:
-            noises = comp.draw_many(draws, round_idx, step, list(rows),
-                                    [r[0].shape[1] for r in rows.values()],
-                                    self.node_ids)
-            for (name, (a, b, my)), noise in zip(rows.items(), noises):
-                d = gap(a, b, my, gamma)
-                norm = torch.linalg.vector_norm(d.float(), dim=1)
-                x_new[name], y_new[name] = ops.choco_qsgd(
-                    a, b, my, noise, norm, gamma, comp.levels,
-                    comp._c(d.shape[1]))
-        return ({name: v.reshape(x[name].shape) for name, v in x_new.items()},
-                {name: v.reshape(x[name].shape) for name, v in y_new.items()})
-
 
 class BatchedSubstrate(DenseSubstrate):
     """The dense substrate over a sampled cohort of a virtual population.
@@ -443,3 +460,118 @@ class BatchedSubstrate(DenseSubstrate):
         return tree_map(
             lambda f, c: f.index_copy_(0, self._ids_on(f.device), c),
             full, cohort)
+
+
+class ShardedSubstrate(NodeSubstrate):
+    """One node per process: every leaf is this rank's ``[1, ...]`` row of
+    the stacked state, and the ranks of ``group`` (``core.sharded.
+    NodeGroup``, rank i holding node i) enumerate the nodes. Needs a
+    circulant C (``topology.is_shift_structured()``); a gossip step sends
+    this node's leaves to its neighbour over every shift and mixes what it
+    receives (``mixing.mix_shifts``, K1's received form), deg copies a
+    step where the dense product reads all N.
+
+    ``mix`` sums the received copies in the dense engine's order, node
+    (i + s_k) mod N for the k-th shift of ``topology.shifts()``, with that
+    shift's weight, so that a step is bitwise ``DenseSubstrate.mix``'s row
+    i: in the reference's direction (node i receives from (i - s) mod N)
+    term k is the exchange over shift (N - s_k) mod N, which a symmetric C
+    gives the same weight. ``shift_edge_idx`` and ``shift_masks`` are the
+    reference's, in the order of ``topology.shifts()``. ``choco_step`` and
+    ``compress`` run the dense kernels (K2-K7) on the ``[1, D]`` rows, the
+    seam drawing for this node's id (``node_ids``); the means over nodes
+    are sums over the ranks (``group.all_reduce_sum``) divided by N.
+    Masks are host arrays, the same on every rank. The caller checks
+    ``topology`` and ``group`` first (``core.dfl.check_sparse``).
+    """
+
+    def __init__(self, topology: Topology, group):
+        self.topology = topology
+        self.group = group
+        self.num_nodes = n = topology.num_nodes
+        self.shifts = topology.shifts()
+        self.self_weight = float(topology.self_weights[0]) if n else 1.0
+        self.node_ids = np.asarray([group.rank], np.int64)
+        # Per-shift edge lookup for participation masks: entry [k, i] is
+        # the ``topology.edges()`` index of the edge node i receives over
+        # on shift k (from node (i - s_k) mod N); both endpoints of an
+        # undirected edge resolve to the same entry.
+        if self.shifts and topology.num_edges:
+            eix = topology.edge_index()
+            self.shift_edge_idx = np.asarray(
+                [[eix[tuple(sorted(((i - s) % n, i)))] for i in range(n)]
+                 for (s, _) in self.shifts], dtype=np.int32)
+        else:
+            self.shift_edge_idx = np.zeros((0, n), np.int32)
+        index = {s: k for k, (s, _) in enumerate(self.shifts)}
+        # term k of the dense order: the exchange over shift -s_k, whose
+        # received copy is node (i + s_k)'s, with the k-th shift's weight
+        self._terms = [((-s) % n, w) for s, w in self.shifts]
+        self._term_shift = [index[(-s) % n] for s, _ in self.shifts]
+
+    @property
+    def rows(self) -> int:
+        return 1
+
+    def node_index(self) -> int:
+        return self.group.rank
+
+    def shift_masks(self, edge_mask) -> Tuple[float, ...]:
+        """This node's 0/1 value per shift of ``topology.shifts()``, from
+        the round's [E] edge mask (host values)."""
+        mask = _host_mask(edge_mask)
+        if mask.shape != (self.topology.num_edges,):
+            raise ValueError(f"edge mask has {mask.size} entries, the "
+                             f"topology {self.topology.num_edges} edges")
+        i = self.node_index()
+        return tuple(float(mask[self.shift_edge_idx[k, i]])
+                     for k in range(len(self.shifts)))
+
+    def mix(self, tree, edge_mask=None):
+        masks = None
+        if edge_mask is not None:
+            by_shift = self.shift_masks(edge_mask)
+            if not all(by_shift):
+                masks = [by_shift[k] for k in self._term_shift]
+        return mixing_lib.mix_shifts(tree, self._terms, self.self_weight,
+                                     self.group.shift_exchange, masks)
+
+    def mean_over_nodes(self, x):
+        return (self.group.all_reduce_sum(x) / self.num_nodes)[0]
+
+    def sum_per_node(self, x):
+        return x.reshape(1, -1).sum(dim=1)
+
+    def mean_tree(self, tree):
+        """Every leaf's f32 mean over nodes, the leaves summed over the
+        ranks in one call."""
+        names = list(tree)
+        flat = torch.cat([tree[name].float().reshape(-1) for name in names])
+        total = self.group.all_reduce_sum(flat) / self.num_nodes
+        out, at = {}, 0
+        for name in names:
+            shape = tree[name].shape[1:]
+            size = tree[name][0].numel()
+            out[name] = total[at:at + size].reshape(shape)
+            at += size
+        return out
+
+    def node_mask_local(self, node_mask):
+        mask = _host_mask(node_mask)
+        if mask.shape != (self.num_nodes,):
+            raise ValueError(f"node mask has {mask.size} entries for "
+                             f"{self.num_nodes} nodes")
+        return int(mask[self.node_index()])
+
+    def select_nodes(self, mask_local, new, old):
+        return new if mask_local else old
+
+    def masked_mean_over_nodes(self, x, mask_local):
+        """mean(x m) / max(mean(m), 1/N) over the ranks, m this node's 0/1
+        value: 0 (not NaN) when every node is masked."""
+        m = float(mask_local)
+        both = self.group.all_reduce_sum(torch.stack(
+            [(x * m).reshape(()), torch.full((), m, dtype=x.dtype,
+                                             device=x.device)]))
+        both = both / self.num_nodes
+        return both[0] / both[1].clamp(min=1.0 / max(self.num_nodes, 1))

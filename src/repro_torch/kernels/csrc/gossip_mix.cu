@@ -1,5 +1,7 @@
 // K1 gossip_mix: one gossip step X <- X C for a circulant C, over every
-// stacked [N, D_i] leaf of a tree in one launch.
+// stacked [N, D_i] leaf of a tree in one launch; and its received-buffer
+// form, one node's leaves mixed with the copies it received (the sharded
+// engine's step, gossip_mix_received_* at the end of this file).
 //
 // Replaces src/repro/kernels/gossip_mix.py:gossip_mix_2d (_mix_kernel),
 // which mixed one node's (rows, 128) tile with deg received copies. Here
@@ -153,4 +155,119 @@ extern "C" int gossip_mix_f32(const void* plan, const void* nbr, const void* w, 
 extern "C" int gossip_mix_bf16(const void* plan, const void* nbr, const void* w, int rows,
                                int deg, int64_t blocks, void* stream) {
   return launch<__nv_bfloat16>(plan, nbr, w, rows, deg, blocks, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K1, received-buffer form: one node's gossip step on the sharded engine.
+//
+// Replaces src/repro/kernels/gossip_mix.py:gossip_mix_2d in its own form:
+// one node's leaf x [D] mixed with the deg buffers it received from its
+// neighbours (recv, deg rows of D at a stride of recv_stride elements),
+//
+//   out[c] = w[0] * x[c] + sum_j w[j + 1] * recv[j, c]
+//
+// accumulated in f32 in that order and cast once to the leaf dtype, with
+// __fmul_rn / __fadd_rn as in mix_one above, so that at the same weights
+// in the same order it is bitwise the stacked kernel's row. The weights
+// [deg + 1] are read from device memory: masked weights change every
+// round and are never read on the host.
+//
+// Bound: bytes, (deg + 2) D elements (x and deg buffers read once, out
+// written once); 2 (deg + 1) flops an element are far below the f32 rate.
+// A streaming kernel: each thread mixes one 16-byte vector of x, of every
+// received row and of out at a time where the rows start 16-byte aligned
+// (build.rows_aligned), else one element; no shared memory. Each block
+// takes a chunk of one leaf's columns; the leaves' descriptors travel by
+// value in the launch parameters, so one launch serves a whole tree.
+
+constexpr int kRecvThreads = 256;
+
+struct RecvLeaf {
+  const void* x;        // [cols]
+  const void* recv;     // [deg] rows of cols, recv_stride elements apart
+  void* out;            // [cols]
+  int64_t cols;
+  int64_t recv_stride;
+  int32_t block_begin;  // first block of the leaf
+  int32_t vec;          // 1 when x, out and every received row are 16-byte aligned
+};
+
+struct RecvPlan {
+  RecvLeaf leaf[kMaxLeaves];
+  int32_t num_leaves;
+  int32_t chunk;  // columns per block, a multiple of 16 / sizeof(T)
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kRecvThreads)
+gossip_mix_received_kernel(const __grid_constant__ RecvPlan plan, const float* __restrict__ w,
+                           int deg) {
+  int li = 0;
+  while (li + 1 < plan.num_leaves && plan.leaf[li + 1].block_begin <= (int)blockIdx.x) ++li;
+  const RecvLeaf& leaf = plan.leaf[li];
+  const int64_t col0 = (int64_t)((int)blockIdx.x - leaf.block_begin) * plan.chunk;
+  const int width = leaf.cols - col0 < plan.chunk ? (int)(leaf.cols - col0) : plan.chunk;
+  const T* x = static_cast<const T*>(leaf.x) + col0;
+  const T* recv = static_cast<const T*>(leaf.recv) + col0;
+  T* out = static_cast<T*>(leaf.out) + col0;
+  const float w0 = w[0];
+  if (leaf.vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int nv = width / V;  // cols and chunk are multiples of V here
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+      float acc[V];
+      uint4 q = reinterpret_cast<const uint4*>(x)[v];
+      const T* e = reinterpret_cast<const T*>(&q);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = __fmul_rn(w0, to_f32(e[j]));
+      for (int k = 0; k < deg; ++k) {
+        const float wk = w[k + 1];
+        q = reinterpret_cast<const uint4*>(recv + k * leaf.recv_stride)[v];
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(wk, to_f32(e[j])));
+      }
+      uint4 packed;
+      T* o = reinterpret_cast<T*>(&packed);
+#pragma unroll
+      for (int j = 0; j < V; ++j) o[j] = from_f32<T>(acc[j]);
+      reinterpret_cast<uint4*>(out)[v] = packed;
+    }
+  } else {
+    for (int c = threadIdx.x; c < width; c += blockDim.x) {
+      float acc = __fmul_rn(w0, to_f32(x[c]));
+      for (int k = 0; k < deg; ++k) {
+        acc = __fadd_rn(acc, __fmul_rn(w[k + 1], to_f32(recv[k * leaf.recv_stride + c])));
+      }
+      out[c] = from_f32<T>(acc);
+    }
+  }
+}
+
+template <typename T>
+static int launch_received(const void* plan, const void* w, int deg, int64_t blocks,
+                           void* stream) {
+  const RecvPlan& p = *static_cast<const RecvPlan*>(plan);
+  gossip_mix_received_kernel<T><<<(unsigned)blocks, kRecvThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const float*>(w), deg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof(RecvPlan), its leaf limit and its threads a block, for the
+// wrapper's layout check
+extern "C" int gossip_mix_received_layout(int64_t* out) {
+  out[0] = sizeof(RecvPlan);
+  out[1] = kMaxLeaves;
+  out[2] = kRecvThreads;
+  return 0;
+}
+
+extern "C" int gossip_mix_received_f32(const void* plan, const void* w, int deg,
+                                       int64_t blocks, void* stream) {
+  return launch_received<float>(plan, w, deg, blocks, stream);
+}
+
+extern "C" int gossip_mix_received_bf16(const void* plan, const void* w, int deg,
+                                        int64_t blocks, void* stream) {
+  return launch_received<__nv_bfloat16>(plan, w, deg, blocks, stream);
 }

@@ -18,6 +18,11 @@ for each of the reference's seven Pallas kernels:
   * ``gossip_mix_many(xs, nbr, w)``        K1, one circulant gossip step
                                            over every leaf of a tree;
                                            ``gossip_mix`` for one leaf.
+  * ``gossip_mix_received_many(xs, recvs, w)``
+                                           K1's received-buffer form, one
+                                           node's step on the sharded
+                                           engine over every leaf;
+                                           ``gossip_mix_received`` for one.
   * ``choco_qsgd(x, y, my, noise, norm, gamma, levels, c)``
                                            K2, fused CHOCO-QSGD step.
   * ``choco_topk(x, y, my, d, t, gamma)``  K3, fused CHOCO-TopK step.
@@ -44,7 +49,8 @@ from repro_torch.kernels import qsgd as _qsgd
 from repro_torch.kernels import topk as _topk
 
 DTYPES = (torch.float32, torch.bfloat16)
-LAUNCHES: Dict[str, int] = {"gossip_mix": 0, "choco_qsgd": 0,
+LAUNCHES: Dict[str, int] = {"gossip_mix": 0, "gossip_mix_received": 0,
+                            "choco_qsgd": 0,
                             "choco_topk": 0, "topk_threshold": 0,
                             "topk_mask": 0, "qsgd_quantize": 0,
                             "choco_move": 0}
@@ -147,6 +153,56 @@ def gossip_mix(x: torch.Tensor, nbr: torch.Tensor,
                w: torch.Tensor) -> torch.Tensor:
     """K1 on one leaf ``x`` [N, D]: ``gossip_mix_many([x], nbr, w)``."""
     return gossip_mix_many([x], nbr, w)[0]
+
+
+def gossip_mix_received_many(xs: Sequence[torch.Tensor],
+                             recvs: Sequence[torch.Tensor],
+                             w: torch.Tensor) -> List[torch.Tensor]:
+    """K1's received-buffer form over every leaf of ``xs`` (one node's
+    leaves, each ``[D_i]`` or ``[1, D_i]``, contiguous, one dtype):
+    ``out = w[0] x + sum_j w[j+1] recvs[i][j]`` (f32 accumulate, leaf dtype
+    out), with ``recvs[i]`` the ``[deg, D_i]`` buffers received for leaf i
+    (x's dtype; rows contiguous, any row stride) and ``w`` ``[deg + 1]``
+    float32 on x's device, shared by all leaves. One launch per
+    ``gossip_mix.MAX_LEAVES`` leaves."""
+    op = "gossip_mix_received"
+    xs, recvs = list(xs), list(recvs)
+    if not xs or len(xs) != len(recvs):
+        raise ValueError(f"{op}: {len(xs)} leaves and {len(recvs)} received "
+                         "buffers")
+    on_card = _on_card(op, *xs, *recvs, w)
+    deg = recvs[0].shape[0] if recvs[0].dim() == 2 else -1
+    for x, recv in zip(xs, recvs):
+        if x.dtype not in DTYPES or x.dtype != xs[0].dtype:
+            raise TypeError(f"{op}: leaves must share one of {DTYPES}, got "
+                            f"{x.dtype} and {xs[0].dtype}")
+        if (x.dim() not in (1, 2) or (x.dim() == 2 and x.shape[0] != 1)
+                or x.numel() < 1 or not x.is_contiguous()):
+            raise ValueError(f"{op}: x must be a contiguous non-empty [D] or "
+                             f"[1, D] tensor, got {tuple(x.shape)}")
+        if (recv.dtype != x.dtype or tuple(recv.shape) != (deg, x.numel())
+                or (x.numel() > 1 and recv.stride(1) != 1)):
+            raise ValueError(
+                f"{op}: received buffers must be [{deg}, {x.numel()}] "
+                f"{x.dtype} with contiguous rows, got {tuple(recv.shape)} "
+                f"{recv.dtype} strides {recv.stride()}")
+    if (w.dtype != torch.float32 or tuple(w.shape) != (deg + 1,)
+            or not w.is_contiguous()):
+        raise ValueError(f"{op}: w must be a contiguous [{deg + 1}] float32 "
+                         f"tensor, got {tuple(w.shape)} {w.dtype}")
+    if not on_card:
+        return [_mix.plain_received(x, recv, w) for x, recv in zip(xs, recvs)]
+    outs = [torch.empty_like(x) for x in xs]
+    with torch.cuda.device(xs[0].device):
+        LAUNCHES[op] += _mix.launch_received_many(xs, recvs, w, outs)
+    return outs
+
+
+def gossip_mix_received(x: torch.Tensor, recv: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """K1's received form on one leaf: ``gossip_mix_received_many([x],
+    [recv], w)``."""
+    return gossip_mix_received_many([x], [recv], w)[0]
 
 
 def topk_threshold_many(xs: Sequence[torch.Tensor],

@@ -29,8 +29,19 @@ one-round-stale exchange. ``--ckpt-dir`` restores the newest intact
 checkpoint's parameters and writes one every ``--ckpt-every`` rounds (at
 superstep edges) and at the end, in the reference's format.
 
-``--engine`` takes auto or dense (one card runs the dense engine; sparse
-raises with the sharded engine's item). ``--use-kernels`` is accepted and
+``--engine sparse`` runs one node per process under
+``python -m torch.distributed.run --nproc-per-node N`` (``--nodes N``, a
+circulant ``--topology``; ``core.sharded``): each rank takes
+``cuda:{LOCAL_RANK % device_count}``, or the CPU with ``--device cpu``;
+the group's backend is gloo on the CPU or when ranks share a card, nccl
+when each has its own, and the run prints it. Rank 0 prints and writes
+the history, telemetry, profile and checkpoint files (a checkpoint
+gathers every rank's node). ``--engine auto`` takes the sparse engine
+under such a launch when it is eligible and no planner is set, the dense
+one otherwise, and ``dense`` always the dense one. The adaptive planner
+and the node-batched engine run on the dense engine only, and the dense
+and batched engines in one process: a launch of several ranks refuses
+them. ``--use-kernels`` is accepted and
 changes nothing: a CUDA tensor always takes the kernels
 (``launch.steps.kernelize_compressor``). ``--device`` (default cuda) runs
 on the CPU when asked, with the kernels' plain versions.
@@ -59,6 +70,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
@@ -68,7 +80,9 @@ from repro_torch.core import (DFLConfig, HostPrefetcher, MetricsBuffer,
                               make_compressor, paper_quasi_ring, ring,
                               round_wire_bits, stack_round_batches)
 from repro_torch.core.compression import Identity, tree_wire_bits
-from repro_torch.core.executor import _NOT_PORTED
+from repro_torch.core.dfl import sparse_engine_eligible
+from repro_torch.core.rng import GeneratorDraws
+from repro_torch.core.sharded import NodeGroup, backend_for, local_rows
 from repro_torch.data.lm import (SyntheticLM, lm_batches_for_cohort,
                                  lm_batches_for_dfl)
 from repro_torch.device import resolve_device
@@ -116,8 +130,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gamma", type=float, default=0.6)
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "dense", "sparse"],
-                    help="auto and dense run the dense engine on one card; "
-                         "sparse is not ported yet")
+                    help="sparse: one node per process under "
+                         "torch.distributed.run --nproc-per-node N (a "
+                         "circulant topology, N == --nodes); auto: sparse "
+                         "when so launched and eligible (no --plan-budget), "
+                         "else dense; dense: all nodes stacked in one "
+                         "process, which a multi-rank launch refuses")
     ap.add_argument("--use-kernels", action="store_true",
                     help="accepted for the reference's command lines: a "
                          "CUDA tensor always takes the kernels")
@@ -183,7 +201,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
         generator: Optional[torch.Generator] = None,
         dispatch: Optional[Dispatch] = None,
-        log: Callable[[str], None] = print) -> Dict[str, Any]:
+        log: Callable[[str], None] = print,
+        group: Optional[NodeGroup] = None) -> Dict[str, Any]:
     """Train ``cfg`` (default: the ``--arch``'s reduced config) as the CLI
     does. ``generator`` draws the initial weights (default: a CPU generator
     seeded 0); ``dispatch(executor, state, batches, rows)`` replaces
@@ -192,11 +211,13 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
     consensus_sq, round_s, ...), the engine and schedule mode, the builds
     and captures at the end of the warmup and at the end, the wire bits,
     the telemetry events and the history view, the final state and the
-    executor."""
-    if args.engine == "sparse":
-        raise NotImplementedError(
-            f"engine='sparse' {_NOT_PORTED.format(6)}")
-    dev = resolve_device(args.device)
+    executor. ``group``: this rank's ``core.sharded.NodeGroup`` when the
+    run is one rank of a node group (``main`` makes it under
+    ``torch.distributed.run``); only rank 0 logs and writes files."""
+    dev = group.device if group is not None else resolve_device(args.device)
+    rank0 = group is None or group.rank == 0
+    if not rank0:
+        log = _quiet
     if cfg is None:
         cfg = get_arch(args.arch).reduced
     if dispatch is None:
@@ -229,6 +250,26 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
         args.use_kernels)
     topology = make_topology(args.topology, n)
     opt = make_optimizer(args.optimizer, args.lr)
+    eligible = sparse_engine_eligible(
+        DFLConfig(tau1=1, tau2=1, topology=topology), group)
+    if args.engine == "sparse" and not eligible:
+        raise ValueError(
+            "sparse engine needs #ranks == --nodes and a circulant topology "
+            f"(ranks={group.world if group else 1}, nodes={n}, "
+            f"topology={topology.name})")
+    if args.engine == "sparse" and args.plan_budget > 0:
+        raise ValueError("the adaptive planner runs on the dense engine: "
+                         "each rank would plan from its own clock")
+    sparse = (eligible and args.engine != "dense" and not population
+              and args.plan_budget <= 0)
+    if group is not None and group.world > 1 and not sparse:
+        raise ValueError(
+            f"--engine {args.engine} runs the "
+            f"{'batched' if population else 'dense'} engine, every node in "
+            f"one process, but this is one of {group.world} ranks: each "
+            "would run it whole; launch it as one process"
+            + (" (the adaptive planner runs on the dense engine)"
+               if args.plan_budget > 0 else ""))
 
     fault_plan = None
     if args.faults:
@@ -243,7 +284,8 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
         log(f"fault plan: {len(fault_plan.faults)} fault(s), "
             f"seed={fault_plan.seed}")
 
-    tel = Telemetry(path=args.telemetry_out or None, meta=dict(vars(args)))
+    tel = Telemetry(path=(args.telemetry_out or None) if rank0 else None,
+                    meta=dict(vars(args)))
     corpus = SyntheticLM(vocab_size=cfg.vocab_size,
                          num_nodes=population or n,
                          noniid_alpha=args.noniid, lazy=bool(population))
@@ -256,13 +298,20 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
     params0, _ = init_params(cfg, generator, dev)
     shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
               for k, v in params0.items()}
-    state = init_state(params0, population or n, opt,
-                       compressed=comp is not None, seed=1)
+    # the sparse engine holds this rank's node, drawing as the dense
+    # engine's seam does for it
+    state = init_state(params0, 1 if sparse else population or n, opt,
+                       compressed=comp is not None, seed=1,
+                       draws=GeneratorDraws(1, population or n,
+                                            params0.keys(), dev))
     del params0
     start_round = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
-        restored, start_round = restore_checkpoint(args.ckpt_dir,
-                                                   state.params)
+        template = (group.gather_rows(state.params) if sparse
+                    else state.params)
+        restored, start_round = restore_checkpoint(args.ckpt_dir, template)
+        if sparse:
+            restored = local_rows(restored, group)
         state = state._replace(params=restored)
         log(f"restored round {start_round} from {args.ckpt_dir}")
 
@@ -303,12 +352,13 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
         tau1_max, tau2_max = tau1, tau2
     dcfg_max = DFLConfig(tau1=tau1_max, tau2=tau2_max, topology=topology,
                          compression=comp, gamma=args.gamma)
-    engine = "batched" if population else "dense"
+    engine = "batched" if population else "sparse" if sparse else "dense"
     executor = RoundExecutor(
         dcfg_max, loss_fn, opt, engine=engine,
         dynamic=args.dispatch == "fused",
         participation=fault_plan is not None, overlap=args.overlap,
-        population=population or None, telemetry=tel)
+        population=population or None, telemetry=tel,
+        group=group if sparse else None)
 
     wire_cache: Dict[tuple, float] = {}
 
@@ -328,6 +378,9 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
         f"overlap={args.overlap} schedule={schedule_mode} "
         f"superstep={args.superstep} wire={bits/8e6:.1f} MB/round/node "
         f"device={dev}")
+    if sparse:
+        log(f"sparse engine: {group.world} ranks, one node each, "
+            f"backend={group.backend}")
 
     def round_batch(r: int, t1: int) -> Dict[str, np.ndarray]:
         """One round's host batch tree, leaves ``[t1, N, B, ...]``; a
@@ -343,6 +396,8 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
             b["memory"] = np.random.default_rng(1000 + r).standard_normal(
                 (t1, n, args.batch, m, cfg.memory_dim or cfg.d_model),
                 dtype=np.float32)
+        if sparse:      # this rank's node: [t1, 1, B, ...]
+            b = {key: v[:, group.rank:group.rank + 1] for key, v in b.items()}
         return b
 
     def host_rounds(r0: int, t1s) -> List[Dict[str, np.ndarray]]:
@@ -395,7 +450,7 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
             controller.spend_overhead(time.perf_counter() - tw0)
 
     profiler = None
-    if args.profile_dir:
+    if args.profile_dir and rank0:
         from torch.profiler import ProfilerActivity, profile
         profiler = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
@@ -432,7 +487,9 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
 
     def do_checkpoint(step: int, extra: dict) -> None:
         ck0 = tel.now()
-        save_checkpoint(args.ckpt_dir, step, state.params, extra)
+        params = group.gather_rows(state.params) if sparse else state.params
+        if rank0:
+            save_checkpoint(args.ckpt_dir, step, params, extra)
         tel.emit("checkpoint", track="checkpoint", name=f"ckpt-{step}",
                  t=ck0, dur=tel.now() - ck0, round=step)
 
@@ -627,7 +684,7 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
              prefetch_cancelled=prefetch.stats["cancelled"],
              wall_s=time.perf_counter() - t0)
     history = history_view(tel.events)
-    if args.history_out:
+    if args.history_out and rank0:
         with open(args.history_out, "w") as f:
             json.dump(history, f, indent=1)
         log(f"history -> {args.history_out}")
@@ -649,9 +706,37 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
     }
 
 
+def _quiet(_msg: str) -> None:
+    """The log of a rank other than 0."""
+
+
+def init_group(args: argparse.Namespace) -> Optional[NodeGroup]:
+    """Under ``torch.distributed.run`` (``WORLD_SIZE`` > 1), join the
+    default process group and return this rank's ``NodeGroup``: the CPU
+    under ``--device cpu``, else ``cuda:{LOCAL_RANK % device_count}``; the
+    backend ``core.sharded.backend_for`` picks (nccl when every local rank
+    has its own card, else gloo). None outside such a launch."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(backend_for(
+            dev, int(os.environ.get("LOCAL_WORLD_SIZE", "1"))))
+    return NodeGroup.current(dev)
+
+
 def main(argv=None) -> Dict[str, Any]:
     args = parse_args(argv)
-    return run(args)
+    group = init_group(args)
+    try:
+        return run(args, group=group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -396,15 +396,20 @@ def test_dispatch_rejects_out_of_bounds_taus():
 
 
 def test_unported_executor_modes_raise():
-    """The mode still to port (the sparse engine) raises, pointing at
-    ROADMAP.md; participation, sampled populations, the pipeline and
-    telemetry are ported, and the modes refuse what the reference refuses
-    (the static fallback, a population on the dense engine)."""
+    """The sparse engine without a node group of N ranks raises the
+    reference's ``ValueError``; participation, sampled populations, the
+    pipeline and telemetry are ported, and the modes refuse what the
+    reference refuses (the static fallback, a population on the dense
+    engine)."""
+    from repro_torch.core.sharded import NodeGroup
     from repro_torch.obs import Telemetry, validate_stream
 
     cfg = DFLConfig(tau1=2, tau2=1, topology=ring(N))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="process group"):
         RoundExecutor(cfg, quad_loss, sgd(0.1), engine="sparse")
+    with pytest.raises(ValueError, match="has 1 ranks but"):
+        RoundExecutor(cfg, quad_loss, sgd(0.1), engine="sparse",
+                      group=NodeGroup(0, 1, "cpu", "gloo"))
     tel = Telemetry()
     assert RoundExecutor(cfg, quad_loss, sgd(0.1),
                          telemetry=tel)._tel is tel

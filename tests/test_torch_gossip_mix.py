@@ -2,7 +2,9 @@
 
 The port's plain version (what ``repro_torch.kernels.ops.gossip_mix`` runs
 on CPU tensors) is held against the reference's Pallas kernel in interpret
-mode and against the reference ``mix_dense``; the kernel itself is held
+mode and against the reference ``mix_dense``, and the received-buffer
+form's (``ops.gossip_mix_received_many``, the sparse engine's) bitwise
+against the reference's oracle ``ref.gossip_mix_ref``; the kernel itself is held
 against the plain version on the card by ``chip_smoke.py``. Tolerance:
 1e-5 in f32 and 1e-2 in bf16 (the reference's gossip contract; the two
 frameworks may order or contract the f32 accumulation differently).
@@ -15,6 +17,7 @@ import torch
 from repro.core import mixing as jmixing
 from repro.core import topology as jtopology
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.kernels.registry import PARITY_SHAPES
 from repro_torch.core import mixing, topology
 from repro_torch.core.substrate import DenseSubstrate
@@ -248,3 +251,97 @@ def test_substrate_makes_one_call_per_step(monkeypatch):
     y = {k: 0.5 * v for k, v in tree.items()}
     sub.choco_step(make_compressor("top_k", frac=0.67), tree, y, mixed, 0.6)
     assert calls == {"gossip_mix_many": 1, "topk_threshold_many": 1}
+
+
+# --- K1's received-buffer form (the sparse engine's step) ------------------
+
+def _received(shape, deg, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    recv = rng.normal(size=(deg,) + shape).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, deg + 1).astype(np.float32)
+    return x, recv, w / w.sum()
+
+
+@pytest.mark.parametrize("shape", PARITY_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_received_plain_matches_reference(shape, dtype):
+    """The received form's plain version, at deg 1, 2 and 7: bitwise the
+    reference's oracle ``ref.gossip_mix_ref`` (the same separate f32 mul
+    and add, in the same order); at deg 2 (the ring's) against its Pallas
+    kernel in interpret mode within 1e-5 in f32 and 1e-2 in bf16 (jitted,
+    XLA contracts the accumulation into fma: up to an ulp of the f32 sum);
+    and bitwise the dense K1's plain version at the same weights in the
+    same order."""
+    jdt, tdt, tol = DTYPES[dtype]
+    for deg in (1, 2, 7):
+        x, recv, w = _received(shape, deg, seed=deg + int(np.prod(shape)))
+        xj, rj = (jnp.asarray(a).astype(jdt) for a in (x, recv))
+        xt = torch.from_numpy(x).to(tdt).reshape(1, -1)
+        rt = torch.from_numpy(recv).to(tdt).reshape(deg, -1)
+        wt = torch.from_numpy(w)
+        got = ops.gossip_mix_received(xt, rt, wt)
+        assert got.shape == xt.shape and got.dtype == tdt
+        want = jref.gossip_mix_ref(xj, rj, jnp.asarray(w))
+        assert np.array_equal(_f32(got).reshape(shape), _f32(want)), deg
+        if deg == 2:    # one compile of the interpret-mode kernel a case
+            kernel = jops.gossip_mix(xj, rj, jnp.asarray(w), interpret=True)
+            np.testing.assert_allclose(_f32(got).reshape(shape),
+                                       _f32(kernel), rtol=tol, atol=tol)
+        # the dense K1 over [x; recv] with node 0 reading rows 1..deg
+        stacked = torch.cat([xt, rt])
+        nbr = torch.arange(1, deg + 1, dtype=torch.int32)[None].repeat(
+            deg + 1, 1)
+        dense = mix_module.plain(stacked, nbr, wt[None].repeat(deg + 1, 1))
+        assert torch.equal(dense[:1].view(torch.int16 if dtype == "bfloat16"
+                                          else torch.int32),
+                           got.view(torch.int16 if dtype == "bfloat16"
+                                    else torch.int32))
+
+
+def test_received_many_matches_per_leaf_and_rejects_bad_operands():
+    """One call over a tree (leaves [D] and [1, D], received rows at any
+    row stride) is the per-leaf calls bitwise, deg 0 keeps ``w[0] x``; the
+    wrapper refuses what the kernel does not take."""
+    xs = [torch.randn(1, 33), torch.randn(64), torch.randn(1, 1000)]
+    buf = torch.randn(2, 1200)     # rows of a packed exchange buffer
+    recvs = [buf[:, :33], buf[:, 48:112], buf[:, 112:1112]]
+    w = torch.tensor([0.5, 0.3, 0.2])
+    got = ops.gossip_mix_received_many(xs, recvs, w)
+    for x, r, g in zip(xs, recvs, got):
+        assert torch.equal(g, ops.gossip_mix_received(x, r, w))
+        assert g.shape == x.shape
+    assert torch.equal(ops.gossip_mix_received(
+        xs[0], torch.empty(0, 33), torch.tensor([1.0])), xs[0])
+    with pytest.raises(ValueError, match="received buffers must be"):
+        ops.gossip_mix_received(xs[0], buf[:, :34], w)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        ops.gossip_mix_received(xs[0], torch.randn(33, 2).t(), w)
+    with pytest.raises(ValueError, match="w must be"):
+        ops.gossip_mix_received(xs[0], recvs[0], w[:2])
+    with pytest.raises(ValueError, match=r"\[D\] or \[1, D\]"):
+        ops.gossip_mix_received(torch.randn(2, 33), recvs[0], w)
+    with pytest.raises(TypeError, match="share one of"):
+        ops.gossip_mix_received_many([xs[0], xs[1].bfloat16()],
+                                     recvs[:2], w)
+    with pytest.raises(ValueError, match="2 leaves and 1"):
+        ops.gossip_mix_received_many(xs[:2], recvs[:1], w)
+
+
+def test_received_plans_cover_every_column_once():
+    """Every column of every leaf is in exactly one block's chunk, at most
+    MAX_LEAVES leaves a launch, the chunk a whole number of 16-byte
+    vectors in f32 and bf16."""
+    cols = list(MANY_SIZES) * 3 + [1, 3, 17, mix_module.RECV_CHUNK + 1]
+    plans = mix_module.received_plans(cols)
+    assert [len(p.index) for p in plans] == [
+        min(mix_module.MAX_LEAVES, len(cols) - i)
+        for i in range(0, len(cols), mix_module.MAX_LEAVES)]
+    assert mix_module.RECV_CHUNK % 8 == 0
+    for plan in plans:
+        seen = {i: np.zeros(cols[i], np.int32) for i in plan.index}
+        for block in range(plan.blocks):
+            i, c0, c1 = mix_module.tile_span(plan, block)
+            assert 0 <= c0 < c1 <= cols[i] and c0 % plan.tile == 0
+            seen[i][c0:c1] += 1
+        assert all(np.all(s == 1) for s in seen.values())

@@ -318,14 +318,16 @@ def test_full_state_checkpoint_resumes_cdfl_bitwise(tmp_path):
     (["--telemetry-out", "x"], 9), (["--history-out", "x"], 9),
     (["--profile-dir", "x"], 9), (["--engine", "sparse"], 6)])
 def test_flags_waiting_for_other_items_raise(tmp_path, flag, item):
-    """``--engine sparse`` waits for item 6 and raises. Item 9's three
-    flags are ported: each writes its file, and the file validates (the
-    event stream under the reference's ``repro.obs`` too)."""
+    """``--engine sparse`` outside a node group of --nodes ranks raises the
+    reference's reason (tests/test_torch_sharded.py runs it under one).
+    Item 9's three flags are ported: each writes its file, and the file
+    validates (the event stream under the reference's ``repro.obs``
+    too)."""
     argv = ["--arch", ARCH, "--rounds", "2", "--device", "cpu", "--batch",
             "1", "--seq", "16", "--tau1", "1", "--tau2", "1",
             "--superstep", "1"]
     if item == 6:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+        with pytest.raises(ValueError, match="sparse engine needs #ranks"):
             train.main(argv + flag)
         return
     from repro.obs import validate_stream as jvalidate_stream

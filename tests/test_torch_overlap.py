@@ -325,7 +325,7 @@ def test_overlap_validation():
     with pytest.raises(ValueError, match="topology schedule"):
         RoundExecutor(sched, quad_loss, opt, participation=True,
                       overlap="pipeline")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="process group"):
         make_pipeline_fns(cfg, quad_loss, opt, engine="sparse")
     from repro_torch.planner import CostModel
     from repro_torch.planner.cost import ComputeModel, LinkModel

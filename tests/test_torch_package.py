@@ -12,6 +12,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.convert import params_from_jax
 from repro_torch.core.rng import GeneratorDraws, ReplayDraws
+from repro_torch.core.sharded import spawn
 from repro_torch.kernels import build
 from repro_torch.configs import REGISTRY
 from repro_torch.launch import cnn_run, serve, train
@@ -119,6 +120,8 @@ def test_default_device_raises_without_cuda():
         ServingEngine(REGISTRY["qwen3-1.7b"].reduced, {})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_decode_state(REGISTRY["qwen3-1.7b"].reduced, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        spawn(print, 2)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

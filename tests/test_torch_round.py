@@ -198,14 +198,15 @@ def test_round_wire_bits_matches_reference():
 
 
 def test_unported_options_raise():
-    """The option still to port raises, pointing at ROADMAP.md: the sparse
-    engine. Participation masks and sampled populations are ported
-    (tests/test_torch_faults.py, tests/test_torch_batched.py) and refuse,
-    as the reference does, a round without dynamic taus and a batched
-    engine without a population."""
+    """The sparse engine without a node group raises the reference's
+    ``ValueError`` (tests/test_torch_sharded.py runs it). Participation
+    masks and sampled populations are ported (tests/test_torch_faults.py,
+    tests/test_torch_batched.py) and refuse, as the reference does, a
+    round without dynamic taus and a batched engine without a
+    population."""
     cfg = dfl.DFLConfig(2, 2, ring(4))
     loss = lambda p, b: cnn_loss(p, b)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="process group"):
         dfl.make_round_fn(cfg, loss, sgd(0.1), engine="sparse")
     for kw in ({"participation": True}, {"population": 8}):
         with pytest.raises(ValueError, match="dynamic_taus"):
