@@ -13,16 +13,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    card, bitwise, at the CIFAR CNN's stacked leaf shapes [10, D] and the
    reference's parity sizes, in f32 and bf16, with ties, k = D, k = 1,
    all-zero rows (QSGD norm 0), -0.0 entries and QSGD levels 4 and 16;
-   K1, K4 and K6 also over whole leaf lists in one call (the CIFAR leaves,
-   the parity sizes), K4 and K6 also cut into small chunks, K1 also at
+   K1, K4, K5 and K6 also over whole leaf lists in one call (the CIFAR
+   leaves, the parity sizes; K5 also with NaN entries and on views at
+   storage offset 1), K4, K5 and K6 also cut into small chunks, K1 also at
    N = 1024, K6 also on a leaf of 70,000 rows; the plan structs of K1, K4
    and K6 are held against the kernels' own (a ctypes layout check), and
    K6's registers and spill bytes a thread are printed.
    Then time each kernel, its plain version and, where one PyTorch call
    computes the same function, that call, at the main path's shapes
-   (device time from CUDA-graph replay, CUDA events): K1, K4 and K6 one
-   call over all 10 leaves of a gossip step (K6 also one launch per leaf,
-   summed), and at the d1 leaf alone (K6 in bf16 too); the others one
+   (device time from CUDA-graph replay, CUDA events): K1, K4, K5 and K6
+   one call over all 10 leaves of a gossip step (K5 and K6 also one launch
+   per leaf, summed), and at the d1 leaf alone (K6 in bf16 too); the others one
    launch per leaf, summed over a step. The RNG seam's draws on the card
    bitwise the CPU's (``check_seam``).
 3. The main path, through ``run_dfl_cnn`` (the executor's replayed
@@ -31,7 +32,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    rounds each of C-DFL TopK (frac 0.67), plain DFL, C-DFL QSGD (16
    levels), C-DFL randomized gossip (p 0.8) and C-DFL RandK (frac 0.67),
    then TopK and QSGD through the substrate's ``compress`` hook on the
-   stacked leaves (QSGD in one K6 launch for the tree). The
+   stacked leaves (TopK one K4 call and one K5 launch for the tree, QSGD
+   one K6 launch). The
    launch counts are set to 0 before each and must rise by exactly what
    the rounds predict, plus one gossip step's for the warm call before
    the gossip graph's capture. The first round of each run is repeated on
@@ -196,9 +198,12 @@ them, and exits. ``python3 chip_smoke.py --only NAME ...`` runs the named
 phases after the build (``graphs``, ``pipeline``, ``pipeline_calibrate``:
 phase 4c's readings and controls ungated, ``figures``,
 ``figures_calibrate``: phase 5's figure readings and three controls
-ungated, ``telemetry``, ``lm``, ``lm_calibrate``, ``serve``,
-``serve_calibrate``, ``sparse``, ``sparse_calibrate``, ...) and prints
-no result.
+ungated, ``telemetry``, ``lm``, ``lm_calibrate``, ``lm_kernels``: phase
+11 (c) alone, K1-K7 on the full-width tree, ``serve``,
+``serve_calibrate``, ``sparse``, ``sparse_calibrate``,
+``sparse_kernels``: phase 14 (a) alone, K1-received checked and timed,
+``cold_kernels``: K5's and K1-received's CIFAR readings with their
+operands read from DRAM, ...) and prints no result.
 """
 import contextlib
 import dataclasses
@@ -266,6 +271,36 @@ def device_ms(fn, iters=20, reps=5):
     return start.elapsed_time(end) / (iters * reps)
 
 
+def cold_device_ms(make, nbytes, reps=5):
+    """Device time of one call with its operands read from DRAM, not from
+    L2: ``make()`` returns a call on operands of its own, and so many are
+    made that the bytes moved between two uses of one set (``nbytes`` a
+    call) exceed three times the L2 cache. The calls are captured by turns
+    in one CUDA graph (20 at least), each keeping its outputs apart, and
+    replayed ``reps`` times between CUDA events."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    calls = [make() for _ in range(1 + math.ceil(3 * l2 / nbytes))]
+    iters = len(calls) * math.ceil(20 / len(calls))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls[0]()
+    torch.cuda.current_stream().wait_stream(side)
+    graph, kept = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            kept.append(calls[i % len(calls)]())
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -308,10 +343,12 @@ def qsgd_c(levels, d):
 
 
 def check_batched(K, gen, cifar_sizes):
-    """Phase 2a, K1, K4 and K6 over leaf lists in one call: the CIFAR leaves
-    and the parity sizes, f32 and bf16, normal data and ties with a zero and
-    a -0.0 row, k = 1, 0.67 D and D; K4 and K6 also cut into chunks of 64,
-    so that every row of more than 64 spans several blocks; K1 also on a
+    """Phase 2a, K1, K4, K5 and K6 over leaf lists in one call: the CIFAR
+    leaves and the parity sizes, f32 and bf16, normal data and ties with a
+    zero and a -0.0 row, k = 1, 0.67 D and D (K5 at K4's thresholds, also
+    with NaN entries and on views at storage offset 1); K4, K5 and K6 also
+    cut into chunks of 64, so that every row of more than 64 spans several
+    blocks; K1 also on a
     1024-node ring, where the tile shrinks to fit the slab; K6 with a zero
     row, -0.0 entries and levels 4 and 16, and on a leaf of 70,000 rows."""
     from repro_torch.core.mixing import gossip_table
@@ -347,7 +384,7 @@ def check_batched(K, gen, cifar_sizes):
                         what = f"list of {len(sizes)}, k {k} {dtype}"
                         held("topk_threshold", g, t, what)
                         held("topk_threshold", sm, t, what + ", chunk 64")
-                    cases += 2
+                    cases += 2 + check_mask_many(data, want, held)
             cases += 1
             noises = [torch.rand(10, d, generator=gen, device="cuda")
                       for d in sizes]
@@ -369,12 +406,50 @@ def check_batched(K, gen, cifar_sizes):
                  f"N 1024, D {x.shape[1]} {dtype}")
         cases += 1
     torch.cuda.synchronize()
-    print(f"batched K1 / K4 / K6 vs plain: {cases} list calls, all bitwise")
+    print(f"batched K1 / K4 / K5 / K6 vs plain: {cases} list calls, all "
+          "bitwise")
     plan, leaves, leaf = qsgd.checked_layout()
     print(f"K6 plan struct: {plan} bytes for {leaves} leaves ({leaf} a "
           "leaf), the kernel's and the wrapper's alike")
     print("K6 registers and local (spill) bytes a thread "
           + json.dumps(qsgd.kernel_attributes()))
+
+
+def check_mask_many(xs, threshs, held):
+    """K5 over the leaves ``xs`` in one call and cut into chunks of 64
+    (heads and tails at every chunk of rows not 16-byte aligned), on the
+    leaves as given, with NaN in a third of row 1, and as views at storage
+    offset 1 (x and out not congruent: the scalar path), against the plain
+    version leaf by leaf at the thresholds ``threshs``, and at negative
+    thresholds (-0.5 and -inf by turns of rows, compared with their sign:
+    every value but NaN kept)."""
+    from repro_torch.kernels import ops, topk
+
+    nans = [x.clone() for x in xs]
+    for x in nans:
+        x[1, ::3] = float("nan")
+    shifted = []
+    for x in xs:
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        buf[1:] = x.reshape(-1)
+        shifted.append(buf[1:].view(x.shape))
+    negative = [torch.where(
+        torch.arange(t.numel(), device=t.device) % 2 == 0,
+        torch.tensor(-0.5, dtype=t.dtype, device=t.device),
+        torch.tensor(float("-inf"), dtype=t.dtype, device=t.device))
+        for t in threshs]
+    cases = (("", xs, threshs), (", NaN", nans, threshs),
+             (", offset 1", shifted, threshs), (", t < 0", nans, negative))
+    for label, data, ts in cases:
+        got = ops.topk_mask_many(data, ts)
+        small = [torch.empty_like(x) for x in data]
+        topk.launch_mask_many(data, ts, small, chunk=64)
+        for g, sm, x, t in zip(got, small, data, ts):
+            want = topk.mask_plain(x, t)
+            what = f"list of {len(xs)}, D {x.shape[1]} {x.dtype}{label}"
+            held("topk_mask", g, want, what)
+            held("topk_mask", sm, want, what + ", chunk 64")
+    return 2 * len(cases)
 
 
 def check_quantize_many(K, xs, noises, held):
@@ -501,10 +576,12 @@ def check_kernels(K, gen):
 
 def time_kernels(K, gen):
     """Phase 2b: device times per gossip step over the CIFAR CNN's leaves
-    (each leaf [10, D] f32): K1, K4 and K6 one call over all leaves, as the
-    round and the ``compress`` hook make it (K6 also one launch per leaf,
-    summed), the others one launch per leaf; and the bounds. K4's library
-    time is the faster of ``torch.topk`` and ``torch.kthvalue``."""
+    (each leaf [10, D] f32): K1, K4, K5 and K6 one call over all leaves, as
+    the round and the ``compress`` hook make it (K5 and K6 also one launch
+    per leaf, summed), the others one launch per leaf; and the bounds. K4's library
+    time is the faster of ``torch.topk`` and ``torch.kthvalue``. K5's
+    record is read with its operands from DRAM (``k5_tree_times``), the
+    others' with them warm in L2 where they fit (``device_ms``)."""
     from repro_torch.core.mixing import gossip_table
     from repro_torch.core.topology import ring
     from repro_torch.kernels import (choco_fused, choco_update, gossip_mix,
@@ -516,8 +593,8 @@ def time_kernels(K, gen):
     nbr, w = (torch.from_numpy(a).cuda() for a in gossip_table(topo))
     deg = nbr.shape[1]
     ct = torch.as_tensor(topo.mixing.T, dtype=torch.float32, device="cuda")
-    per_leaf, step = [], {"x": [], "k": [], "noise": [], "xnorm": [],
-                          "c": []}
+    per_leaf, step = [], {"x": [], "k": [], "t": [], "noise": [],
+                          "xnorm": [], "c": []}
     for name, leaf in leaves.items():
         n, d = 10, leaf.numel()
         x, y, my = (torch.randn(n, d, generator=gen, device="cuda")
@@ -540,8 +617,8 @@ def time_kernels(K, gen):
         K["choco_qsgd"].add_bound(24 * e + 8 * n, 13 * e)
         K["qsgd_quantize"].add_bound(12 * e + 4 * n, 8 * e)
         K["choco_move"].add_bound(20 * e, 4 * e)
-        for key, v in (("x", x), ("k", k), ("noise", noise), ("xnorm", xnorm),
-                       ("c", c)):
+        for key, v in (("x", x), ("k", k), ("t", t), ("noise", noise),
+                       ("xnorm", xnorm), ("c", c)):
             step[key].append(v)
         row = {"leaf": name, "D": d}
         if name == "d1":
@@ -585,10 +662,10 @@ def time_kernels(K, gen):
         per_leaf.append(row)
     for row in per_leaf:
         print("leaf ms " + json.dumps(row))
-    xs, ks = step["x"], step["k"]
+    xs, ks, ts = step["x"], step["k"], step["t"]
     xas = [x.abs() for x in xs]
     noises, xnorms, cs = step["noise"], step["xnorm"], step["c"]
-    per_leaf_sum = K["qsgd_quantize"].ms
+    per_leaf_sum = {"qsgd_quantize": K["qsgd_quantize"].ms}
     timed = {"gossip_mix": (
         lambda: ops.gossip_mix_many(xs, nbr, w),
         lambda: [gossip_mix.plain(x, nbr, w) for x in xs],
@@ -610,9 +687,44 @@ def time_kernels(K, gen):
             K[kname].library_ms = min(lib_ms.values())
         line = {"kernel": kname, "leaves": len(xs), "ms": K[kname].ms,
                 "plain_ms": K[kname].plain_ms, "library_ms": lib_ms}
-        if kname == "qsgd_quantize":
-            line["per_leaf_launches_ms"] = per_leaf_sum
+        if kname in per_leaf_sum:
+            line["per_leaf_launches_ms"] = per_leaf_sum[kname]
         print("step ms " + json.dumps(line))
+    line = k5_tree_times(xs, ts)
+    K["topk_mask"].ms, K["topk_mask"].plain_ms = line["ms"], line["plain_ms"]
+    print("step ms " + json.dumps(line))
+
+
+def k5_tree_times(xs, ts):
+    """K5 over the leaves ``xs`` (the CIFAR tree, 23 MB in f32) at the
+    thresholds ``ts``, its operands read from DRAM (``cold_device_ms``, as
+    the bound assumes): one call (``ops.topk_mask_many``; a package
+    without it masks leaf by leaf), one launch a leaf, the plain version;
+    and the one call with the operands warm in L2 (``device_ms``)."""
+    from repro_torch.kernels import ops, topk
+
+    many = getattr(ops, "topk_mask_many", None)
+    nbytes = sum(8 * x.numel() + 4 * x.shape[0] for x in xs)
+
+    def on_copies(fn):
+        def make():
+            copies = [x.clone() for x in xs]
+            return lambda: fn(copies)
+        return make
+
+    per_leaf = lambda cs: [ops.topk_mask(x, t)  # noqa: E731
+                           for x, t in zip(cs, ts)]
+    line = {"kernel": "topk_mask", "leaves": len(xs), "from": "DRAM",
+            "per_leaf_launches_ms": cold_device_ms(on_copies(per_leaf),
+                                                   nbytes),
+            "plain_ms": cold_device_ms(on_copies(
+                lambda cs: [topk.mask_plain(x, t) for x, t in zip(cs, ts)]),
+                nbytes)}
+    if many is not None:
+        line["ms"] = cold_device_ms(on_copies(lambda cs: many(cs, ts)),
+                                    nbytes)
+        line["warm_ms"] = device_ms(lambda: many(xs, ts))
+    return line
 
 
 class RecordingDraws:
@@ -766,16 +878,15 @@ def run_main_path(K):
               f"{CPU_CONSENSUS_RTOL}), the seam's draws on both")
 
     # K5 and K6 on the main path: TopK and QSGD on every node's slice of
-    # each stacked leaf, through the substrate's compress hook (TopK leaf by
-    # leaf, QSGD in one K6 launch for the tree)
+    # each stacked leaf, through the substrate's compress hook (TopK one K4
+    # call and one K5 launch for the tree, QSGD one K6 launch)
     params = {k: v + 0.01 * torch.randn_like(v)
               for k, v in replicate(leaves, 10).items()}
     draws = GeneratorDraws(0, 10, leaves, "cuda")
     sub = DenseSubstrate(ring(10))
     for name, kw, expect_launches in (
             ("top_k", {"frac": 0.67},
-             {"topk_threshold": sum(select_launches([d]) for d in sizes),
-              "topk_mask": len(leaves)}),
+             {"topk_threshold": select_launches(sizes), "topk_mask": 1}),
             ("qsgd", {"levels": 16}, {"qsgd_quantize": 1})):
         comp = make_compressor(name, **kw)
         noise = {k: comp.draw(draws, 0, 0, k, v[0].numel())
@@ -3308,7 +3419,8 @@ def lm_full_runs(K, gate, cfg, seq=LM_FULL_SEQ):
 def lm_kernel_times(cfg, gate):
     """(c) K1, K4 + K3 and K2 on the full-width tree (every leaf ``[4, D]``
     bf16 of the run's model, random data), each one call or one launch per
-    leaf as the round makes it, then K6, K5 and K7 over the same leaves,
+    leaf as the round makes it, then K6 and K5 (one call each, K5 also one
+    launch a leaf) and K7 over the same leaves,
     bitwise against its plain version, timed (CUDA-graph replay between
     CUDA events) against the plain version, one PyTorch call where there
     is one, and the bound: bytes at the card's memory rate (bf16: K1 4 B
@@ -3413,12 +3525,20 @@ def lm_kernel_times(cfg, gate):
     gc.collect()
     torch.cuda.empty_cache()
     threshs = ops.topk_threshold_many(xs, ks)
-    for x, t in zip(xs, threshs):
-        held("topk_mask", [ops.topk_mask(x, t)], [topk.mask_plain(x, t)])
-    timed("topk_mask", lambda: [ops.topk_mask(x, t)
-                                for x, t in zip(xs, threshs)],
+    held("topk_mask", ops.topk_mask_many(xs, threshs),
+         [topk.mask_plain(x, t) for x, t in zip(xs, threshs)])
+    timed("topk_mask", lambda: ops.topk_mask_many(xs, threshs),
           lambda: [topk.mask_plain(x, t) for x, t in zip(xs, threshs)],
           None, 4 * elems)
+    # the one call and one launch a leaf read by turns, three of each, so
+    # that a drift of the card within the phase shows in both
+    turns = [[device_ms(fn, iters=2, reps=3) for fn in (
+        lambda: ops.topk_mask_many(xs, threshs),
+        lambda: [ops.topk_mask(x, t) for x, t in zip(xs, threshs)])]
+        for _ in range(3)]
+    out["topk_mask"]["per_leaf_launches_ms"] = turns[0][1]
+    out["topk_mask"]["by_turns"] = {"one_call": [a for a, _ in turns],
+                                    "per_leaf": [b for _, b in turns]}
     for x, y, my in zip(xs, ys, mys):
         held("choco_move", ops.choco_move(x, y, my, gamma),
              choco_update.plain(x, y, my, gamma))
@@ -4118,48 +4238,66 @@ def sparse_cli_rank(group, out_dir, argv):
                os.path.join(out_dir, f"cli{group.rank}.pt"))
 
 
+RECV_EDGES = (1023, 1024, 1025, 2047, 2048, 2049, 4097, 8191, 8192, 8193,
+              16385)      # leaves at the received form's chunk edges
+
+
 def received_kernel_checks(K, gen):
     """(a) K1-received on the card, bitwise its plain version and the dense
     K1 at the same weights (over [x; recv] with node 0 reading rows 1..deg)
-    at one CIFAR node's 10 leaves plus the parity sizes, deg 1, 2 and 7, f32
-    and bf16, the received rows at the packed exchange's strides."""
+    at one CIFAR node's 10 leaves plus the parity sizes, and at leaves on
+    the chunk edges (``RECV_EDGES``, whose own call takes the smallest
+    chunk), deg 1-9 (1-8 with deg fixed at compile time, 9 the run-time
+    loop), f32 and bf16, the received rows at the packed exchange's strides
+    (16-byte aligned: the vector path) and at an odd stride (the scalar
+    path)."""
     from repro_torch.kernels import gossip_mix, ops
     from repro_torch.models.cnn import init_cnn
 
-    sizes = [v.numel() for v in init_cnn(torch.Generator().manual_seed(1),
+    cifar = [v.numel() for v in init_cnn(torch.Generator().manual_seed(1),
                                          "cifar", "cpu").values()]
-    sizes += list(PARITY_SIZES)
+    cases = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for deg in (1, 2, 7):
-            xs, recvs, w = received_operands(sizes, deg, dtype, gen)
-            got = ops.gossip_mix_received_many(xs, recvs, w)
-            nbr = torch.arange(1, deg + 1, dtype=torch.int32,
-                               device="cuda")[None].repeat(deg + 1, 1)
-            wt = w[None].repeat(deg + 1, 1).contiguous()
-            for x, r, g in zip(xs, recvs, got):
-                want = gossip_mix.plain_received(x, r, w)
-                require(same_bits(g, want), f"K1-received {dtype} deg {deg} "
-                        f"D {x.numel()}: differs from its plain version")
-                dense = ops.gossip_mix(torch.cat([x[None], r]), nbr, wt)[0]
-                require(same_bits(g, dense), f"K1-received {dtype} deg {deg} "
-                        f"D {x.numel()}: differs from the dense K1")
-                K["gossip_mix_received"].max_abs_err = max(
-                    K["gossip_mix_received"].max_abs_err,
-                    max_abs_err(g, want))
+        for deg in range(1, 10):
+            for sizes in (cifar + list(PARITY_SIZES), list(RECV_EDGES)):
+                for aligned in (True, False):
+                    xs, recvs, w = received_operands(sizes, deg, dtype, gen,
+                                                     aligned)
+                    got = ops.gossip_mix_received_many(xs, recvs, w)
+                    nbr = torch.arange(1, deg + 1, dtype=torch.int32,
+                                       device="cuda")[None].repeat(deg + 1, 1)
+                    wt = w[None].repeat(deg + 1, 1).contiguous()
+                    for x, r, g in zip(xs, recvs, got):
+                        what = (f"K1-received {dtype} deg {deg} D {x.numel()}"
+                                f" aligned {aligned}")
+                        want = gossip_mix.plain_received(x, r, w)
+                        require(same_bits(g, want),
+                                f"{what}: differs from its plain version")
+                        dense = ops.gossip_mix(torch.cat([x[None], r]), nbr,
+                                               wt)[0]
+                        require(same_bits(g, dense),
+                                f"{what}: differs from the dense K1")
+                        K["gossip_mix_received"].max_abs_err = max(
+                            K["gossip_mix_received"].max_abs_err,
+                            max_abs_err(g, want))
+                    cases += len(xs)
     torch.cuda.synchronize()
     print(f"K1-received: bitwise its plain version and the dense K1 over "
-          f"{len(sizes)} leaves x deg (1, 2, 7) x (f32, bf16)")
+          f"{cases} leaves: deg 1-9 x (f32, bf16) x (aligned, odd stride)")
 
 
-def received_operands(sizes, deg, dtype, gen):
+def received_operands(sizes, deg, dtype, gen, aligned=True):
     """Leaves ``[D]`` and their ``[deg, D]`` received rows, views of one
-    packed buffer as the exchange returns them (16-byte aligned leaves),
-    and normalised weights [deg + 1] on the card."""
+    packed buffer as the exchange returns them (16-byte aligned leaves;
+    with ``aligned`` False, packed at an odd row stride, which no leaf can
+    read 16 bytes at a time), and normalised weights [deg + 1] on the
+    card."""
     item = torch.tensor([], dtype=dtype).element_size()
     offsets, total = [], 0
     for d in sizes:
         offsets.append(total)
-        total += -(-d * item // 16) * 16 // item
+        total += -(-d * item // 16) * 16 // item if aligned else d
+    total += 0 if aligned or total % 2 else 1
     buf = torch.randn(deg, total, generator=gen, device="cuda").to(dtype)
     xs = [torch.randn(d, generator=gen, device="cuda").to(dtype)
           for d in sizes]
@@ -4171,28 +4309,94 @@ def received_operands(sizes, deg, dtype, gen):
 def received_times(sizes, deg, dtype, gen, big=False):
     """K1-received over leaves of ``sizes`` in one call: device ms, the
     plain version's, one ``torch.addmm`` a leaf (w0 x + w[1:] @ recv, the
-    same function), and the bound (deg + 2) D bytes at the memory rate."""
+    same function), and the bound (deg + 2) D bytes at the memory rate.
+    A node that fits in L2 is timed with its operands read from DRAM
+    (``cold_device_ms``, as the bound assumes; ``warm_ms`` the kernel's
+    reading with them warm in L2); a ``big`` one, far larger than L2,
+    reads from DRAM in any case."""
     from repro_torch.kernels import gossip_mix, ops
 
-    xs, recvs, w = received_operands(sizes, deg, dtype, gen)
-    w0, wr = float(w[0]), w[1:][None].to(dtype)
-    kern = lambda: ops.gossip_mix_received_many(xs, recvs, w)  # noqa: E731
-    plain = lambda: [gossip_mix.plain_received(x, r, w)  # noqa: E731
-                     for x, r in zip(xs, recvs)]
-    lib = lambda: [torch.addmm(x[None], wr, r, beta=w0)  # noqa: E731
-                   for x, r in zip(xs, recvs)]
-    timer = (lambda f: event_ms(f)) if big else device_ms
-    if big:
-        require(all(same_bits(g, p) for g, p in zip(kern(), plain())),
-                f"K1-received differs from its plain version at {dtype} "
-                f"deg {deg} over {sum(sizes)} elements")
-    item = xs[0].element_size()
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (deg + 2) * sum(sizes) * item
     out = {"elements": sum(sizes), "deg": deg,
-           "ms": device_ms(kern, iters=2, reps=3) if big else device_ms(kern),
-           "plain_ms": timer(plain), "library_ms": timer(lib),
-           "bound_ms": (deg + 2) * sum(sizes) * item / HBM_BYTES_PER_S * 1e3}
-    del xs, recvs
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+    def calls(xs, recvs, w):
+        w0, wr = float(w[0]), w[1:][None].to(dtype)
+        return {"ms": lambda: ops.gossip_mix_received_many(xs, recvs, w),
+                "plain_ms": lambda: [gossip_mix.plain_received(x, r, w)
+                                     for x, r in zip(xs, recvs)],
+                "library_ms": lambda: [torch.addmm(x[None], wr, r, beta=w0)
+                                       for x, r in zip(xs, recvs)]}
+
+    if not big:
+        for key in ("ms", "plain_ms", "library_ms"):
+            out[key] = cold_device_ms(lambda: calls(*received_operands(
+                sizes, deg, dtype, gen))[key], nbytes)
+        out["warm_ms"] = device_ms(calls(*received_operands(
+            sizes, deg, dtype, gen))["ms"])
+        return out
+    fns = calls(*received_operands(sizes, deg, dtype, gen))
+    require(all(same_bits(g, p) for g, p in zip(fns["ms"](),
+                                                fns["plain_ms"]())),
+            f"K1-received differs from its plain version at {dtype} "
+            f"deg {deg} over {sum(sizes)} elements")
+    out.update(ms=device_ms(fns["ms"], iters=2, reps=3),
+               plain_ms=event_ms(fns["plain_ms"]),
+               library_ms=event_ms(fns["library_ms"]))
     return out
+
+
+def cold_kernel_times():
+    """``--only cold_kernels``: the CIFAR readings of K5 (``k5_tree_times``)
+    and K1-received (deg 2 and 7, ``received_times``), their operands read
+    from DRAM. It calls only what a package whose K5 masks leaf by leaf
+    has too, so that an older checkout can be read the same way."""
+    from repro_torch.kernels import topk
+    from repro_torch.models.cnn import init_cnn
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    sizes = [v.numel() for v in init_cnn(torch.Generator().manual_seed(1),
+                                         "cifar", "cpu").values()]
+    xs = [torch.randn(10, d, generator=gen, device="cuda") for d in sizes]
+    ts = [topk.threshold_plain(x, math.ceil(0.67 * x.shape[1])) for x in xs]
+    print("K5 cifar " + json.dumps(k5_tree_times(xs, ts)))
+    for deg in (2, 7):
+        print(f"K1-received cifar_deg{deg} " + json.dumps(
+            received_times(sizes, deg, torch.float32, gen)))
+
+
+def received_kernel_phase(K):
+    """Phase 14 (a) (alone: ``--only sparse_kernels``): K1-received checked
+    (``received_kernel_checks``) and timed on one CIFAR node at deg 2 and
+    7 (operands read from DRAM) and one node of the full-width Qwen3 tree
+    at deg 2; the CIFAR deg 2 reading is the kernel's record."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import init_params
+    from repro_torch.models.cnn import init_cnn
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    received_kernel_checks(K, gen)
+    cifar = [v.numel() for v in init_cnn(torch.Generator().manual_seed(1),
+                                         "cifar", "cpu").values()]
+    times = {"cifar_deg2": received_times(cifar, 2, torch.float32, gen),
+             "cifar_deg7": received_times(cifar, 7, torch.float32, gen)}
+    lm = dataclasses.replace(REGISTRY[LM_FULL_ARCH].model,
+                             num_layers=LM_FULL_LAYERS)
+    lm_sizes = [int(np.prod(v.shape)) for v in init_params(
+        lm, None, "cpu", abstract=True)[0].values()]
+    times["lm_deg2"] = received_times(lm_sizes, 2, torch.bfloat16, gen,
+                                      big=True)
+    torch.cuda.empty_cache()
+    for name, t in times.items():
+        print(f"K1-received {name} " + json.dumps(t))
+    rec = K["gossip_mix_received"]
+    main = times["cifar_deg2"]
+    rec.ms, rec.plain_ms, rec.library_ms = (main["ms"], main["plain_ms"],
+                                            main["library_ms"])
+    rec.bytes_s = rec.ops_s = 0.0
+    rec.add_bound(main["bound_ms"] * 1e-3 * HBM_BYTES_PER_S,
+                  (2 * main["deg"] + 1) * main["elements"])
 
 
 def run_sparse_phase(K, gate=True):
@@ -4216,7 +4420,6 @@ def run_sparse_phase(K, gate=True):
     import tempfile
     from unittest import mock
 
-    from repro_torch.configs import REGISTRY
     from repro_torch.core import dfl
     from repro_torch.core.dfl import make_round_fn
     from repro_torch.core.rng import GeneratorDraws
@@ -4224,32 +4427,10 @@ def run_sparse_phase(K, gate=True):
     from repro_torch.core.substrate import DenseSubstrate
     from repro_torch.device import deterministic_algorithms
     from repro_torch.launch import train
-    from repro_torch.models import init_params
-    from repro_torch.models.cnn import init_cnn
     from repro_torch.optim import sgd
 
-    gen = torch.Generator(device="cuda").manual_seed(11)
     t0 = time.perf_counter()
-    received_kernel_checks(K, gen)
-    cifar = [v.numel() for v in init_cnn(torch.Generator().manual_seed(1),
-                                         "cifar", "cpu").values()]
-    times = {"cifar_deg2": received_times(cifar, 2, torch.float32, gen),
-             "cifar_deg7": received_times(cifar, 7, torch.float32, gen)}
-    lm = dataclasses.replace(REGISTRY[LM_FULL_ARCH].model,
-                             num_layers=LM_FULL_LAYERS)
-    lm_sizes = [int(np.prod(v.shape)) for v in init_params(
-        lm, None, "cpu", abstract=True)[0].values()]
-    times["lm_deg2"] = received_times(lm_sizes, 2, torch.bfloat16, gen,
-                                      big=True)
-    torch.cuda.empty_cache()
-    for name, t in times.items():
-        print(f"K1-received {name} " + json.dumps(t))
-    rec = K["gossip_mix_received"]
-    main = times["cifar_deg2"]
-    rec.ms, rec.plain_ms, rec.library_ms = (main["ms"], main["plain_ms"],
-                                            main["library_ms"])
-    rec.add_bound(main["bound_ms"] * 1e-3 * HBM_BYTES_PER_S,
-                  (2 * main["deg"] + 1) * main["elements"])
+    received_kernel_phase(K)
     print(f"sparse (a) {time.perf_counter() - t0:.1f} s")
 
     # (b, c): 8 ranks on the card
@@ -4376,7 +4557,7 @@ def run_sparse_phase(K, gate=True):
                         require(any(ctl[k] > lim for k, lim in
                                     SPARSE_RUN_RTOL.items()),
                                 f"control {label} within the limits {ctl}")
-        rec.launches = total
+        K["gossip_mix_received"].launches = total
         print("sparse (b) largest readings " + json.dumps(readings)
               + " smallest control " + json.dumps(controls))
         ex = [r["executor"] for r in ranks]
@@ -4457,6 +4638,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "kernels need a CUDA card", file=sys.stderr)
         return 1
+    from repro_torch.configs import REGISTRY
     from repro_torch.kernels import build
 
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
@@ -4524,26 +4706,31 @@ def main():
         "serve": run_serve_phase,
         "telemetry": lambda: run_telemetry_phase(K),
         "sparse": lambda: run_sparse_phase(K)}
-    phases["lm_calibrate"] = lambda: run_lm_phase(K, gate=False)
-    phases["sparse_calibrate"] = lambda: run_sparse_phase(K, gate=False)
-    phases["serve_calibrate"] = lambda: run_serve_phase(gate=False)
-    phases["figures_calibrate"] = lambda: run_figures(
-        K, gate=False, controls=FIG_CONTROLS)
-    phases["pipeline_calibrate"] = lambda: run_pipeline_phase(
-        K, gate=False, controls=(("gossip_mix_many", "x_shift", 1e-4),
-                                 ("gossip_mix_many", "x_shift", 1e-3),
-                                 ("gossip_mix_many", "x_scale", 1e-4)))
+    # phases run only when named after --only: readings ungated, or a part
+    # of a phase above alone
+    only = {
+        "lm_calibrate": lambda: run_lm_phase(K, gate=False),
+        "sparse_calibrate": lambda: run_sparse_phase(K, gate=False),
+        "serve_calibrate": lambda: run_serve_phase(gate=False),
+        "figures_calibrate": lambda: run_figures(
+            K, gate=False, controls=FIG_CONTROLS),
+        "pipeline_calibrate": lambda: run_pipeline_phase(
+            K, gate=False, controls=(("gossip_mix_many", "x_shift", 1e-4),
+                                     ("gossip_mix_many", "x_shift", 1e-3),
+                                     ("gossip_mix_many", "x_scale", 1e-4))),
+        "lm_kernels": lambda: lm_kernel_times(dataclasses.replace(
+            REGISTRY[LM_FULL_ARCH].model, num_layers=LM_FULL_LAYERS), True),
+        "sparse_kernels": lambda: received_kernel_phase(K),
+        "cold_kernels": cold_kernel_times}
     if sys.argv[1:2] == ["--only"]:
         # a subset of the phases, for work on the card; no result line
         print(card_line())
         for name in sys.argv[2:]:
             t0 = time.perf_counter()
-            phases[name]()
+            {**phases, **only}[name]()
             print(f"phase {name} time: {time.perf_counter() - t0:.1f} s")
         return 0
     for name, phase in phases.items():
-        if name.endswith("_calibrate"):
-            continue
         t0 = time.perf_counter()
         phase()
         print(f"phase {name} time: {time.perf_counter() - t0:.1f} s")

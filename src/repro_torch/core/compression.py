@@ -13,12 +13,13 @@ gets from the RNG seam (``repro_torch.core.rng``). On CUDA tensors TopK's
 threshold select and mask run K4 and K5, QSGD runs K6 and RandK's
 threshold over its scores runs K4 (``repro_torch.kernels.ops``).
 ``per_node_many`` applies Q to every stacked leaf of a tree: leaf by leaf,
-but for QSGD one K6 call for the leaves of each dtype.
+but for TopK one K4 call and one K5 call, and for QSGD one K6 call, for
+the leaves of each dtype.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +37,17 @@ __all__ = [
     "compress_tree",
     "tree_wire_bits",
 ]
+
+
+def by_dtype(leaves: List[torch.Tensor], fn: Callable) -> List[Any]:
+    """``fn`` on the leaves of each dtype in one call (``fn(group) ->
+    one output per leaf``), the outputs back in the leaves' order."""
+    out: List[Any] = [None] * len(leaves)
+    for dtype in dict.fromkeys(x.dtype for x in leaves):
+        idx = [i for i, x in enumerate(leaves) if x.dtype == dtype]
+        for i, o in zip(idx, fn([leaves[i] for i in idx])):
+            out[i] = o
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,9 +136,17 @@ class TopK(Compressor):
         return (32.0 + np.ceil(np.log2(max(d, 2)))) * k / d
 
     def per_node(self, x, draws=None):
-        rows = x.reshape(x.shape[0], -1)
-        thresh = ops.topk_threshold(rows, self._k(rows.shape[1]))
-        return ops.topk_mask(rows, thresh).reshape(x.shape)
+        return self.per_node_many([x], [draws])[0]
+
+    def per_node_many(self, xs, draws):
+        """One K4 call for the thresholds and one K5 call for the masks of
+        the leaves of each dtype (one of each for a tree of one dtype)."""
+        def mask(rows):
+            return ops.topk_mask_many(rows, ops.topk_threshold_many(
+                rows, [self._k(r.shape[1]) for r in rows]))
+
+        rows = [x.reshape(x.shape[0], -1) for x in xs]
+        return [m.reshape(x.shape) for x, m in zip(xs, by_dtype(rows, mask))]
 
 
 def _rows_draws(comp: Compressor, rows: torch.Tensor,
@@ -266,7 +286,8 @@ def compress_tree(comp: Compressor, tree: Dict[str, torch.Tensor],
                   ) -> Dict[str, torch.Tensor]:
     """Apply Q leaf-wise to one node's parameters, with each leaf's draws
     (of ``draw_shape``): every leaf a stack of one node, all through one
-    ``per_node_many`` call (under QSGD one K6 call per dtype)."""
+    ``per_node_many`` call (under TopK one K4 and one K5 call per dtype,
+    under QSGD one K6 call per dtype)."""
     rows = [leaf.reshape(1, -1) for leaf in tree.values()]
     us = [None if draws is None
           else draws[name].reshape((1,) + comp.draw_shape(r.shape[1]))

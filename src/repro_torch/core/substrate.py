@@ -46,13 +46,13 @@ nodes are sums over the ranks.
 from __future__ import annotations
 
 import copy
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import mixing as mixing_lib
-from repro_torch.core.compression import QSGD, Compressor, TopK
+from repro_torch.core.compression import QSGD, Compressor, TopK, by_dtype
 from repro_torch.core.topology import Topology
 from repro_torch.core.tree import leaf_order, tree_leaves, tree_map
 from repro_torch.device import to_device
@@ -63,17 +63,6 @@ Params = Dict[str, torch.Tensor]
 
 __all__ = ["NodeSubstrate", "DenseSubstrate", "BatchedSubstrate",
            "ShardedSubstrate"]
-
-
-def _by_dtype(leaves: List[torch.Tensor], fn: Callable) -> List[Any]:
-    """``fn`` on the leaves of each dtype in one call (``fn(group) ->
-    one output per leaf``), the outputs back in the leaves' order."""
-    out: List[Any] = [None] * len(leaves)
-    for dtype in dict.fromkeys(x.dtype for x in leaves):
-        idx = [i for i, x in enumerate(leaves) if x.dtype == dtype]
-        for i, o in zip(idx, fn([leaves[i] for i in idx])):
-            out[i] = o
-    return out
 
 
 class _DeviceCache:
@@ -170,8 +159,9 @@ class NodeSubstrate:
         axis is the node axis (the nodes this substrate holds), each leaf
         with its draws for gossip step ``step`` of round ``round_idx`` from
         the seam ``draws``, for the nodes ``node_ids``: one
-        ``per_node_many`` call for the tree, which makes one K6 call per
-        dtype under QSGD and goes leaf by leaf for the other compressors."""
+        ``per_node_many`` call for the tree, which makes one K4 and one K5
+        call per dtype under TopK, one K6 call per dtype under QSGD, and
+        goes leaf by leaf for the other compressors."""
         names = list(tree)
         us = comp.draw_many(draws, round_idx, step, names,
                             [tree[name][0].numel() for name in names],
@@ -201,7 +191,7 @@ class NodeSubstrate:
         x_new, y_new = {}, {}
         if isinstance(comp, TopK):
             gaps = [gap(a, b, my, gamma) for a, b, my in rows.values()]
-            threshs = _by_dtype(gaps, lambda ds: ops.topk_threshold_many(
+            threshs = by_dtype(gaps, lambda ds: ops.topk_threshold_many(
                 ds, [comp._k(d.shape[1]) for d in ds]))
             for (name, (a, b, my)), d, t in zip(rows.items(), gaps, threshs):
                 x_new[name], y_new[name] = ops.choco_topk(a, b, my, d, t,
@@ -321,7 +311,7 @@ class DenseSubstrate(NodeSubstrate):
                 operand[torch.promote_types(x.dtype, torch.float32)], x)
                 for name, x in tree.items()}
         nbr, w = operand["nbr"], operand["w"]
-        mixed = _by_dtype(
+        mixed = by_dtype(
             [tree[name].reshape(self.num_nodes, -1) for name in names],
             lambda xs: ops.gossip_mix_many(xs, nbr, w))
         return {name: m.reshape(tree[name].shape)

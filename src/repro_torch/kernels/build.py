@@ -100,6 +100,33 @@ def rows_aligned(t) -> bool:
     return t.data_ptr() % 16 == 0 and t.shape[1] * t.element_size() % 16 == 0
 
 
+BLOCKS_PER_SM = 4   # blocks a streaming kernel's chunk aims for on each SM
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, read once and
+    cached: the wrappers also run while a CUDA graph is captured."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fill_chunk(spans: Sequence, ceiling: int, floor: int, sms: int) -> int:
+    """Elements a block of a streaming kernel over ``spans`` (``(rows,
+    length)`` pairs, each row cut into chunks): ``ceiling`` halved while
+    the chunks number fewer than ``BLOCKS_PER_SM`` an SM, down to
+    ``floor``. ``ceiling`` is ``floor`` times a power of 2, so the chunk
+    stays a multiple of ``floor``."""
+    if floor < 1 or ceiling % floor or (ceiling // floor) & (ceiling // floor - 1):
+        raise ValueError(f"chunk ceiling {ceiling} is not {floor} times a "
+                         "power of 2")
+    chunk = ceiling
+    while chunk > floor and sum(rows * -(-length // chunk) for rows, length
+                                in spans) < BLOCKS_PER_SM * sms:
+        chunk //= 2
+    return chunk
+
+
 def check(source: str, symbol: str, err: int) -> None:
     """Raise if a launch reported a CUDA error."""
     if err != 0:

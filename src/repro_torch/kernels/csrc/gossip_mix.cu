@@ -174,13 +174,26 @@ extern "C" int gossip_mix_bf16(const void* plan, const void* nbr, const void* w,
 //
 // Bound: bytes, (deg + 2) D elements (x and deg buffers read once, out
 // written once); 2 (deg + 1) flops an element are far below the f32 rate.
-// A streaming kernel: each thread mixes one 16-byte vector of x, of every
-// received row and of out at a time where the rows start 16-byte aligned
-// (build.rows_aligned), else one element; no shared memory. Each block
-// takes a chunk of one leaf's columns; the leaves' descriptors travel by
-// value in the launch parameters, so one launch serves a whole tree.
+// A streaming kernel with no shared memory, so the only lever is bytes in
+// flight on every SM:
+//   * the wrapper picks the chunk of columns a block takes from the call's
+//     total columns and the card's SM count (gossip_mix.py
+//     received_plans): about 4 blocks an SM where the tree is small (one
+//     CIFAR node: 568 blocks of 1,024 f32 columns, not 70 of 8,192), at
+//     most 8,192 columns a block where it is large;
+//   * deg is a template parameter for 1..kRecvMaxDeg (the ring's 2,
+//     full(8)'s 7), so a thread starts the loads of x's 16-byte vector
+//     and of all deg received vectors before the first multiply, holds the
+//     weights w[0..deg] in registers, read once; beyond kRecvMaxDeg a
+//     run-time loop;
+//   * each thread mixes one 16-byte vector of x, of every received row and
+//     of out at a time where the rows start 16-byte aligned (vec), else
+//     one element.
+// The leaves' descriptors travel by value in the launch parameters, so one
+// launch serves a whole tree.
 
 constexpr int kRecvThreads = 256;
+constexpr int kRecvMaxDeg = 8;  // degrees compiled with deg fixed
 
 struct RecvLeaf {
   const void* x;        // [cols]
@@ -198,10 +211,13 @@ struct RecvPlan {
   int32_t chunk;  // columns per block, a multiple of 16 / sizeof(T)
 };
 
-template <typename T>
+// kDeg in 1..kRecvMaxDeg: deg fixed at compile time; 0: deg_arg, looped.
+template <typename T, int kDeg>
 __global__ void __launch_bounds__(kRecvThreads)
 gossip_mix_received_kernel(const __grid_constant__ RecvPlan plan, const float* __restrict__ w,
-                           int deg) {
+                           int deg_arg) {
+  constexpr int kW = kDeg > 0 ? kDeg + 1 : 1;  // weights held in registers
+  const int deg = kDeg > 0 ? kDeg : deg_arg;
   int li = 0;
   while (li + 1 < plan.num_leaves && plan.leaf[li + 1].block_begin <= (int)blockIdx.x) ++li;
   const RecvLeaf& leaf = plan.leaf[li];
@@ -210,21 +226,46 @@ gossip_mix_received_kernel(const __grid_constant__ RecvPlan plan, const float* _
   const T* x = static_cast<const T*>(leaf.x) + col0;
   const T* recv = static_cast<const T*>(leaf.recv) + col0;
   T* out = static_cast<T*>(leaf.out) + col0;
-  const float w0 = w[0];
+  float wr[kW];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) wr[k] = w[k];
+  // weight k of the sum: from registers where deg is fixed
+  auto weight = [&](int k) { return kDeg > 0 ? wr[k] : w[k]; };
   if (leaf.vec) {
     constexpr int V = 16 / sizeof(T);
     const int nv = width / V;  // cols and chunk are multiples of V here
-    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+    for (int v = threadIdx.x; v < nv; v += kRecvThreads) {
       float acc[V];
-      uint4 q = reinterpret_cast<const uint4*>(x)[v];
-      const T* e = reinterpret_cast<const T*>(&q);
+      if constexpr (kDeg > 0) {
+        // every load of the vector started before the first multiply
+        uint4 q[kDeg + 1];
+        q[0] = reinterpret_cast<const uint4*>(x)[v];
 #pragma unroll
-      for (int j = 0; j < V; ++j) acc[j] = __fmul_rn(w0, to_f32(e[j]));
-      for (int k = 0; k < deg; ++k) {
-        const float wk = w[k + 1];
-        q = reinterpret_cast<const uint4*>(recv + k * leaf.recv_stride)[v];
+        for (int k = 0; k < kDeg; ++k) {
+          q[k + 1] = reinterpret_cast<const uint4*>(recv + k * leaf.recv_stride)[v];
+        }
+        const T* e = reinterpret_cast<const T*>(&q[0]);
 #pragma unroll
-        for (int j = 0; j < V; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(wk, to_f32(e[j])));
+        for (int j = 0; j < V; ++j) acc[j] = __fmul_rn(wr[0], to_f32(e[j]));
+#pragma unroll
+        for (int k = 0; k < kDeg; ++k) {
+          e = reinterpret_cast<const T*>(&q[k + 1]);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            acc[j] = __fadd_rn(acc[j], __fmul_rn(wr[k + 1], to_f32(e[j])));
+          }
+        }
+      } else {
+        uint4 q = reinterpret_cast<const uint4*>(x)[v];
+        const T* e = reinterpret_cast<const T*>(&q);
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] = __fmul_rn(wr[0], to_f32(e[j]));
+        for (int k = 0; k < deg; ++k) {
+          const float wk = w[k + 1];
+          q = reinterpret_cast<const uint4*>(recv + k * leaf.recv_stride)[v];
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(wk, to_f32(e[j])));
+        }
       }
       uint4 packed;
       T* o = reinterpret_cast<T*>(&packed);
@@ -233,23 +274,41 @@ gossip_mix_received_kernel(const __grid_constant__ RecvPlan plan, const float* _
       reinterpret_cast<uint4*>(out)[v] = packed;
     }
   } else {
-    for (int c = threadIdx.x; c < width; c += blockDim.x) {
-      float acc = __fmul_rn(w0, to_f32(x[c]));
+    for (int c = threadIdx.x; c < width; c += kRecvThreads) {
+      float acc = __fmul_rn(weight(0), to_f32(x[c]));
+#pragma unroll
       for (int k = 0; k < deg; ++k) {
-        acc = __fadd_rn(acc, __fmul_rn(w[k + 1], to_f32(recv[k * leaf.recv_stride + c])));
+        acc = __fadd_rn(acc, __fmul_rn(weight(k + 1), to_f32(recv[k * leaf.recv_stride + c])));
       }
       out[c] = from_f32<T>(acc);
     }
   }
 }
 
+template <typename T, int kDeg>
+static void launch_received_deg(const RecvPlan& p, const float* w, int deg, int64_t blocks,
+                                cudaStream_t stream) {
+  gossip_mix_received_kernel<T, kDeg><<<(unsigned)blocks, kRecvThreads, 0, stream>>>(p, w, deg);
+}
+
 template <typename T>
 static int launch_received(const void* plan, const void* w, int deg, int64_t blocks,
                            void* stream) {
   const RecvPlan& p = *static_cast<const RecvPlan*>(plan);
-  gossip_mix_received_kernel<T><<<(unsigned)blocks, kRecvThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const float*>(w), deg);
+  const float* wf = static_cast<const float*>(w);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static_assert(kRecvMaxDeg == 8, "one case below for each fixed degree");
+  switch (deg) {
+    case 1: launch_received_deg<T, 1>(p, wf, deg, blocks, s); break;
+    case 2: launch_received_deg<T, 2>(p, wf, deg, blocks, s); break;
+    case 3: launch_received_deg<T, 3>(p, wf, deg, blocks, s); break;
+    case 4: launch_received_deg<T, 4>(p, wf, deg, blocks, s); break;
+    case 5: launch_received_deg<T, 5>(p, wf, deg, blocks, s); break;
+    case 6: launch_received_deg<T, 6>(p, wf, deg, blocks, s); break;
+    case 7: launch_received_deg<T, 7>(p, wf, deg, blocks, s); break;
+    case 8: launch_received_deg<T, 8>(p, wf, deg, blocks, s); break;
+    default: launch_received_deg<T, 0>(p, wf, deg, blocks, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
 // K4 topk_threshold over every leaf of a gossip step, and K5 topk_mask over
-// one stacked [rows, cols] leaf.
+// every leaf of a list.
 //
 // K4 replaces src/repro/kernels/topk.py:topk_partials_2d (_partials_kernel)
 // together with the lax.top_k select that followed it (ops.py:243-275):
@@ -34,8 +34,22 @@
 // beside the zeroed scratch the wrapper allocates.
 //
 // K5 replaces src/repro/kernels/topk.py:topk_mask_2d (_mask_kernel):
-// out = |x| >= t[row] ? x : 0 in the input dtype. Bound: bytes (one read,
-// one write); one thread per element, coalesced.
+// out = |x| >= t[row] ? x : +0 in the input dtype, over every leaf of a
+// list in one launch. Bound: bytes, one read and one write of every
+// element; one compare an element. A pure streaming pass, so the design
+// keeps enough bytes in flight on all 132 SMs: each block owns a chunk of
+// one row of one leaf (MaskPlan, by value), so the row's threshold sits in
+// a register; the body moves 16-byte vectors (8 bf16 or 4 f32 values),
+// kMaskLoads of them loaded by each thread before any compare, with
+// streaming cache hints (nothing is read twice); the wrapper picks the
+// chunk (topk.py mask_plans) so that a small tree still makes about 4
+// blocks an SM and a large one at most 8 K elements a block. Where the
+// chunk does not start on 16 bytes (rows of D * itemsize % 16 != 0) a
+// scalar head and tail take the ragged elements; where x and out are not
+// congruent modulo 16 bytes (a view at an odd storage offset) the whole
+// chunk is scalar. The compare is the reference's, element by element:
+// |to_f32(v)| >= to_f32(t) keeps v's bits, else +0 (so -0.0 is kept at
+// t = 0, a NaN is dropped and ties are kept).
 #include "common.cuh"
 
 template <typename T> struct Key;
@@ -231,14 +245,102 @@ topk_select_kernel(const __grid_constant__ SelectPlan plan, unsigned* __restrict
   }
 }
 
+constexpr int kMaskThreads = 256;
+constexpr int kMaskLoads = 4;  // 16-byte vectors a thread loads before any compare
+
+struct MaskLeaf {
+  const void* x;           // [rows, cols], row r at x + r * cols
+  const void* thresh;      // [rows]
+  void* out;               // [rows, cols]
+  int64_t cols;
+  int32_t chunk_begin;     // first block of the leaf
+  int32_t chunks_per_row;
+};
+
+struct MaskPlan {
+  MaskLeaf leaf[kMaxLeaves];
+  int32_t num_leaves;
+  int32_t chunk;  // elements a block, a multiple of 16 / sizeof(T)
+};
+
+// A key's bits as f32: the bits of bf16 are the top half of an f32's, so
+// the conversion is exact. The threshold is widened as it is, its sign
+// kept; a value is compared by its magnitude.
+template <typename T> __device__ __forceinline__ float widen(uint32_t key);
+template <> __device__ __forceinline__ float widen<float>(uint32_t key) {
+  return __uint_as_float(key);
+}
+template <> __device__ __forceinline__ float widen<__nv_bfloat16>(uint32_t key) {
+  return __uint_as_float(key << 16);
+}
+template <typename T> __device__ __forceinline__ float magnitude(uint32_t key) {
+  return fabsf(widen<T>(key));
+}
+
+// One 32-bit word of a vector: one f32 value, or two bf16 values each kept
+// or zeroed on its own.
+template <typename T> __device__ __forceinline__ uint32_t mask_word(uint32_t w, float t);
+template <> __device__ __forceinline__ uint32_t mask_word<float>(uint32_t w, float t) {
+  return magnitude<float>(w) >= t ? w : 0u;
+}
+template <> __device__ __forceinline__ uint32_t mask_word<__nv_bfloat16>(uint32_t w, float t) {
+  const uint32_t lo = magnitude<__nv_bfloat16>(w & 0xffffu) >= t ? w & 0xffffu : 0u;
+  const uint32_t hi = magnitude<__nv_bfloat16>(w >> 16) >= t ? w & 0xffff0000u : 0u;
+  return lo | hi;
+}
+
 template <typename T>
-__global__ void topk_mask_kernel(const T* __restrict__ x, const T* __restrict__ thresh,
-                                 T* __restrict__ out, int64_t cols) {
-  const int64_t row = blockIdx.y;
-  const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= cols) return;
-  const T v = x[row * cols + col];
-  out[row * cols + col] = fabsf(to_f32(v)) >= to_f32(thresh[row]) ? v : from_f32<T>(0.0f);
+__global__ void __launch_bounds__(kMaskThreads)
+topk_mask_kernel(const __grid_constant__ MaskPlan plan) {
+  using U = typename Key<T>::U;
+  constexpr int V = 16 / sizeof(U);
+  int li = 0;
+  while (li + 1 < plan.num_leaves && plan.leaf[li + 1].chunk_begin <= (int)blockIdx.x) ++li;
+  const MaskLeaf& leaf = plan.leaf[li];
+  const int64_t local = (int64_t)blockIdx.x - leaf.chunk_begin;
+  const int64_t row = local / leaf.chunks_per_row;
+  const int64_t start = (local % leaf.chunks_per_row) * plan.chunk;
+  const int64_t stop = start + plan.chunk < leaf.cols ? start + plan.chunk : leaf.cols;
+  const U* x = static_cast<const U*>(leaf.x) + row * leaf.cols;
+  U* out = static_cast<U*>(leaf.out) + row * leaf.cols;
+  const float t = widen<T>(static_cast<const U*>(leaf.thresh)[row]);
+  // the vector span [body, end): from the first 16-byte boundary of the
+  // chunk, whole vectors (the CPU tests mirror this arithmetic)
+  int64_t body = stop, end = stop;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x + start);
+  if (((xa ^ reinterpret_cast<uintptr_t>(out + start)) & 15u) == 0) {
+    const int64_t head = (int64_t)(((16u - (xa & 15u)) & 15u) / sizeof(U));
+    body = start + head < stop ? start + head : stop;
+    end = body + (stop - body) / V * V;
+  }
+  for (int64_t i = start + threadIdx.x; i < body; i += blockDim.x) {
+    out[i] = static_cast<U>(mask_word<T>(x[i], t));
+  }
+  for (int64_t i = end + threadIdx.x; i < stop; i += blockDim.x) {
+    out[i] = static_cast<U>(mask_word<T>(x[i], t));
+  }
+  const uint4* xv = reinterpret_cast<const uint4*>(x + body);
+  uint4* ov = reinterpret_cast<uint4*>(out + body);
+  const int n = (int)((end - body) / V);
+  for (int base = threadIdx.x; base < n; base += kMaskLoads * kMaskThreads) {
+    uint4 q[kMaskLoads];
+#pragma unroll
+    for (int u = 0; u < kMaskLoads; ++u) {
+      const int i = base + u * kMaskThreads;
+      if (i < n) q[u] = __ldcs(xv + i);
+    }
+#pragma unroll
+    for (int u = 0; u < kMaskLoads; ++u) {
+      const int i = base + u * kMaskThreads;
+      if (i < n) {
+        q[u].x = mask_word<T>(q[u].x, t);
+        q[u].y = mask_word<T>(q[u].y, t);
+        q[u].z = mask_word<T>(q[u].z, t);
+        q[u].w = mask_word<T>(q[u].w, t);
+        __stcs(ov + i, q[u]);
+      }
+    }
+  }
 }
 
 template <typename T>
@@ -251,11 +353,9 @@ static int launch_select(const void* plan, void* scratch, int pass, int64_t bloc
 }
 
 template <typename T>
-static int launch_mask(const void* x, const void* thresh, void* out, int64_t rows,
-                       int64_t cols, void* stream) {
-  topk_mask_kernel<T><<<elementwise_grid(rows, cols), kElementwiseThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(thresh), static_cast<T*>(out), cols);
+static int launch_mask(const void* plan, int64_t blocks, void* stream) {
+  topk_mask_kernel<T><<<(unsigned)blocks, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      *static_cast<const MaskPlan*>(plan));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,12 +378,19 @@ extern "C" int topk_select_bf16(const void* plan, void* scratch, int pass, int64
   return launch_select<__nv_bfloat16>(plan, scratch, pass, blocks, stream);
 }
 
-extern "C" int topk_mask_f32(const void* x, const void* thresh, void* out, int64_t rows,
-                             int64_t cols, void* stream) {
-  return launch_mask<float>(x, thresh, out, rows, cols, stream);
+// sizeof(MaskPlan), its leaf limit and its threads a block, for the
+// wrapper's layout check
+extern "C" int topk_mask_layout(int64_t* out) {
+  out[0] = sizeof(MaskPlan);
+  out[1] = kMaxLeaves;
+  out[2] = kMaskThreads;
+  return 0;
 }
 
-extern "C" int topk_mask_bf16(const void* x, const void* thresh, void* out, int64_t rows,
-                              int64_t cols, void* stream) {
-  return launch_mask<__nv_bfloat16>(x, thresh, out, rows, cols, stream);
+extern "C" int topk_mask_f32(const void* plan, int64_t blocks, void* stream) {
+  return launch_mask<float>(plan, blocks, stream);
+}
+
+extern "C" int topk_mask_bf16(const void* plan, int64_t blocks, void* stream) {
+  return launch_mask<__nv_bfloat16>(plan, blocks, stream);
 }

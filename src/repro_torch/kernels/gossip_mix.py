@@ -22,8 +22,10 @@ device::
     out = w[0] x + sum_j w[j + 1] recv[j]
 
 in the same f32 order (``plain_received``). One launch streams up to
-``MAX_LEAVES`` leaves, ``RECV_CHUNK`` columns a block (``received_plans``;
-``tile_span`` gives a block's columns). Callers go through
+``MAX_LEAVES`` leaves, a chunk of columns a block: at most ``RECV_CHUNK``,
+halved while the call makes fewer than ``build.BLOCKS_PER_SM`` blocks an
+SM, down to one 16-byte vector a thread (``received_plans``; ``tile_span``
+gives a block's columns). Callers go through
 ``repro_torch.kernels.ops.gossip_mix_received_many``.
 """
 from __future__ import annotations
@@ -41,7 +43,7 @@ MAX_LEAVES = 32              # leaves per launch (csrc kMaxLeaves)
 TILE_MAX = 256               # columns per block at most
 SLAB_BYTES = 48 * 1024       # shared memory for one block's [N, tile] slab
 MAX_ROWS = SLAB_BYTES // 16  # N at which the slab holds one 16-byte column
-RECV_CHUNK = 8192            # columns a block of the received form
+RECV_CHUNK = 8192            # columns a block of the received form at most
 RECV_THREADS = 256           # threads a block of the received form (csrc)
 
 _ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_int, ctypes.c_int64,
@@ -182,19 +184,24 @@ def launch_many(xs: Sequence[torch.Tensor], nbr: torch.Tensor, w: torch.Tensor,
     return launches
 
 
-def received_plans(cols: Sequence[int]) -> List[MixPlan]:
-    """The received form's launches for leaves of ``cols[i]`` columns: at
-    most ``MAX_LEAVES`` leaves each, every leaf cut into chunks of
-    ``RECV_CHUNK`` columns, one a block (``tile`` is the chunk)."""
+def received_plans(cols: Sequence[int], itemsize: int,
+                   sms: int) -> List[MixPlan]:
+    """The received form's launches for leaves of ``cols[i]`` columns of
+    ``itemsize`` bytes on a card of ``sms`` SMs: at most ``MAX_LEAVES``
+    leaves each, every leaf cut into chunks of ``tile`` columns, one a
+    block, the chunk from ``build.fill_chunk`` between one 16-byte vector
+    a thread and ``RECV_CHUNK``."""
     plans = []
     for first in range(0, len(cols), MAX_LEAVES):
         index = tuple(range(first, min(first + MAX_LEAVES, len(cols))))
+        chunk = build.fill_chunk([(1, cols[i]) for i in index], RECV_CHUNK,
+                                 RECV_THREADS * 16 // itemsize, sms)
         begin, blocks = [], 0
         for i in index:
             begin.append(blocks)
-            blocks += -(-cols[i] // RECV_CHUNK)
+            blocks += -(-cols[i] // chunk)
         plans.append(MixPlan(index, tuple(cols[i] for i in index),
-                             tuple(begin), RECV_CHUNK, blocks))
+                             tuple(begin), chunk, blocks))
     return plans
 
 
@@ -233,7 +240,9 @@ def launch_received_many(xs: Sequence[torch.Tensor],
     deg = recvs[0].shape[0]
     stream = torch.cuda.current_stream(xs[0].device).cuda_stream
     launches = 0
-    for plan in received_plans([x.numel() for x in xs]):
+    sms = build.sm_count(xs[0].device.index)
+    for plan in received_plans([x.numel() for x in xs], xs[0].element_size(),
+                               sms):
         c = _CRecvPlan(num_leaves=len(plan.index), chunk=plan.tile)
         for slot, i in enumerate(plan.index):
             vec = _received_aligned(xs[i], recvs[i], outs[i])

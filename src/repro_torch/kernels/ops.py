@@ -29,7 +29,9 @@ for each of the reference's seven Pallas kernels:
   * ``topk_threshold_many(xs, ks)``        K4, per-row k-th largest |x| of
                                            every leaf of a list;
                                            ``topk_threshold`` for one.
-  * ``topk_mask(x, thresh)``               K5, per-row keep-or-zero.
+  * ``topk_mask_many(xs, threshs)``       K5, per-row keep-or-zero of
+                                           every leaf of a list;
+                                           ``topk_mask`` for one.
   * ``qsgd_quantize_many(xs, noises, norms, levels, cs)``
                                            K6, per-row QSGD of every leaf
                                            of a tree in one launch;
@@ -240,19 +242,34 @@ def topk_threshold(x: torch.Tensor, k: int) -> torch.Tensor:
     return topk_threshold_many([x], [k])[0]
 
 
-def topk_mask(x: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
-    """K5: ``where(|x| >= thresh[row], x, 0)`` in x's dtype."""
+def topk_mask_many(xs: Sequence[torch.Tensor],
+                   threshs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """K5: ``where(|x| >= thresh[row], x, 0)`` in x's dtype for each leaf
+    ``xs[i]`` ([R_i, D_i], one dtype) and its ``threshs[i]`` ([R_i], x's
+    dtype). One launch per ``topk.MAX_LEAVES`` leaves, with no cap on the
+    rows."""
     op = "topk_mask"
-    on_card = _on_card(op, x, thresh)
-    _check_leaf(op, "x", x)
-    _check_rows(op, "thresh", thresh, x.shape[0], x.dtype)
+    xs, threshs = list(xs), list(threshs)
+    if not xs or len(xs) != len(threshs):
+        raise ValueError(f"{op}: {len(xs)} leaves and {len(threshs)} "
+                         "thresholds")
+    on_card = _on_card(op, *xs, *threshs)
+    for x, t in zip(xs, threshs):
+        _check_leaf(op, "x", x, grid_rows=False)
+        if x.dtype != xs[0].dtype:
+            raise TypeError(f"{op}: leaves of {x.dtype} and {xs[0].dtype}")
+        _check_rows(op, "thresh", t, x.shape[0], x.dtype)
     if not on_card:
-        return _topk.mask_plain(x, thresh)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _topk.launch_mask(x, thresh, out)
-    LAUNCHES[op] += 1
-    return out
+        return [_topk.mask_plain(x, t) for x, t in zip(xs, threshs)]
+    outs = [torch.empty_like(x) for x in xs]
+    with torch.cuda.device(xs[0].device):
+        LAUNCHES[op] += _topk.launch_mask_many(xs, threshs, outs)
+    return outs
+
+
+def topk_mask(x: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
+    """K5 on one leaf: ``topk_mask_many([x], [thresh])``."""
+    return topk_mask_many([x], [thresh])[0]
 
 
 def choco_topk(x: torch.Tensor, y: torch.Tensor, my: torch.Tensor,

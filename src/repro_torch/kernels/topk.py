@@ -10,7 +10,12 @@ into chunks of ``CHUNK`` keys, one block each. A row of one chunk is
 selected whole in the first launch; the rows of several chunks take one
 launch per digit (``select_plans``, with ``chunk_span`` the kernel's own
 arithmetic for which keys a block owns). K5 replaces ``topk_mask_2d``:
-``where(|x| >= t[row], x, 0)`` in the input dtype. Callers go through
+``where(|x| >= t[row], x, 0)`` in the input dtype, over up to
+``MAX_LEAVES`` leaves a launch, each row cut into chunks of at most
+``MASK_CHUNK`` elements, one block each (``mask_plans``; ``chunk_span``
+gives a block's chunk), moved 16 bytes at a time from the chunk's first
+16-byte boundary, with a scalar head and tail (all scalar where x and out
+are not congruent modulo 16 bytes). Callers go through
 ``repro_torch.kernels.ops``.
 """
 from __future__ import annotations
@@ -18,13 +23,15 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 CHUNK = 16384          # keys per block
+MASK_CHUNK = 8192      # K5: elements a block at most
+MASK_THREADS = 256     # K5: threads a block (csrc kMaskThreads)
 MAX_LEAVES = 32        # leaves per call (csrc kMaxLeaves)
 MAX_PASSES = 4         # csrc kMaxPasses
 MAX_DIGIT_BITS = 11    # csrc kMaxBins = 2 ** 11
@@ -34,8 +41,7 @@ DIGITS: Dict[torch.dtype, Tuple[int, ...]] = {torch.float32: (11, 10, 10),
 
 _SELECT_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_int64, ctypes.c_void_p)
-_MASK_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_int64,
-                                       ctypes.c_void_p)
+_MASK_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -53,6 +59,18 @@ class _CPlan(ctypes.Structure):
                 ("num_segs", ctypes.c_int32),
                 ("shift", ctypes.c_int32 * MAX_PASSES),
                 ("bits", ctypes.c_int32 * MAX_PASSES)]
+
+
+class _CMaskLeaf(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("thresh", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("cols", ctypes.c_int64),
+                ("chunk_begin", ctypes.c_int32),
+                ("chunks_per_row", ctypes.c_int32)]
+
+
+class _CMaskPlan(ctypes.Structure):
+    _fields_ = [("leaf", _CMaskLeaf * MAX_LEAVES),
+                ("num_leaves", ctypes.c_int32), ("chunk", ctypes.c_int32)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,9 +137,52 @@ def select_plans(shapes: Sequence[Tuple[int, int]],
     return plans
 
 
-def chunk_span(plan: SelectPlan, block: int) -> Tuple[int, int, int, int]:
-    """(caller's leaf index, row, first key, end key) of ``block``, as the
-    kernel computes them."""
+@dataclasses.dataclass(frozen=True)
+class MaskPlan:
+    """One K5 launch. Leaf slot ``j`` is the caller's leaf ``index[j]``,
+    with rows of ``cols[j]`` elements, owning blocks ``chunk_begin[j]``
+    onwards, ``chunks_per_row[j]`` a row of ``chunk`` elements; ``blocks``
+    in all."""
+    index: Tuple[int, ...]
+    cols: Tuple[int, ...]
+    chunk_begin: Tuple[int, ...]
+    chunks_per_row: Tuple[int, ...]
+    chunk: int
+    blocks: int
+
+
+def mask_plans(shapes: Sequence[Tuple[int, int]], itemsize: int, sms: int,
+               chunk: Optional[int] = None) -> List[MaskPlan]:
+    """K5's launches for leaves of ``shapes[i] = (rows, cols)`` of
+    ``itemsize`` bytes on a card of ``sms`` SMs: at most ``MAX_LEAVES``
+    leaves each, every row cut into chunks from ``build.fill_chunk``
+    between one 16-byte vector a thread and ``MASK_CHUNK`` (or of
+    ``chunk``, a multiple of one vector, where given)."""
+    vec = 16 // itemsize
+    if chunk is not None and (chunk < vec or chunk % vec):
+        raise ValueError(f"topk_mask: chunk {chunk} is not a positive "
+                         f"multiple of {vec}")
+    plans = []
+    for first in range(0, len(shapes), MAX_LEAVES):
+        index = tuple(range(first, min(first + MAX_LEAVES, len(shapes))))
+        size = chunk or build.fill_chunk([shapes[i] for i in index],
+                                         MASK_CHUNK, MASK_THREADS * vec, sms)
+        begin, per_row, blocks = [], [], 0
+        for i in index:
+            rows, cols = shapes[i]
+            begin.append(blocks)
+            per_row.append(-(-cols // size))
+            blocks += rows * per_row[-1]
+        if blocks >= 2 ** 31:
+            raise ValueError(f"topk_mask: {blocks} blocks exceed the grid")
+        plans.append(MaskPlan(index, tuple(shapes[i][1] for i in index),
+                              tuple(begin), tuple(per_row), size, blocks))
+    return plans
+
+
+def chunk_span(plan, block: int) -> Tuple[int, int, int, int]:
+    """(caller's leaf index, row, first key, end key) of ``block`` of a
+    ``SelectPlan`` or a ``MaskPlan``, as the kernels compute them."""
     li = 0
     while li + 1 < len(plan.index) and plan.chunk_begin[li + 1] <= block:
         li += 1
@@ -187,11 +248,37 @@ def launch_threshold_many(xs: Sequence[torch.Tensor], ks: Sequence[int],
     return launches
 
 
-def launch_mask(x: torch.Tensor, thresh: torch.Tensor,
-                out: torch.Tensor) -> None:
-    symbol = f"topk_mask_{_SUFFIX[x.dtype]}"
+@functools.lru_cache(maxsize=None)
+def _checked_mask_layout() -> None:
+    out = (ctypes.c_int64 * 3)()
+    fn = build.kernel("topk", "topk_mask_layout", (ctypes.c_void_p,))
+    build.check("topk", "topk_mask_layout", fn(out))
+    want = (ctypes.sizeof(_CMaskPlan), MAX_LEAVES, MASK_THREADS)
+    if tuple(out) != want:
+        raise RuntimeError(f"topk_mask: the kernel's (plan bytes, leaves, "
+                           f"threads) are {tuple(out)}, the wrapper's {want}")
+
+
+def launch_mask_many(xs: Sequence[torch.Tensor],
+                     threshs: Sequence[torch.Tensor],
+                     outs: Sequence[torch.Tensor],
+                     chunk: Optional[int] = None) -> int:
+    """Mask ``xs`` by their row thresholds into ``outs``; returns the
+    number of kernel launches."""
+    _checked_mask_layout()
+    symbol = f"topk_mask_{_SUFFIX[xs[0].dtype]}"
     fn = build.kernel("topk", symbol, _MASK_ARGS)
-    rows, cols = x.shape
-    err = fn(x.data_ptr(), thresh.data_ptr(), out.data_ptr(), rows, cols,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check("topk", symbol, err)
+    device = xs[0].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    plans = mask_plans([tuple(x.shape) for x in xs], xs[0].element_size(),
+                       build.sm_count(device.index), chunk)
+    for plan in plans:
+        c = _CMaskPlan(num_leaves=len(plan.index), chunk=plan.chunk)
+        for slot, i in enumerate(plan.index):
+            c.leaf[slot] = _CMaskLeaf(xs[i].data_ptr(), threshs[i].data_ptr(),
+                                      outs[i].data_ptr(), plan.cols[slot],
+                                      plan.chunk_begin[slot],
+                                      plan.chunks_per_row[slot])
+        build.check("topk", symbol, fn(ctypes.addressof(c), plan.blocks,
+                                       stream))
+    return len(plans)

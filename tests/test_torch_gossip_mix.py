@@ -9,6 +9,8 @@ against the plain version on the card by ``chip_smoke.py``. Tolerance:
 1e-5 in f32 and 1e-2 in bf16 (the reference's gossip contract; the two
 frameworks may order or contract the f32 accumulation differently).
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -330,18 +332,32 @@ def test_received_many_matches_per_leaf_and_rejects_bad_operands():
 
 def test_received_plans_cover_every_column_once():
     """Every column of every leaf is in exactly one block's chunk, at most
-    MAX_LEAVES leaves a launch, the chunk a whole number of 16-byte
-    vectors in f32 and bf16."""
+    MAX_LEAVES leaves a launch, the chunk a multiple of one 16-byte vector
+    a thread in f32 and bf16, between that and RECV_CHUNK; on 132 SMs one
+    CIFAR node (f32) makes at least 4 blocks an SM, and one node of the
+    full-width Qwen3-1.7B tree keeps the chunk at RECV_CHUNK."""
     cols = list(MANY_SIZES) * 3 + [1, 3, 17, mix_module.RECV_CHUNK + 1]
-    plans = mix_module.received_plans(cols)
-    assert [len(p.index) for p in plans] == [
-        min(mix_module.MAX_LEAVES, len(cols) - i)
-        for i in range(0, len(cols), mix_module.MAX_LEAVES)]
-    assert mix_module.RECV_CHUNK % 8 == 0
-    for plan in plans:
-        seen = {i: np.zeros(cols[i], np.int32) for i in plan.index}
-        for block in range(plan.blocks):
-            i, c0, c1 = mix_module.tile_span(plan, block)
-            assert 0 <= c0 < c1 <= cols[i] and c0 % plan.tile == 0
-            seen[i][c0:c1] += 1
-        assert all(np.all(s == 1) for s in seen.values())
+    for itemsize in (4, 2):
+        floor = mix_module.RECV_THREADS * 16 // itemsize
+        plans = mix_module.received_plans(cols, itemsize, sms=132)
+        assert [len(p.index) for p in plans] == [
+            min(mix_module.MAX_LEAVES, len(cols) - i)
+            for i in range(0, len(cols), mix_module.MAX_LEAVES)]
+        for plan in plans:
+            assert plan.tile % floor == 0
+            assert floor <= plan.tile <= mix_module.RECV_CHUNK
+            seen = {i: np.zeros(cols[i], np.int32) for i in plan.index}
+            for block in range(plan.blocks):
+                i, c0, c1 = mix_module.tile_span(plan, block)
+                assert 0 <= c0 < c1 <= cols[i] and c0 % plan.tile == 0
+                seen[i][c0:c1] += 1
+            assert all(np.all(s == 1) for s in seen.values())
+    cifar, = mix_module.received_plans(list(CIFAR_SIZES), 4, sms=132)
+    assert cifar.blocks >= 4 * 132
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(REGISTRY["qwen3-1.7b"].model, num_layers=2)
+    lm = [int(np.prod(v.shape)) for v in init_params(
+        cfg, None, "cpu", abstract=True)[0].values()]
+    assert all(p.tile == mix_module.RECV_CHUNK
+               for p in mix_module.received_plans(lm, 2, sms=132))

@@ -17,7 +17,7 @@ from repro.core import compression as jcompression
 from repro.kernels import ops as jops
 from repro.kernels.registry import PARITY_SHAPES
 from repro_torch.core import compression
-from repro_torch.kernels import ops, topk
+from repro_torch.kernels import build, ops, topk
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -311,3 +311,206 @@ def test_digit_schedule_emulation_matches_topk(dtype, data):
             got = _emulate_select(xs, ks, chunk)
             for g, w in zip(got, want):
                 assert np.array_equal(_bits(g), _bits(w))
+
+
+# --- K5 over a list of leaves (``topk_mask_many``) -------------------------
+
+def _mask_shapes():
+    """Leaves whose rows start 16 bytes apart and not (D * itemsize % 16
+    != 0 in f32, bf16 or both), more than MAX_LEAVES of them."""
+    return ([(10, d) for d in MANY_SIZES] * 2
+            + [(3, 1), (7, 17), (2, 33), (5, 4097), (4, 6), (1, 70000)])
+
+
+def _vector_span(x_addr, out_addr, start, stop, itemsize):
+    """(body, end): the elements ``[body, end)`` of a chunk ``[start,
+    stop)`` that K5 moves 16 bytes at a time, as ``topk_mask_kernel``
+    computes them: whole vectors from the first 16-byte boundary,
+    ``x_addr`` and ``out_addr`` the addresses of element ``start``; none
+    (``stop, stop``) where x and out are not congruent modulo 16 bytes.
+    The rest is the scalar head and tail."""
+    if (x_addr ^ out_addr) & 15:
+        return stop, stop
+    vec = 16 // itemsize
+    body = min(stop, start + (-x_addr % 16) // itemsize)
+    return body, body + (stop - body) // vec * vec
+
+
+@pytest.mark.parametrize("chunk", [None, 1024])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_mask_plans_cover_every_element_once(itemsize, chunk):
+    """Every element of every row is in exactly one block's chunk, which
+    never crosses a row; inside a chunk the vector span starts on a 16-byte
+    boundary and holds whole vectors, the scalar head and tail less than
+    one vector each, where x and out are congruent modulo 16 bytes (rows
+    at any D); at a view of storage offset 1 (out freshly allocated) the
+    whole chunk is scalar. Lists longer than MAX_LEAVES split."""
+    vec = 16 // itemsize
+    shapes = _mask_shapes()
+    plans = topk.mask_plans(shapes, itemsize, sms=132, chunk=chunk)
+    assert [len(p.index) for p in plans] == [
+        min(topk.MAX_LEAVES, len(shapes) - i)
+        for i in range(0, len(shapes), topk.MAX_LEAVES)]
+    assert sorted(i for p in plans for i in p.index) == list(
+        range(len(shapes)))
+    for offset in (0, 1):   # x's storage offset in elements; out aligned
+        for plan in plans:
+            assert plan.chunk % vec == 0
+            assert chunk is None or plan.chunk == chunk
+            seen = {i: np.zeros(shapes[i], np.int32) for i in plan.index}
+            vectors = 0
+            for block in range(plan.blocks):
+                i, row, start, stop = topk.chunk_span(plan, block)
+                cols = shapes[i][1]
+                assert 0 <= row < shapes[i][0]
+                assert 0 <= start < stop <= cols and start % plan.chunk == 0
+                at = row * cols + start
+                x_addr = 4096 * (i + 1) + (offset + at) * itemsize
+                out_addr = 8192 * (i + 1) + at * itemsize
+                body, end = _vector_span(x_addr, out_addr, start, stop,
+                                         itemsize)
+                assert start <= body <= end <= stop
+                if offset:
+                    assert body == end == stop
+                    continue
+                assert body - start < vec and stop - end < vec
+                assert (end - body) % vec == 0
+                if end > body:
+                    assert (x_addr + (body - start) * itemsize) % 16 == 0
+                vectors += (end - body) // vec
+                seen[i][row, start:stop] += 1
+            if not offset:
+                assert all(np.all(s == 1) for s in seen.values())
+                assert vectors > 0
+    with pytest.raises(ValueError, match="multiple of"):
+        topk.mask_plans(shapes, itemsize, 132, chunk=vec + 1)
+
+
+def test_mask_plans_fill_the_card():
+    """The chunk: the CIFAR tree ([10, D] f32) makes at least 4 blocks an
+    SM of 132; a tree of full-width LM leaves keeps MASK_CHUNK; none is
+    below one 16-byte vector a thread."""
+    cifar = [(10, d) for d in CIFAR_SIZES]
+    plan, = topk.mask_plans(cifar, 4, sms=132)
+    assert plan.blocks >= 4 * 132
+    assert topk.mask_plans(cifar, 4, sms=1000)[0].chunk < topk.MASK_CHUNK
+    lm = [(4, 151936 * 2048), (4, 2048 * 6144), (4, 2048)]
+    for itemsize in (2, 4):
+        plan, = topk.mask_plans(lm, itemsize, sms=132)
+        assert plan.chunk == topk.MASK_CHUNK
+        plan, = topk.mask_plans([(1, 10)], itemsize, sms=132)
+        assert plan.chunk == topk.MASK_THREADS * 16 // itemsize
+        assert plan.blocks == 1
+    with pytest.raises(ValueError, match="power of 2"):
+        build.fill_chunk(lm, 3000, 1024, 132)
+
+
+def _mask_words(x, t):
+    """K5's compare on the 32-bit words of a 16-byte vector, in numpy: an
+    f32 value a word, or two bf16 values (low half first), each kept where
+    |v| >= t (v widened to f32 by a shift) and else +0."""
+    def magnitude(bits32):
+        return np.abs(bits32.astype(np.uint32).view(np.float32))
+
+    if x.dtype == torch.float32:
+        w = x.numpy().view(np.uint32)
+        return np.where(magnitude(w) >= np.float32(t), w, 0).view(np.float32)
+    w = x.view(torch.int16).numpy().view(np.uint16).astype(np.uint32)
+    w = (w[0::2] | (w[1::2] << 16)).astype(np.uint32)
+    tf = np.float32(float(t))
+    lo = np.where(magnitude(w << 16) >= tf, w & 0xFFFF, 0)
+    hi = np.where(magnitude(w & 0xFFFF0000) >= tf, w & 0xFFFF0000, 0)
+    out = (lo | hi).astype(np.uint32)
+    halves = np.stack([out & 0xFFFF, out >> 16], axis=1).reshape(-1)
+    return halves.astype(np.uint16)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_mask_word_emulation_matches_plain(dtype):
+    """The kernel's word-wise compare (``mask_word``) in numpy is bitwise
+    ``mask_plain`` on a row with -0.0, NaN, +-inf, ties at the threshold,
+    denormals, and at t = 0 (-0.0 kept), t = inf, a NaN threshold and
+    negative thresholds (-0.5, -inf: every value but NaN kept, the
+    threshold compared with its sign)."""
+    tdt = DTYPES[dtype][1]
+    row = np.random.default_rng(2).normal(size=64).astype(np.float32)
+    row[:12] = [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 0.5, -0.5,
+                0.5, 1e-40, -1e-40, 2.0]
+    x = torch.from_numpy(row).to(tdt)
+    for t in (0.5, 0.0, -0.0, float("inf"), float("nan"), 1e-40, 3.0,
+              -0.5, float("-inf")):
+        thresh = torch.tensor([t]).to(tdt)
+        want = topk.mask_plain(x[None], thresh)[0]
+        got = _mask_words(x, thresh[0])
+        if tdt == torch.float32:
+            assert np.array_equal(got.view(np.uint32),
+                                  want.numpy().view(np.uint32)), t
+        else:
+            assert np.array_equal(got, want.view(torch.int16).numpy().view(
+                np.uint16)), t
+
+
+def test_mask_many_matches_per_leaf_and_rejects_bad_lists():
+    """One call over a list of f32 leaves (ties, a zero and a -0.0 row) is
+    bitwise the per-leaf calls; unequal lists, a mixed dtype and a
+    threshold of the wrong shape or dtype raise."""
+    leaves = [t for _, t in _leaf_list("float32", "ties", seed=4)]
+    threshs = ops.topk_threshold_many(leaves, [max(1, x.shape[1] // 3)
+                                               for x in leaves])
+    got = ops.topk_mask_many(leaves, threshs)
+    for x, t, g in zip(leaves, threshs, got):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert np.array_equal(_bits(g), _bits(ops.topk_mask(x, t)))
+        assert np.array_equal(_bits(g), _bits(topk.mask_plain(x, t)))
+    x, t = leaves[0], threshs[0]
+    with pytest.raises(ValueError, match="2 leaves and 1 thresholds"):
+        ops.topk_mask_many([x, x], [t])
+    with pytest.raises(ValueError, match="0 leaves"):
+        ops.topk_mask_many([], [])
+    with pytest.raises(TypeError, match="leaves of"):
+        ops.topk_mask_many([x, x.bfloat16()], [t, t.bfloat16()])
+    with pytest.raises(ValueError, match="thresh"):
+        ops.topk_mask_many([x, x], [t, t[:2]])
+    with pytest.raises(ValueError, match="thresh"):
+        ops.topk_mask_many([x], [t[:, None]])
+    with pytest.raises(ValueError, match="thresh"):
+        ops.topk_mask_many([x], [t.bfloat16()])
+
+
+def test_topk_per_node_many_is_per_leaf_and_reference(monkeypatch):
+    """TopK over a tree of f32 and bf16 leaves: ``per_node_many`` is
+    bitwise ``per_node`` leaf by leaf and, through ``compress_tree``, the
+    reference's ``compress_tree``; it makes one K4 and one K5 call per
+    dtype, the leaves in the order given."""
+    rng = np.random.default_rng(8)
+    shapes = {"a": (6, 5), "b": (300,), "c": (4, 7, 3), "d": (33,),
+              "e": (1,)}
+    dtypes = {"a": "float32", "b": "bfloat16", "c": "float32",
+              "d": "bfloat16", "e": "float32"}
+    raw = {k: np.round(rng.normal(size=s).astype(np.float32) * 4) / 4
+           for k, s in shapes.items()}
+    tree = {k: _pair(v, dtypes[k])[1] for k, v in raw.items()}
+    jtree = {k: _pair(v, dtypes[k])[0] for k, v in raw.items()}
+    comp = compression.make_compressor("top_k", frac=0.3)
+    jcomp = jcompression.make_compressor("top_k", frac=0.3)
+    calls = []
+    for name in ("topk_threshold_many", "topk_mask_many"):
+        real = getattr(ops, name)
+
+        def counted(xs, other, _real=real, _name=name):
+            calls.append((_name, [x.dtype for x in xs]))
+            return _real(xs, other)
+        monkeypatch.setattr(ops, name, counted)
+    stacked = [v.reshape(1, -1) for v in tree.values()]
+    got = comp.per_node_many(stacked, [None] * len(stacked))
+    f32, bf16 = [torch.float32] * 3, [torch.bfloat16] * 2
+    assert calls == [("topk_threshold_many", f32), ("topk_mask_many", f32),
+                     ("topk_threshold_many", bf16), ("topk_mask_many", bf16)]
+    for x, g in zip(stacked, got):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert np.array_equal(_bits(g), _bits(comp.per_node(x)))
+    out = compression.compress_tree(comp, tree)
+    want = jcompression.compress_tree(jcomp, jtree, None)
+    for k in tree:
+        assert out[k].shape == tree[k].shape
+        assert np.array_equal(_bits(out[k]), _bits(want[k])), k
