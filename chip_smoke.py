@@ -184,7 +184,21 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    warmup; (d) the train CLI with
    ``--engine sparse`` on 4 ranks against the dense CLI on the card.
    ``--only sparse_calibrate`` prints (b)'s readings ungated.
-15. Print the kernels line, the build and total wall times, the card's
+15. The planner's measured cost inputs (``run_roofline_phase``,
+   ``repro_torch.launch.roofline`` / ``launch.steps``) on Qwen3-1.7B at
+   its published widths, 2 of 28 layers, 4 nodes, batch 2, seq 1024: (a)
+   ``roofline_cost_inputs`` (FLOPs against 6 P T, the compute and memory
+   terms against the local step run on the card and its busy time) and the
+   analytic and measured plans, the measured plan the same in a process
+   that sees no card; (b) ``build_planned_round`` from it, 3 rounds: no
+   build or capture after the warmup, exact K1 launches, finite losses;
+   (c) ``bench_overlap --smoke --check`` on 8 gloo ranks sharing the card;
+   (d) ``bench_round_overhead --measure reduced_arch --check``; (e)
+   ``examples/train_lm.py`` at its widths, ``TRAIN_LM_ROUNDS`` rounds:
+   tokens/s, the loss by round, its fall at least ``TRAIN_LM_FALL``, which
+   a control with K1 perturbed must miss. ``--only roofline_calibrate``
+   prints (e) with several controls, ungated.
+16. Print the kernels line, the build and total wall times, the card's
    name and power limit, and the final ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when ``torch.cuda.is_available()`` is
@@ -202,6 +216,7 @@ ungated, ``telemetry``, ``lm``, ``lm_calibrate``, ``lm_kernels``: phase
 11 (c) alone, K1-K7 on the full-width tree, ``serve``,
 ``serve_calibrate``, ``sparse``, ``sparse_calibrate``,
 ``sparse_kernels``: phase 14 (a) alone, K1-received checked and timed,
+``roofline``, ``roofline_calibrate``,
 ``cold_kernels``: K5's and K1-received's CIFAR readings with their
 operands read from DRAM, ...) and prints no result.
 """
@@ -4633,6 +4648,307 @@ def sparse_diffs(ranks, kind, key, dense):
     return {m: max(max(p[m]) for p in per) for m in ("loss", "consensus_sq")}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the planner's measured cost inputs, the planned round, the
+# launch benches and the LM example
+# ---------------------------------------------------------------------------
+
+ROOF_BUDGET_S = 3600.0
+ROOF_ROUNDS = 3
+TRAIN_LM_ROUNDS = 20
+# (e): the LM example's loss must fall from round 1 to round 20 by at least
+# this many nats; the limit sits between the sound reading and controls
+# with K1's output perturbed on the card (``--only roofline_calibrate``,
+# PERF.md §6): sound 0.0465; K1 x 1.01 a step -0.081 (the loss rises),
+# x 1.05 -4.91, + 0.01 -0.285.
+TRAIN_LM_FALL = 0.02
+TRAIN_LM_CONTROL = ("gossip_mix_many", "x_scale", 1e-2)
+TRAIN_LM_CONTROLS = (("gossip_mix_many", "x_scale", 1e-2),
+                     ("gossip_mix_many", "x_scale", 5e-2),
+                     ("gossip_mix_many", "x_shift", 1e-2))
+
+
+def plan_fields(p):
+    """A planner ``Plan``'s knobs and prediction, for comparing two."""
+    return {"tau1": p.tau1, "tau2": p.tau2, "eta": p.eta,
+            "compressor": p.compressor_name, "rounds": p.rounds,
+            "predicted_bound": p.predicted_bound,
+            "round_time_s": p.round_cost.time_s,
+            "round_wire_bits": p.round_cost.wire_bits}
+
+
+ROOF_PLAN_SCRIPT = r"""
+import dataclasses, json, sys
+import torch
+from chip_smoke import LM_FULL_ARCH, plan_fields
+from repro_torch.configs import REGISTRY
+from repro_torch.launch import steps
+layers, batch, seq, nodes, budget = map(float, sys.argv[1:])
+arch = REGISTRY[LM_FULL_ARCH]
+cfg = dataclasses.replace(arch.model, num_layers=int(layers))
+p = steps.plan_train_schedule(arch, "train_4k", int(nodes), budget_s=budget,
+                              cfg=cfg, batch=int(batch), seq=int(seq),
+                              use_roofline=True)
+print(json.dumps({"cuda": torch.cuda.is_available(), **plan_fields(p)}))
+"""
+
+
+def cpu_process_plan(cfg, batch, seq):
+    """The measured plan of ``cfg`` computed by a process that sees no
+    card (``CUDA_VISIBLE_DEVICES`` empty): the counts come from ``meta``
+    tensors, so it must equal the card's."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join((ROOT, os.path.join(ROOT, "src"))))
+    out = subprocess.run(
+        [sys.executable, "-c", ROOF_PLAN_SCRIPT, str(cfg.num_layers),
+         str(batch), str(seq), str(LM_NODES), str(ROOF_BUDGET_S)],
+        env=env, capture_output=True, text=True, timeout=600)
+    require(out.returncode == 0, f"the CPU process's plan failed: "
+            f"{out.stderr[-2000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    require(got.pop("cuda") is False, "the CPU process saw a card")
+    return got
+
+
+def roofline_inputs(cfg, batch=LM_FULL_BATCH, seq=LM_FULL_SEQ,
+                    device="cuda"):
+    """(a) ``roofline_cost_inputs`` and the analytic and measured plans of
+    ``cfg`` (Qwen3-1.7B at its published widths, depth cut to
+    ``LM_FULL_LAYERS``), 4 nodes, ``batch`` x ``seq`` tokens a node: the
+    counted FLOPs against 6 P T, the roofline's compute and memory terms
+    for the 4 nodes on one card against the local step run on the card
+    (host clock ended by a sync, eager, the median of 3 after one warm
+    call) and its busy time (``torch.profiler``). Returns the measured
+    plan's fields; the CPU process's plan must equal them."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch import roofline as roof
+    from repro_torch.launch import steps
+
+    arch = REGISTRY[LM_FULL_ARCH]
+    kw = dict(cfg=cfg, batch=batch, seq=seq)
+    t0 = time.perf_counter()
+    m = steps.roofline_cost_inputs(arch, "train_4k", LM_NODES, **kw)
+    count_s = time.perf_counter() - t0
+    params = cfg.param_count()
+    six_pt = roof.model_flops_train(params, batch * seq)
+    line = {"params_a_node": params, "tokens_a_node": batch * seq,
+            **m, "six_p_t": six_pt, "flops_over_six_p_t": m["step_flops"]
+            / six_pt, "count_s": count_s,
+            "compute_ms": m["step_flops"] * LM_NODES / roof.PEAK_FLOPS_BF16
+            * 1e3, "memory_ms": m["step_hbm_bytes"] / roof.HBM_BYTES_PER_S
+            * 1e3}
+    require(m["gossip_collective_bytes"] == 0.0 and m["step_flops"] > 0,
+            f"roofline inputs {m}")
+    dev = torch.device(device)
+    local = steps.build_local_step(
+        arch, "train_4k", LM_NODES, device=device,
+        generator=torch.Generator(device).manual_seed(0), **kw)
+
+    def step():
+        out = local.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    step()
+    times = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        loss = float(step()[2])
+        times.append((time.perf_counter() - t1) * 1e3)
+    require(math.isfinite(loss), f"local step loss {loss}")
+    line["local_step_ms"] = float(np.median(times))
+    line["local_step_ms_runs"] = times
+    if dev.type == "cuda":
+        busy, kernels = device_busy_ms(step)
+        line["local_step_busy_ms"] = busy
+        line["top_kernels_ms"] = top_kernels(kernels, 1, n=6, width=120)
+    line["roofline_over_measured"] = (
+        max(line["compute_ms"], line["memory_ms"]) / line["local_step_ms"])
+    del local
+    plans = {}
+    for name, use in (("analytic", False), ("measured", True)):
+        p = steps.plan_train_schedule(arch, "train_4k", LM_NODES,
+                                      budget_s=ROOF_BUDGET_S,
+                                      use_roofline=use, **kw)
+        plans[name] = plan_fields(p)
+    line["plans"] = plans
+    print("roofline inputs " + json.dumps(line))
+    return plans["measured"]
+
+
+def planned_round(K, cfg, want_plan, batch=LM_FULL_BATCH, seq=LM_FULL_SEQ,
+                  device="cuda"):
+    """(b) ``build_planned_round`` from the measured plan: ``ROOF_ROUNDS``
+    rounds in one dispatch on the executor after its warmup: no build or
+    capture after it, exactly K1's launches (one call a dtype a gossip
+    step), finite losses, the plan the same as (a)'s; ms a round against
+    the plan's predicted round time."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    built = steps.build_planned_round(
+        REGISTRY[LM_FULL_ARCH], "train_4k", LM_NODES,
+        budget_s=ROOF_BUDGET_S, cfg=cfg, batch=batch, seq=seq,
+        rounds=ROOF_ROUNDS, device=device,
+        generator=torch.Generator(device).manual_seed(0), use_roofline=True)
+    plan = built.meta["plan"]
+    require({k: plan[k] for k in want_plan} == want_plan,
+            f"planned round: plan {plan} is not (a)'s {want_plan}")
+    ex = built.executor
+    t0 = time.perf_counter()
+    built.warmup()
+    warmup_s = time.perf_counter() - t0
+    warm = (ex.compile_count, ex.capture_count)
+    per_step = lm_step_launches("", built.args[0].params)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    _, m = built.run()
+    losses = [float(v) for v in m["loss"]]
+    sync()
+    ms = (time.perf_counter() - t1) * 1e3 / ROOF_ROUNDS
+    counts = dict(ops.LAUNCHES)
+    expect = expect_launches(K, gossip_mix=per_step["gossip_mix"]
+                             * plan["tau2"] * ROOF_ROUNDS)
+    require(counts == expect, f"planned round: launches {counts}, expected "
+            f"{expect}")
+    add_launches(K, counts)
+    require((ex.compile_count, ex.capture_count) == warm,
+            f"planned round: {warm} builds and captures after the warmup "
+            f"became {(ex.compile_count, ex.capture_count)}")
+    require(all(math.isfinite(v) for v in losses),
+            f"planned round: losses {losses}")
+    print("planned round " + json.dumps({
+        "plan": plan, "losses": losses, "ms_per_round": ms,
+        "predicted_round_ms": plan["round_time_s"] * 1e3,
+        "launches": counts, "builds_captures": warm,
+        "warmup_s": warmup_s}))
+
+
+def launch_benches(K, gate=True):
+    """(c) ``bench_overlap --smoke --check`` on 8 gloo ranks sharing the
+    card (one node a rank); (d) ``bench_round_overhead --measure
+    reduced_arch --check``, its launches added to the kernels line.
+    ``gate=False``: (c) without ``--check``."""
+    from repro_torch.benchmarks import bench_overlap as bo
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    out = bo.main(["--smoke", "--check"] if gate else ["--smoke"])
+    print(f"bench_overlap ({time.perf_counter() - t0:.2f} s) " + json.dumps(
+        {k: out[k] for k in ("measured", "deployment", "planner",
+                             "none_overhead", "pipeline_wall",
+                             "builds_captures")}))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = bro.main(["--measure", "reduced_arch", "--check"])
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    require(counts["gossip_mix"] > 0, f"reduced_arch: launches {counts}")
+    add_launches(K, counts)
+    ra = out["reduced_arch"]
+    print(f"reduced_arch ({time.perf_counter() - t0:.2f} s) " + json.dumps({
+        "rounds_per_s": out["rounds_per_s"],
+        "ms_per_round": {k: ra[k]["ms_per_round"] for k in
+                         ("legacy", "executor_round", "executor_superstep")},
+        "legacy_build_round_ms": ra["legacy"]["build_round_ms"],
+        "builds_after_warmup": [ra[k]["builds_after_warmup"] for k in
+                                ("executor_round", "executor_superstep")],
+        "launches": counts}))
+
+
+def train_lm_runs(K, gate=True, controls=(TRAIN_LM_CONTROL,), cfg=None,
+                  argv=(), device="cuda"):
+    """(e) ``examples/train_lm.py`` at its own widths (the ~100M qwen3-style
+    LM, f32, 4 nodes), ``TRAIN_LM_ROUNDS`` rounds: tokens/s and the loss by
+    round; every loss finite, exactly K1's launches (one call a dtype a
+    gossip step), and the loss falling from round 1 by at least
+    ``TRAIN_LM_FALL``, which each control (K1 perturbed on the card) must
+    miss."""
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels import ops
+
+    args = ["--rounds", str(TRAIN_LM_ROUNDS), *argv]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    ops.reset_launches()
+    rec = train_lm.main(args, cfg, device=device, log=lambda s: None)
+    sync()
+    counts = dict(ops.LAUNCHES)
+    a = train_lm.parse_args(args)
+    per_step = lm_step_launches("", rec["state"].params)
+    expect = expect_launches(K, gossip_mix=per_step["gossip_mix"] * a.tau2
+                             * a.rounds)
+    require(counts == expect, f"train_lm: launches {counts}, expected "
+            f"{expect}")
+    add_launches(K, counts)
+    losses = rec["losses"]
+    fall = losses[0] - losses[-1]
+    line = {"params": rec["params"], "tokens_per_s": rec["tokens_per_s"],
+            "seconds": rec["seconds"], "losses": losses,
+            "consensus_sq": rec["consensus_sq"], "fall": fall,
+            "limit": TRAIN_LM_FALL, "launches": counts}
+    del rec
+    ok = all(math.isfinite(v) for v in losses)
+    for control in controls:
+        with perturbed(*control):
+            ctl = train_lm.main(args, cfg, device=device, log=lambda s: None)
+        c = ctl["losses"]
+        line[f"control {control}"] = {"losses": c, "fall": c[0] - c[-1]}
+        del ctl
+        if gate:
+            require(not (all(math.isfinite(v) for v in c)
+                         and c[0] - c[-1] >= TRAIN_LM_FALL),
+                    f"train_lm: the control {control} falls by "
+                    f"{c[0] - c[-1]} >= {TRAIN_LM_FALL}")
+    print("train_lm " + json.dumps(line))
+    if gate:
+        require(ok and fall >= TRAIN_LM_FALL,
+                f"train_lm: losses {losses} fall by {fall} < {TRAIN_LM_FALL}")
+
+
+def run_roofline_phase(K, gate=True):
+    """Phase 15: (a) ``roofline_inputs`` and the same measured plan from a
+    process that sees no card, (b) ``planned_round``, (c) and (d)
+    ``launch_benches``, (e) ``train_lm_runs``. ``gate=False`` (``--only
+    roofline_calibrate``) runs (c) without ``--check`` and (e) with
+    ``TRAIN_LM_CONTROLS``, and holds no limit of (c) or (e)."""
+    import gc
+
+    from repro_torch.configs import REGISTRY
+
+    cfg = dataclasses.replace(REGISTRY[LM_FULL_ARCH].model,
+                              num_layers=LM_FULL_LAYERS)
+    times = {}
+    t0 = time.perf_counter()
+    plan = roofline_inputs(cfg)
+    cpu_plan = cpu_process_plan(cfg, LM_FULL_BATCH, LM_FULL_SEQ)
+    require(cpu_plan == plan, f"the CPU process's plan {cpu_plan} is not "
+            f"the card's {plan}")
+    times["inputs"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    planned_round(K, cfg, plan)
+    times["planned_round"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launch_benches(K, gate)
+    times["benches"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_lm_runs(K, gate, (TRAIN_LM_CONTROL,) if gate else TRAIN_LM_CONTROLS)
+    times["train_lm"] = time.perf_counter() - t0
+    print("roofline phase seconds " + json.dumps(times))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -4705,12 +5021,14 @@ def main():
         "lm": lambda: run_lm_phase(K),
         "serve": run_serve_phase,
         "telemetry": lambda: run_telemetry_phase(K),
-        "sparse": lambda: run_sparse_phase(K)}
+        "sparse": lambda: run_sparse_phase(K),
+        "roofline": lambda: run_roofline_phase(K)}
     # phases run only when named after --only: readings ungated, or a part
     # of a phase above alone
     only = {
         "lm_calibrate": lambda: run_lm_phase(K, gate=False),
         "sparse_calibrate": lambda: run_sparse_phase(K, gate=False),
+        "roofline_calibrate": lambda: run_roofline_phase(K, gate=False),
         "serve_calibrate": lambda: run_serve_phase(gate=False),
         "figures_calibrate": lambda: run_figures(
             K, gate=False, controls=FIG_CONTROLS),

@@ -1,0 +1,378 @@
+"""Overlapped-superstep benchmark on the sparse engine: pipelined against
+additive round time.
+
+The port of ``benchmarks/bench_overlap.py``. The pipeline's win is a
+deployment property: the tau2 exchanges ride under the next round's tau1
+local steps, so the round costs ``tau1*T_step + max(0, tau2*T_gossip -
+tau1*T_step)`` instead of the paper's additive sum. As in the reference,
+the headline numbers are priced on the deployment clock from measured
+inputs:
+
+  * ``T_step``   the paired wall-clock slope of the ``overlap="none"``
+                 executor at tau2 = 0 between tau1 = 1 and tau1 = 4 (rank
+                 0's clock; ``fit_t_step``): the dispatch floor cancels in
+                 the difference.
+  * ``T_gossip`` the bytes one node sends in a gossip step, read off the
+                 group's counter (``core.sharded.NodeGroup.exchange_bytes``:
+                 the packed buffer, each leaf padded to 16 bytes, once a
+                 shift; the ring's two shifts), over the modeled deployment
+                 link bandwidth (``--link-bw``, 2 GB/s as the reference's).
+
+``launch.roofline.predict_overlap`` turns the two into the predicted
+additive and pipelined round times before a pipelined round runs, and
+``--check`` asserts the reference's conditions: (a) the config is
+gossip-dominated (the max binds), (b) pipelined < additive, (c) the
+planner's ``CostModel(overlap="pipeline")`` round time agrees with the
+prediction within ``PLANNER_TOL_PCT``; and that no executor built or
+captured after its warmup, and ``overlap="none"`` costs under 2% against
+the legacy executor (``none_overhead``).
+
+Wall-clock sections, rank 0's clock, every rank dispatching the same
+sequence (paired dispatch for dispatch, the order flipped each pass, the
+cyclic GC off, median of the differences, as the reference's):
+
+  * ``none_overhead`` ``overlap="none"`` against the legacy executor (the
+                      reference's executor without the knob; in the port
+                      both are ``RoundExecutor``'s default path, so this
+                      reads the pairing's noise floor, over at least
+                      ``NONE_OVERHEAD_PAIRS`` pairs), held under 2% by
+                      ``--check``.
+  * ``pipeline_wall`` ``overlap="pipeline"`` against ``"none"``: recorded,
+                      not asserted (the ranks share one device and the
+                      host's cores).
+
+The model is the reference's, one ``w`` of ``--dim`` per node, loss
+``mean((w - b)^2)``, ``sgd(3e-2)``, ring(8), one node a rank
+(``core.sharded.spawn``: gloo on the CPU or when the ranks share a card),
+but 128x larger by default: 2,097,152 floats, 8 MiB a node, where the
+reference's 16,384 leave its compiled local step under the wire time.
+The port's sparse engine runs its local steps eagerly, and with 8 ranks
+sharing one card a step costs 1.3 to 8 ms whatever the dim (the ranks
+take turns on the device), while the wire time grows with the dim: at 8
+MiB a gossip step is 8.4 ms at the reference's 2 GB/s, so the default
+(2, 4) schedule stays gossip-dominated. On the CPU an eager step also
+costs several ns an element, more than the wire's 4 ns at 2 GB/s, so a
+CPU run models a slower link (``--link-bw``) to stay in that regime.
+
+    PYTHONPATH=src python -m repro_torch.benchmarks.bench_overlap \\
+        --smoke --check [--device cpu]
+
+Writes ``results/repro_torch/BENCH_overlap.json`` (the root
+``BENCH_overlap.json`` is the reference's).
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import tempfile
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.benchmarks.common import save_result
+from repro_torch.core.dfl import DFLConfig, init_state
+from repro_torch.core.executor import RoundExecutor, stack_round_batches
+from repro_torch.core.rng import GeneratorDraws
+from repro_torch.core.sharded import pack_layout, spawn
+from repro_torch.core.topology import ring
+from repro_torch.launch.roofline import Roofline, predict_overlap
+from repro_torch.optim import sgd
+from repro_torch.planner import CostModel
+from repro_torch.planner.cost import ComputeModel, LinkModel
+
+N = 8
+TAU_MAX = 4
+PLANNER_TOL_PCT = 1.0      # planner-vs-roofline max-form agreement bar
+NONE_OVERHEAD_PCT = 2.0    # the reference's bar on overlap="none"
+# pairs of the bar's reading, never cut by --smoke: the two executors are
+# one path in the port, so the reading is the pairing's noise, which at the
+# reference's 10 smoke pairs on 8 ranks sharing a card reached +-2.3%
+NONE_OVERHEAD_PAIRS = 24
+
+
+def quad_loss(p, b):
+    return torch.mean((p["w"] - b[0]) ** 2)
+
+
+def make_executor(group, overlap: str = None) -> RoundExecutor:
+    cfg = DFLConfig(tau1=TAU_MAX, tau2=TAU_MAX, topology=ring(group.world))
+    kw = {} if overlap is None else {"overlap": overlap}
+    return RoundExecutor(cfg, quad_loss, sgd(3e-2), engine="sparse",
+                         group=group, donate=False, **kw)
+
+
+def _timed(ex, state, batches, taus):
+    t0 = time.perf_counter()
+    state, m = ex.dispatch_trajectory(state, batches, taus)
+    float(m["loss"][-1])
+    return state, time.perf_counter() - t0
+
+
+def fit_t_step(ex, state, batches, k: int, reps: int) -> Dict[str, float]:
+    """T_step from the tau2 = 0 wall-clock slope between tau1 = 1 and 4:
+    the two trajectories alternate dispatch for dispatch (the order flipped
+    each pass) so drift cancels in the per-pair difference, as does the
+    dispatch floor, leaving 3 * K local steps a pair."""
+    taus = {"lo": np.array([[1, 0]] * k, np.int32),
+            "hi": np.array([[4, 0]] * k, np.int32)}
+    states = {"lo": state, "hi": state}
+    for mode in ("lo", "hi"):       # settle the first dispatches' one-offs
+        states[mode], _ = _timed(ex, states[mode], batches, taus[mode])
+    diffs: List[float] = []
+    per_round = {"lo": [], "hi": []}
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for p in range(reps):
+            pair = {}
+            for mode in (("lo", "hi") if p % 2 == 0 else ("hi", "lo")):
+                states[mode], pair[mode] = _timed(ex, states[mode], batches,
+                                                  taus[mode])
+            diffs.append(pair["hi"] - pair["lo"])
+            for mode in pair:
+                per_round[mode].append(pair[mode] / k)
+    finally:
+        if gc_was_enabled:
+            gc.enable()
+    return {"round_s_tau1_1": float(np.median(per_round["lo"])),
+            "round_s_tau1_4": float(np.median(per_round["hi"])),
+            "t_step_s": max(float(np.median(diffs)) / (3.0 * k), 1e-9)}
+
+
+def paired_delta(ex_a, ex_b, state, batches, taus, passes: int) -> Dict:
+    """Median per-pair wall difference (b - a) over median a, dispatch for
+    dispatch, the order flipped each pass, GC off."""
+    states = {"a": state, "b": state}
+    exes = {"a": ex_a, "b": ex_b}
+    diffs: List[float] = []
+    base: List[float] = []
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for p in range(passes):
+            pair = {}
+            for mode in (("a", "b") if p % 2 == 0 else ("b", "a")):
+                states[mode], pair[mode] = _timed(exes[mode], states[mode],
+                                                  batches, taus)
+            diffs.append(pair["b"] - pair["a"])
+            base.append(pair["a"])
+    finally:
+        if gc_was_enabled:
+            gc.enable()
+    base_s = float(np.median(base))
+    diff_s = float(np.median(diffs))
+    return {"base_dispatch_s": base_s, "delta_s": diff_s,
+            "delta_pct": 100.0 * diff_s / base_s, "pairs": len(diffs)}
+
+
+def bench_rank(group, out_dir: str, cfg: Dict) -> None:
+    """One rank of the bench: every rank dispatches the same sequence (the
+    sparse engine's exchanges and metric sums are collectives); rank 0
+    writes the measurements to ``out_dir/rank0.json``."""
+    dev = group.device
+    k, dim = cfg["rounds"], cfg["dim"]
+    # this node's targets only: [k, TAU_MAX, 1, dim]
+    rng = np.random.default_rng((0, group.rank))
+    host = [(rng.standard_normal((TAU_MAX, 1, dim), dtype=np.float32),)
+            for _ in range(k)]
+    batches = stack_round_batches(host, TAU_MAX, dev)
+    opt = sgd(3e-2)
+    state = init_state({"w": torch.zeros(dim, device=dev)}, 1, opt, seed=1,
+                       draws=GeneratorDraws(1, group.world, ["w"], dev))
+    taus = np.array([[cfg["tau1"], cfg["tau2"]]] * k, np.int32)
+    exes = {"legacy": make_executor(group),
+            "none": make_executor(group, "none"),
+            "pipeline": make_executor(group, "pipeline")}
+    for ex in exes.values():
+        ex.warmup(state, batches)
+    warm = {name: (ex.compile_count, ex.capture_count)
+            for name, ex in exes.items()}
+
+    # the wire: what the group's counter says one gossip step sent
+    before = group.exchange_bytes
+    exes["none"].dispatch_trajectory(state, batches, taus)
+    step_bytes = (group.exchange_bytes - before) / float(taus[:, 1].sum())
+    packed = pack_layout([state.params["w"]])[1]
+
+    fit = fit_t_step(exes["none"], state, batches, k,
+                     max(cfg["passes"] // 2, 5))
+    none_overhead = paired_delta(exes["legacy"], exes["none"], state,
+                                 batches, taus,
+                                 max(cfg["passes"], NONE_OVERHEAD_PAIRS))
+    pipeline_wall = paired_delta(exes["none"], exes["pipeline"], state,
+                                 batches, taus, cfg["passes"])
+    after = {name: (ex.compile_count, ex.capture_count)
+             for name, ex in exes.items()}
+    if group.rank == 0:
+        with open(os.path.join(out_dir, "rank0.json"), "w") as f:
+            json.dump({"wire_bytes_per_gossip_step": step_bytes,
+                       "packed_bytes": packed,
+                       "shifts": len(exes["none"].cfg.topology.shifts()),
+                       "fit": fit, "none_overhead": none_overhead,
+                       "pipeline_wall": pipeline_wall,
+                       "builds_captures_warm": warm,
+                       "builds_captures_after": after,
+                       "device_name": (torch.cuda.get_device_name(dev)
+                                       if dev.type == "cuda" else "cpu")}, f)
+
+
+def main(argv=None) -> Dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dim", type=int, default=2097152,
+                    help="model dim: the wire time must outgrow the eager "
+                         "local step's (module docstring)")
+    ap.add_argument("--rounds", type=int, default=8,
+                    help="rounds per superstep (K)")
+    ap.add_argument("--passes", type=int, default=24)
+    ap.add_argument("--tau1", type=int, default=2)
+    ap.add_argument("--tau2", type=int, default=4,
+                    help="gossip-heavy by default: the max must bind")
+    ap.add_argument("--link-bw", type=float, default=2e9,
+                    help="deployment link bytes/s pricing T_gossip")
+    ap.add_argument("--smoke", action="store_true",
+                    help="10 passes (the none_overhead bar keeps 24) and "
+                         "K = 4 (the CI config)")
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--timeout", type=float, default=600.0,
+                    help="seconds the ranks may take before they are killed")
+    ap.add_argument("--out", default="BENCH_overlap")
+    args = ap.parse_args(argv)
+    if args.smoke:
+        # dim is not shrunk (the slope would drown in timer noise); passes
+        # and K carry the shrink, as in the reference
+        args.passes = min(args.passes, 10)
+        args.rounds = min(args.rounds, 4)
+    if max(args.tau1, args.tau2) > TAU_MAX:
+        raise SystemExit(f"tau1 and tau2 must be at most {TAU_MAX}")
+    print(f"bench_overlap: nodes={N} dim={args.dim} K={args.rounds} "
+          f"taus=({args.tau1},{args.tau2}) link_bw={args.link_bw:.0e} B/s "
+          f"device={args.device}")
+    cfg = {"dim": args.dim, "rounds": args.rounds, "passes": args.passes,
+           "tau1": args.tau1, "tau2": args.tau2}
+    with tempfile.TemporaryDirectory(prefix="bench_overlap_") as tmp:
+        spawn(bench_rank, N, (tmp, cfg), device=args.device,
+              timeout_s=args.timeout)
+        with open(os.path.join(tmp, "rank0.json")) as f:
+            r0 = json.load(f)
+
+    step_bytes = r0["wire_bytes_per_gossip_step"]
+    t_gossip = step_bytes / args.link_bw
+    fit = r0["fit"]
+    t_step = fit["t_step_s"]
+    print(f"  measured wire: {step_bytes:.0f} B/step/node over "
+          f"{r0['shifts']} shifts -> T_gossip {1e6 * t_gossip:.1f} us")
+    print(f"  fitted T_step {1e6 * t_step:.1f} us (round "
+          f"{1e6 * fit['round_s_tau1_1']:.0f} -> "
+          f"{1e6 * fit['round_s_tau1_4']:.0f} us over tau1 1 -> 4)")
+
+    # the deployment-clock prediction, before any pipelined round
+    gossip_rl = Roofline(flops=0.0, hbm_bytes=0.0,
+                         collective_bytes=step_bytes, chips=N,
+                         link_bw=args.link_bw)
+    local_rl = Roofline(flops=0.0, hbm_bytes=0.0, collective_bytes=0.0,
+                        chips=N)
+    pred = predict_overlap(local_rl, gossip_rl, args.tau1, args.tau2,
+                           t_local_step_s=t_step)
+    gossip_dominated = (args.tau2 * pred.t_gossip_step_s
+                        > args.tau1 * pred.t_local_step_s)
+    print(f"  deployment round: additive {1e6 * pred.additive_s:.1f} us, "
+          f"pipelined {1e6 * pred.pipelined_s:.1f} us "
+          f"({pred.speedup:.2f}x, {1e6 * pred.hidden_s:.1f} us hidden, "
+          f"gossip_dominated={gossip_dominated})")
+
+    # the planner's max-form against the roofline's, the same inputs
+    model_bits = step_bytes / r0["shifts"] * 8.0    # one copy
+
+    def cm(overlap):
+        return CostModel(
+            compute=ComputeModel(step_flops=t_step, flops_per_s=1.0),
+            link=LinkModel(bytes_per_s=args.link_bw), topology=ring(N),
+            model_bits=model_bits, engine="sparse", overlap=overlap)
+    plan_none = cm("none").round_cost(args.tau1, args.tau2).time_s
+    plan_pipe = cm("pipeline").round_cost(args.tau1, args.tau2).time_s
+    err_none = 100.0 * abs(plan_none - pred.additive_s) / pred.additive_s
+    err_pipe = 100.0 * abs(plan_pipe - pred.pipelined_s) / pred.pipelined_s
+    print(f"  planner round times: additive {1e6 * plan_none:.1f} us "
+          f"({err_none:.3f}% off roofline), pipelined "
+          f"{1e6 * plan_pipe:.1f} us ({err_pipe:.3f}% off)")
+    none_overhead, pipeline_wall = r0["none_overhead"], r0["pipeline_wall"]
+    print(f"  overlap='none' wall overhead {none_overhead['delta_pct']:+.2f}%"
+          f" over legacy ({none_overhead['pairs']} pairs)")
+    print(f"  pipeline wall delta {pipeline_wall['delta_pct']:+.2f}% vs none"
+          " (ranks share the device and the host: recorded, not asserted)")
+    zero_builds = r0["builds_captures_after"] == r0["builds_captures_warm"]
+
+    payload = {
+        "config": {
+            "nodes": N, "dim": args.dim, "rounds_per_superstep": args.rounds,
+            "tau1": args.tau1, "tau2": args.tau2,
+            "link_bytes_per_s": args.link_bw, "smoke": args.smoke,
+            "device": args.device, "device_name": r0["device_name"],
+            "planner_tolerance_pct": PLANNER_TOL_PCT,
+        },
+        "measured": {
+            "wire_bytes_per_gossip_step": step_bytes,
+            "packed_bytes_per_shift": r0["packed_bytes"],
+            "shifts": r0["shifts"],
+            **fit,
+            "t_gossip_step_s": t_gossip,
+            "gossip_dominated": bool(gossip_dominated),
+        },
+        "deployment": pred.as_dict(),
+        "planner": {
+            "additive_round_s": plan_none,
+            "pipelined_round_s": plan_pipe,
+            "err_vs_roofline_pct": {"additive": err_none,
+                                    "pipelined": err_pipe},
+        },
+        "none_overhead": none_overhead,
+        "pipeline_wall": pipeline_wall,
+        "builds_captures": {"warm": r0["builds_captures_warm"],
+                            "after": r0["builds_captures_after"]},
+        "zero_recompiles": zero_builds,
+    }
+    print(f"wrote {save_result(args.out, payload)}")
+    if not zero_builds:
+        raise RuntimeError(f"an executor built or captured after its "
+                           f"warmup: {payload['builds_captures']}")
+    if step_bytes != r0["shifts"] * r0["packed_bytes"]:
+        raise RuntimeError(f"a gossip step sent {step_bytes} bytes, not "
+                           f"{r0['shifts']} shifts of {r0['packed_bytes']}")
+    if args.check:
+        failed = []
+        if t_step <= 1e-6:
+            failed.append(f"T_step fit collapsed to the floor ({t_step:.2e}"
+                          " s): the slope was not measurable, raise --dim")
+        if not gossip_dominated:
+            failed.append(f"config not gossip-dominated: tau2*T_gossip "
+                          f"{args.tau2 * t_gossip:.2e} <= tau1*T_step "
+                          f"{args.tau1 * t_step:.2e}, the max never binds")
+        if not pred.pipelined_s < pred.additive_s:
+            failed.append(f"pipelined {pred.pipelined_s:.2e} !< additive "
+                          f"{pred.additive_s:.2e}")
+        if not plan_pipe < plan_none:
+            failed.append("planner sees no pipelined win")
+        if max(err_none, err_pipe) >= PLANNER_TOL_PCT:
+            failed.append(f"planner round time {max(err_none, err_pipe):.2f}"
+                          f"% off the roofline prediction (bar "
+                          f"{PLANNER_TOL_PCT}%)")
+        ov = none_overhead["delta_pct"]
+        if ov >= NONE_OVERHEAD_PCT:
+            failed.append(f"overlap='none' costs {ov:.2f}% of dispatch "
+                          f"throughput (>= {NONE_OVERHEAD_PCT}% bar)")
+        if failed:
+            raise SystemExit("check failed: " + "; ".join(failed))
+        print(f"check OK: pipelined {pred.speedup:.2f}x additive on the "
+              f"deployment clock, planner within {PLANNER_TOL_PCT}%, "
+              f"none-knob overhead {ov:+.2f}% < {NONE_OVERHEAD_PCT}%, no "
+              "build or capture after the warmup")
+    return payload
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,8 @@
 """Per-round dispatch overhead of the port: rounds one at a time against
 K-round supersteps of the ``RoundExecutor``.
 
-The port of ``benchmarks/bench_round_overhead.py``'s executor measurements
-(its ``--arch`` LM measurement is still to port, ROADMAP.md item 10).
-Three measurements (``--measure``):
+The port of ``benchmarks/bench_round_overhead.py``'s executor
+measurements. Four measurements (``--measure``):
 
   * ``cnn`` (default): the paper's CIFAR CNN at full width on a 10-node
     ring; the device's work per round is large, so it shows what the
@@ -22,6 +21,17 @@ Three measurements (``--measure``):
     cyclic garbage collector off in the timed loop, as the reference's;
     neither executor may build or capture after its warmup. ``--check``
     holds the throughput loss under 2%.
+  * ``reduced_arch``: the reference's LM measurement, an architecture's
+    reduced transformer (``--arch``, default Qwen3-1.7B) on an ``--nodes``
+    ring (8), ``--batch`` 1 sequence of ``--seq`` 32 tokens a node a step,
+    ``sgd(3e-2)``, schedule (``--tau1``, ``--tau2``) = (2, 2) re-planned
+    to (``--replan-tau1``, ``--replan-tau2``) = (4, 1) at the superstep
+    boundary nearest half way, 20 rounds, supersteps of 10. Device work
+    dominates a round here, so the headline is the re-plan: legacy builds
+    a new round function, the executor none and captures nothing
+    (``zero_recompile_replan``, always asserted; ``--check`` also holds
+    it). ``--smoke`` runs the reference's micro transformer (2 layers,
+    d_model 32, vocab 64) at 8 tokens.
 
 Three strategies run the same schedule over the same batches, staged on
 the device before the clock starts:
@@ -46,12 +56,15 @@ dispatch (``torch.cuda.set_sync_debug_mode``), naming where each is made.
         [--compression top_k] [--rounds 24] [--superstep 6] [--device cuda]
     PYTHONPATH=src python -m repro_torch.benchmarks.bench_round_overhead \\
         --measure dispatch [--check] [--device cuda]
-    PYTHONPATH=src python -m repro_torch.benchmarks.bench_round_overhead \
+    PYTHONPATH=src python -m repro_torch.benchmarks.bench_round_overhead \\
         --measure telemetry [--check] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.benchmarks.bench_round_overhead \\
+        --measure reduced_arch [--smoke] [--check] [--device cuda]
 
 Writes ``results/repro_torch/bench_round_overhead.json`` (``cnn``),
-``bench_round_overhead_dispatch.json`` (``dispatch``) or
-``bench_round_overhead_telemetry.json`` (``telemetry``).
+``bench_round_overhead_dispatch.json`` (``dispatch``),
+``bench_round_overhead_telemetry.json`` (``telemetry``) or
+``bench_round_overhead_reduced_arch.json`` (``reduced_arch``).
 """
 from __future__ import annotations
 
@@ -157,6 +170,41 @@ def quad_setup(rounds: int = 20, tau1_max: int = 4, tau2_max: int = 2,
                                  .astype(np.float32)).to(dev),)
                for _ in range(rounds)]
     return Setup(cfg, loss_fn, opt, fresh, batches, tau1_max, tau2_max, dev)
+
+
+def lm_setup(cfg, rounds: int = 20, tau1_max: int = 4, tau2_max: int = 2,
+             nodes: int = 8, batch: int = 1, seq: int = 32, seed: int = 0,
+             device="cuda") -> Setup:
+    """The reference's ``reduced_arch`` testbed: the LM ``cfg`` on a
+    ``nodes``-node ring, ``sgd(3e-2)``, every node from one set of weights
+    (a CPU generator seeded ``seed``), ``batch`` random sequences of
+    ``seq`` tokens a node a step; a round's batches are (tokens, labels)."""
+    from repro_torch.models import init_params, train_loss
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    opt = sgd(3e-2)
+
+    def dfl_cfg(t1: int, t2: int) -> DFLConfig:
+        return DFLConfig(tau1=t1, tau2=t2, topology=ring(nodes))
+
+    def loss_fn(params, b):
+        return train_loss(params, {"tokens": b[0], "labels": b[1]}, cfg)
+
+    params0, _ = init_params(cfg, torch.Generator().manual_seed(seed), dev)
+
+    def fresh():
+        return init_state(params0, nodes, opt, seed=seed)
+
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (rounds, tau1_max, nodes, batch, seq + 1),
+        dtype=np.int32)
+    batches = [(torch.from_numpy(toks[r, ..., :-1].copy()).to(dev),
+                torch.from_numpy(toks[r, ..., 1:].copy()).to(dev))
+               for r in range(rounds)]
+    return Setup(dfl_cfg, loss_fn, opt, fresh, batches, tau1_max, tau2_max,
+                 dev)
 
 
 def replan_schedule(rounds: int, superstep: int, first=(4, 4),
@@ -365,7 +413,7 @@ def bench_telemetry(s: Setup, superstep: int, rounds: int, passes: int = 24
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--measure", default="cnn",
-                    choices=("cnn", "dispatch", "telemetry"))
+                    choices=("cnn", "dispatch", "telemetry", "reduced_arch"))
     ap.add_argument("--compression", default="", choices=("", "top_k"))
     ap.add_argument("--rounds", type=int, default=None,
                     help="cnn: 24; dispatch: 20")
@@ -377,7 +425,23 @@ def main(argv=None) -> Dict:
     ap.add_argument("--flavor", default="cifar", choices=("mnist", "cifar"))
     ap.add_argument("--check", action="store_true",
                     help="dispatch: assert superstep >= 2x legacy rounds/s; "
-                         "telemetry: assert the sink costs < 2%%")
+                         "telemetry: assert the sink costs < 2%%; "
+                         "reduced_arch: assert no build or capture on the "
+                         "re-plan")
+    ap.add_argument("--arch", default="qwen3-1.7b",
+                    help="reduced_arch: the architecture")
+    ap.add_argument("--nodes", type=int, default=8,
+                    help="reduced_arch: ring nodes")
+    ap.add_argument("--tau1", type=int, default=2)
+    ap.add_argument("--tau2", type=int, default=2)
+    ap.add_argument("--replan-tau1", type=int, default=4)
+    ap.add_argument("--replan-tau2", type=int, default=1)
+    ap.add_argument("--batch", type=int, default=1,
+                    help="reduced_arch: sequences a node a step")
+    ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced_arch: the micro transformer at 8 tokens "
+                         "(the CI config)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
@@ -385,8 +449,11 @@ def main(argv=None) -> Dict:
         return main_dispatch(a)
     if a.measure == "telemetry":
         return main_telemetry(a)
+    if a.measure == "reduced_arch":
+        return main_reduced_arch(a)
     if a.check:
-        ap.error("--check applies to --measure dispatch and telemetry")
+        ap.error("--check applies to --measure dispatch, telemetry and "
+                 "reduced_arch")
     a.rounds = 24 if a.rounds is None else a.rounds
     a.superstep = 6 if a.superstep is None else a.superstep
     a.out = a.out or "bench_round_overhead"
@@ -491,6 +558,59 @@ def main_telemetry(a) -> Dict:
         print(f"check OK: telemetry overhead {out['overhead_pct']:+.2f}% < "
               "2%, no build or capture after the warmup")
     return out
+
+
+def main_reduced_arch(a) -> Dict:
+    """``--measure reduced_arch``: the reference's LM measurement across
+    the mid-run re-plan, the three strategies over the same batches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import reduced_from
+
+    rounds = 20 if a.rounds is None else a.rounds
+    superstep = 10 if a.superstep is None else a.superstep
+    arch = get_arch(a.arch)
+    cfg, seq = arch.reduced, a.seq
+    if a.smoke:     # the reference's micro transformer
+        cfg = reduced_from(arch.model, d_model=32, d_ff=64, num_layers=2,
+                           num_heads=2, num_kv_heads=1, head_dim=16,
+                           vocab_size=64, attn_q_chunk=8, attn_kv_chunk=8,
+                           loss_seq_chunk=8)
+        seq = min(seq, 8)
+    first, second = (a.tau1, a.tau2), (a.replan_tau1, a.replan_tau2)
+    s = lm_setup(cfg, rounds, tau1_max=max(a.tau1, a.replan_tau1),
+                 tau2_max=max(a.tau2, a.replan_tau2), nodes=a.nodes,
+                 batch=a.batch, seq=seq, device=a.device)
+    schedule = replan_schedule(rounds, superstep, first, second)
+    out = bench(s, schedule, superstep)     # raises on a build after warmup
+    rps = {mode: 1e3 / out[mode]["ms_per_round"]
+           for mode in ("legacy", "executor_round", "executor_superstep")}
+    replan = schedule.index(second) if second in schedule else None
+    result = {"reduced_arch": out, "rounds_per_s": rps,
+              "speedup_superstep_vs_legacy": (rps["executor_superstep"]
+                                              / rps["legacy"]),
+              "zero_recompile_replan": True,
+              "config": {"measure": "reduced_arch", "arch": cfg.name,
+                         "nodes": a.nodes, "rounds": rounds,
+                         "superstep": superstep,
+                         "schedule": [list(first), list(second)],
+                         "replan_round": replan, "batch": a.batch,
+                         "seq": seq, "smoke": a.smoke,
+                         "device": str(s.device),
+                         "device_name": (torch.cuda.get_device_name(s.device)
+                                         if s.device.type == "cuda"
+                                         else "cpu")}}
+    legacy = out["legacy"]
+    print(f"[reduced/{cfg.name}] legacy {rps['legacy']:.2f} r/s ("
+          f"{legacy['builds']} builds, re-plan round "
+          f"{max(legacy['build_round_ms'][1:], default=0.0):.1f} ms) | K=1 "
+          f"{rps['executor_round']:.2f} r/s | K={superstep} "
+          f"{rps['executor_superstep']:.2f} r/s; no build or capture after "
+          "the warmup across the re-plan")
+    print(f"wrote "
+          f"{save_result(a.out or 'bench_round_overhead_reduced_arch', result)}")
+    if a.check:
+        print("check OK: zero builds and captures on the re-plan")
+    return result
 
 
 if __name__ == "__main__":

@@ -45,9 +45,20 @@ import torch.distributed as dist
 from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 
-__all__ = ["NodeGroup", "backend_for", "local_rows", "spawn"]
+__all__ = ["NodeGroup", "backend_for", "local_rows", "pack_layout", "spawn"]
 
 _ALIGN = 16  # bytes: every leaf of a packed exchange starts 16-byte aligned
+
+
+def pack_layout(leaves: Sequence[torch.Tensor]) -> Tuple[List[int], int]:
+    """Where each leaf starts in ``shift_exchange``'s packed byte buffer,
+    and the buffer's size: the leaves in order, each padded to a multiple
+    of 16 bytes."""
+    offsets, total = [], 0
+    for x in leaves:
+        offsets.append(total)
+        total += -(-x.numel() * x.element_size() // _ALIGN) * _ALIGN
+    return offsets, total
 
 
 class NodeGroup:
@@ -66,8 +77,11 @@ class NodeGroup:
         # host staging is the gloo backend's on a CUDA device
         self.staged = backend == "gloo" and self.device.type == "cuda"
         # seconds the exchanges took (host clock, waits for the device
-        # included), for the callers' reports
+        # included) and the bytes this node sent in them (the packed
+        # buffer, once a shift), for the callers' reports and the roofline's
+        # collective term (``launch.roofline``)
         self.exchange_s = 0.0
+        self.exchange_bytes = 0
 
     @classmethod
     def current(cls, device) -> "NodeGroup":
@@ -101,10 +115,7 @@ class NodeGroup:
         travels as one packed byte buffer a shift, each leaf 16-byte
         aligned in it."""
         t0 = time.perf_counter()
-        offsets, total = [], 0
-        for x in leaves:
-            offsets.append(total)
-            total += -(-x.numel() * x.element_size() // _ALIGN) * _ALIGN
+        offsets, total = pack_layout(leaves)
         send = torch.empty(total, dtype=torch.uint8, device=self.device)
         for x, at in zip(leaves, offsets):
             nb = x.numel() * x.element_size()
@@ -123,6 +134,7 @@ class NodeGroup:
                 req.wait()
         recv = self._home(recv)
         self.exchange_s += time.perf_counter() - t0
+        self.exchange_bytes += total * len(shifts)
         out = []
         for x, at in zip(leaves, offsets):
             nb = x.numel() * x.element_size()

@@ -1,16 +1,90 @@
-"""Step builders of the launcher: the part the train CLI needs.
+"""Builders of the launcher: unit steps, their roofline counts, and the
+planned DFL round.
 
-Ported from ``repro.launch.steps``: ``kernelize_compressor`` only. The
-builders for lowering and the roofline wait for the roofline analogue and
-telemetry (ROADMAP.md items 5 and 9).
+Ported from ``repro.launch.steps``. The reference builds jitted functions
+with abstract arguments and lowers them; the port builds callables that
+run on the device (``Built``: ``fn(*args)``), from the same machinery the
+train CLI uses (``core.dfl`` / ``RoundExecutor``), so a round on the card
+launches the kernels: K1 for a plain gossip step, K4 + K3 under TopK, K2
+under QSGD. Where the reference takes a mesh, the port takes ``nodes``:
+an int (every node stacked ``[N, ...]`` on one device, the dense engine),
+or this rank's ``core.sharded.NodeGroup`` (one node a process, the sparse
+engine). No mesh builder is ported (ROADMAP.md item 12).
+
+  * ``build_local_step``  ONE local SGD step on all of a device's nodes:
+                          the roofline's compute unit.
+  * ``build_gossip_step`` ONE gossip step (or CHOCO-G iteration): the
+                          collective unit.
+  * ``roofline_cost_inputs`` the planner's MEASURED cost inputs: the local
+                          step counted on ``meta`` tensors
+                          (``launch.roofline.analyze_step``), and the bytes
+                          a gossip step exchanges.
+  * ``plan_train_schedule`` (tau1, tau2) from ``planner.plan``, priced
+                          analytically or from those counts.
+  * ``build_train_round`` / ``build_planned_round`` the round on the
+                          executor, at given or planned (tau1, tau2).
+
+As in the reference, rounds compose analytically from unit steps: round =
+tau1 * local + tau2 * gossip. Model and batch come from the architecture
+and the input shape (``configs.base.SHAPES``); ``cfg=``, ``batch=`` (a
+node's batch) and ``seq=`` override them, so any ``ModelConfig`` can be
+priced at any size. A reduced config at a shape's own sequence length
+counts slowly: its attention chunks of 16 are a Python loop each.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.configs.base import SHAPES, ArchConfig
+from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.compression import Compressor
+from repro_torch.core.dfl import DFLConfig, gossip_phase, init_state, replicate
+from repro_torch.core.executor import RoundExecutor, stack_round_batches
+from repro_torch.core.rng import GeneratorDraws
+from repro_torch.core.sharded import NodeGroup, local_rows
+from repro_torch.core.substrate import DenseSubstrate, ShardedSubstrate
+from repro_torch.core.topology import fully_connected, ring, torus
+from repro_torch.data.lm import SyntheticLM, lm_batches_for_dfl
+from repro_torch.device import resolve_device
+from repro_torch.launch import roofline as roof_lib
+from repro_torch.models import ModelConfig, init_params, train_loss
+from repro_torch.optim import sgd
 
-__all__ = ["kernelize_compressor"]
+__all__ = ["Built", "kernelize_compressor", "build_local_step",
+           "build_gossip_step", "roofline_cost_inputs", "plan_train_schedule",
+           "build_train_round", "build_planned_round"]
+
+Nodes = Union[int, NodeGroup]
+
+
+@dataclasses.dataclass
+class Built:
+    """A callable that runs on the device, with its arguments: ``fn(*args)``
+    (``run()``). ``meta`` describes it (``kind``, ``arch``, ``shape``,
+    ``nodes``, and for a round ``tau1``, ``tau2`` and, when planned,
+    ``plan``); a round's ``executor`` is the ``RoundExecutor`` it
+    dispatches through, which ``warmup()`` builds and captures first, and
+    each ``run()`` of a round carries its state on to the next."""
+
+    fn: Callable
+    args: Tuple
+    meta: Dict[str, Any]
+    executor: Optional[RoundExecutor] = None
+
+    def run(self):
+        out = self.fn(*self.args)
+        if self.executor is not None:
+            self.args = (out[0],) + tuple(self.args[1:])
+        return out
+
+    def warmup(self) -> None:
+        if self.executor is not None:
+            self.executor.warmup(*self.args)
 
 
 def kernelize_compressor(compression: Optional[Compressor],
@@ -22,3 +96,391 @@ def kernelize_compressor(compression: Optional[Compressor],
     and the compressor comes back as it is."""
     del use_kernels
     return compression
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces
+# ---------------------------------------------------------------------------
+
+
+def _split(nodes: Nodes) -> Tuple[int, Optional[NodeGroup]]:
+    """(N, the group or None) of a ``nodes`` argument."""
+    if isinstance(nodes, NodeGroup):
+        return nodes.world, nodes
+    return int(nodes), None
+
+
+def _topology(n: int, topology: str):
+    """The reference's ``dfl_setup`` graph: fully connected on one node."""
+    if n == 1:
+        return fully_connected(1)
+    return {
+        "ring": ring,
+        "full": fully_connected,
+        "torus": lambda k: torus(2, k // 2) if k >= 4 else ring(k),
+    }[topology](n)
+
+
+def _model(arch: ArchConfig, reduced: bool,
+           cfg: Optional[ModelConfig]) -> ModelConfig:
+    if cfg is not None:
+        return cfg
+    return arch.reduced if reduced else arch.model
+
+
+def _batch_shape(arch: ArchConfig, shape_name: str, n: int,
+                 batch: Optional[int], seq: Optional[int]) -> Tuple[int, int]:
+    """(a node's batch, sequence length): the shape's global batch split
+    over the nodes, as the reference's ``_abstract_batch``, unless
+    overridden."""
+    shape = SHAPES[shape_name]
+    per_node = shape.global_batch // n if batch is None else batch
+    if per_node < 1:
+        raise ValueError(f"{arch.arch_id}/{shape_name}: global batch "
+                         f"{shape.global_batch} < {n} nodes")
+    return per_node, shape.seq_len if seq is None else seq
+
+
+def _loss(cfg: ModelConfig) -> Callable:
+    def loss_fn(p, b):
+        return train_loss(p, b, cfg)
+    return loss_fn
+
+
+def _memory(cfg: ModelConfig, lead: Tuple[int, ...], r: int) -> np.ndarray:
+    """The stub frontend embeddings of a model with a memory input, as the
+    train CLI makes them."""
+    m = cfg.memory_tokens or 16
+    return np.random.default_rng(1000 + r).standard_normal(
+        lead + (m, cfg.memory_dim or cfg.d_model), dtype=np.float32)
+
+
+def _params(cfg: ModelConfig, dev: torch.device,
+            generator: Optional[torch.Generator]):
+    """One model's initial weights on ``dev`` (``meta``: shapes only)."""
+    if dev.type == "meta":
+        return init_params(cfg, None, dev, abstract=True)[0]
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return init_params(cfg, generator, dev)[0]
+
+
+# ---------------------------------------------------------------------------
+# Unit steps and their counts
+# ---------------------------------------------------------------------------
+
+
+def build_local_step(arch: ArchConfig, shape_name: str, nodes: Nodes = 1, *,
+                     lr: float = 1e-3, reduced: bool = False,
+                     cfg: Optional[ModelConfig] = None,
+                     batch: Optional[int] = None, seq: Optional[int] = None,
+                     device="cuda",
+                     generator: Optional[torch.Generator] = None) -> Built:
+    """ONE local SGD step on all of this device's nodes (N stacked, or a
+    group's one): ``fn(params, opt_state, batch) -> (params', opt_state',
+    mean loss)``, each node's gradient by ``vmap(grad)`` as in the round.
+    ``device="meta"`` gives shape-only arguments, for counting."""
+    model = _model(arch, reduced, cfg)
+    n, group = _split(nodes)
+    rows = 1 if group is not None else n
+    b, s = _batch_shape(arch, shape_name, n, batch, seq)
+    if str(device) == "meta":
+        dev = torch.device("meta")
+    else:
+        dev = group.device if group is not None else resolve_device(device)
+    opt = sgd(lr)
+    params = replicate(_params(model, dev, generator), rows)
+    lead = (rows, b)
+    if dev.type == "meta":
+        data = {k: torch.empty(lead + (s,), dtype=torch.int32, device=dev)
+                for k in ("tokens", "labels")}
+        if model.has_memory_input:
+            data["memory"] = torch.empty(
+                lead + (model.memory_tokens or 16,
+                        model.memory_dim or model.d_model), device=dev)
+    else:
+        corpus = SyntheticLM(vocab_size=model.vocab_size, num_nodes=n)
+        host = lm_batches_for_dfl(corpus, 1, n, b, s, 0)
+        host = {k: v[0, group.rank:group.rank + 1] if group is not None
+                else v[0] for k, v in host.items()}
+        if model.has_memory_input:
+            host["memory"] = _memory(model, lead, 0)
+        data = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    loss_fn = _loss(model)
+
+    def local_step(params, opt_state, batch):
+        grads, losses = vmap(grad_and_value(loss_fn))(params, batch)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
+        return params, opt_state, torch.mean(losses)
+
+    return Built(local_step, (params, opt.init(params), data), {
+        "kind": "local", "arch": arch.arch_id, "shape": shape_name,
+        "model": model.name, "nodes": n, "rows": rows, "batch": b,
+        "seq": s, "device": str(dev)})
+
+
+def build_gossip_step(arch: ArchConfig, nodes: Nodes = 1, *,
+                      topology: str = "ring",
+                      compression: Optional[Compressor] = None,
+                      reduced: bool = False,
+                      cfg: Optional[ModelConfig] = None, device="cuda",
+                      generator: Optional[torch.Generator] = None) -> Built:
+    """ONE gossip step over the stacked parameters (plain: ``fn(params)``),
+    or one CHOCO-G iteration (``fn(params, hat)``), through the round's own
+    ``gossip_phase`` on the dense substrate or the group's sharded one."""
+    model = _model(arch, reduced, cfg)
+    n, group = _split(nodes)
+    dev = group.device if group is not None else resolve_device(device)
+    dcfg = DFLConfig(tau1=1, tau2=1, topology=_topology(n, topology),
+                     compression=compression)
+    if group is not None:
+        sub = ShardedSubstrate(dcfg.topology, group)
+        rows = 1
+    else:
+        sub = DenseSubstrate(dcfg.topology)
+        rows = n
+    params = replicate(_params(model, dev, generator), rows)
+
+    if compression is None:
+        def gossip_step(params):
+            return gossip_phase(dcfg, sub, params, None)[0]
+        args = (params,)
+    else:
+        draws = GeneratorDraws(1, n, params.keys(), dev)
+
+        def gossip_step(params, hat):
+            return gossip_phase(dcfg, sub, params, hat, draws)
+        args = (params, {k: torch.zeros_like(v) for k, v in params.items()})
+    return Built(gossip_step, args, {
+        "kind": "gossip", "arch": arch.arch_id, "model": model.name,
+        "nodes": n, "rows": rows, "topology": dcfg.topology.name,
+        "compressed": compression is not None, "device": str(dev)})
+
+
+def roofline_cost_inputs(arch: ArchConfig, shape_name: str,
+                         nodes: Nodes = 1, *, topology: str = "ring",
+                         reduced: bool = False,
+                         cfg: Optional[ModelConfig] = None,
+                         batch: Optional[int] = None,
+                         seq: Optional[int] = None) -> Dict[str, float]:
+    """MEASURED planner cost inputs, the reference's keys and contract.
+
+    ``step_flops``: ONE node's local step, counted by
+    ``roofline.analyze_step`` over ``build_local_step`` on ``meta`` tensors
+    (so nothing is allocated, and the count is the same on any host) and
+    divided by the device's node count: the ``ComputeModel.step_flops``
+    contract. ``step_hbm_bytes``: the device's local step's eager operand
+    and result bytes (``roofline.ByteCounter``). ``gossip_collective_bytes``:
+    the bytes one node sends in one gossip step. On the dense engine one
+    device holds every node and nothing crosses a process: 0.0, and
+    ``plan_train_schedule`` then falls back to the analytic wire size, as
+    the reference does on a one-device host mesh. On a ``NodeGroup`` one
+    gossip step runs (every rank must call this) and the group's
+    ``exchange_bytes`` counter reads what it packed and sent."""
+    n, group = _split(nodes)
+    local = build_local_step(arch, shape_name, nodes, reduced=reduced,
+                             cfg=cfg, batch=batch, seq=seq, device="meta")
+    la = roof_lib.analyze_step(local.fn, *local.args)
+    sent = 0.0
+    if group is not None:
+        gossip = build_gossip_step(arch, group, topology=topology,
+                                   reduced=reduced, cfg=cfg)
+        before = group.exchange_bytes
+        gossip.run()
+        sent = float(group.exchange_bytes - before)
+    return {
+        "step_flops": la["flops"] / local.meta["rows"],
+        "step_hbm_bytes": la["bytes"],
+        "gossip_collective_bytes": sent,
+        "nodes": n,
+    }
+
+
+# ---------------------------------------------------------------------------
+# The planned round
+# ---------------------------------------------------------------------------
+
+
+def plan_train_schedule(
+    arch: ArchConfig,
+    shape_name: str,
+    nodes: Nodes = 1,
+    *,
+    budget_s: float,
+    topology: str = "ring",
+    compression: Optional[Compressor] = None,
+    flops_per_s: Optional[float] = None,
+    link_bytes_per_s: Optional[float] = None,
+    sigma: float = 1.0,
+    f_gap: float = 1.0,
+    reduced: bool = False,
+    grid=None,
+    wire_engine: str = "auto",
+    use_roofline: bool = False,
+    cfg: Optional[ModelConfig] = None,
+    batch: Optional[int] = None,
+    seq: Optional[int] = None,
+):
+    """Pick (tau1, tau2) for an (arch, shape, nodes) deployment with the
+    planner (``repro_torch.planner``) before building anything.
+
+    By default the compute side is priced analytically, 6 * params *
+    tokens FLOPs a local step a node at the card's bf16 peak
+    (``roofline.PEAK_FLOPS_BF16``), and the gossip side from the model's
+    fp32 wire size over one NVLink direction
+    (``roofline.NVLINK_BYTES_PER_S``). With ``use_roofline=True`` both sides
+    come from ``roofline_cost_inputs`` instead: the local step's counted
+    FLOPs a node, and the gossip step's exchanged bytes folded back into an
+    effective per-copy wire size (falling back to the analytic size when
+    nothing was exchanged, the dense engine, or when a ``compression`` is
+    set, since the planner derives the compressor's model_dim from
+    model_bits). Returns the planner's ``Plan``; ``build_planned_round``
+    turns it into a round."""
+    from repro_torch.planner import (Budget, ComputeModel, CostModel,
+                                     LinkModel, plan)
+
+    model = _model(arch, reduced, cfg)
+    shape = SHAPES[shape_name]
+    n, _ = _split(nodes)
+    topo = _topology(n, topology)
+    params = model.param_count()
+    if batch is None:
+        tokens_per_node = (shape.global_batch * (seq or shape.seq_len)
+                           / max(n, 1))
+    else:
+        tokens_per_node = float(batch * (seq or shape.seq_len))
+    step_flops = 6.0 * params * tokens_per_node
+    model_bits = 32.0 * params
+    if use_roofline:
+        measured = roofline_cost_inputs(arch, shape_name, nodes,
+                                        topology=topology, reduced=reduced,
+                                        cfg=cfg, batch=batch, seq=seq)
+        step_flops = measured["step_flops"]
+        copies = mixing_lib.gossip_copies_per_step(topo, wire_engine)
+        if (measured["gossip_collective_bytes"] > 0.0 and copies > 0
+                and compression is None):
+            # what one gossip step really sends, spread over the engine's
+            # copy count, so round_cost's copies * model_bits reproduces it
+            model_bits = (8.0 * measured["gossip_collective_bytes"]
+                          / copies)
+    cost_model = CostModel(
+        compute=ComputeModel(
+            step_flops=step_flops,
+            flops_per_s=flops_per_s or roof_lib.PEAK_FLOPS_BF16),
+        link=LinkModel(
+            bytes_per_s=link_bytes_per_s or roof_lib.NVLINK_BYTES_PER_S),
+        topology=topo,
+        model_bits=model_bits,
+        engine=wire_engine)
+    kw = dict(sigma=sigma, f_gap=f_gap)
+    if grid is not None:
+        kw["grid"] = grid
+    if compression is not None:
+        kw["compressors"] = (compression,)
+    return plan(Budget(wall_clock_s=budget_s), cost_model, **kw)
+
+
+def build_train_round(
+    arch: ArchConfig,
+    shape_name: str,
+    nodes: Nodes = 1,
+    *,
+    tau1: int = 4,
+    tau2: int = 4,
+    compression: Optional[Compressor] = None,
+    mixing_impl: str = "dense",
+    topology: str = "ring",
+    lr: float = 1e-3,
+    reduced: bool = False,
+    rounds: int = 1,
+    cfg: Optional[ModelConfig] = None,
+    batch: Optional[int] = None,
+    seq: Optional[int] = None,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+) -> Built:
+    """DFL rounds at (tau1, tau2) on a ``RoundExecutor``, as the train CLI
+    runs them: ``fn(state, batches) -> (state', metrics)`` dispatches the
+    ``rounds`` rounds of ``batches`` (``[rounds, tau1, N, B, S]`` tokens of
+    the synthetic corpus, ``data.lm``) as one superstep, the state kept in
+    place. Every node starts from one model (``generator``, default a CPU
+    generator seeded 0), SGD at ``lr``, the seam drawing from seed 1. On
+    the card the executor replays CUDA graphs captured in ``warmup()``."""
+    model = _model(arch, reduced, cfg)
+    n, group = _split(nodes)
+    b, s = _batch_shape(arch, shape_name, n, batch, seq)
+    dev = group.device if group is not None else resolve_device(device)
+    dcfg = DFLConfig(tau1=tau1, tau2=tau2, topology=_topology(n, topology),
+                     mixing_impl=mixing_impl, compression=compression)
+    opt = sgd(lr)
+    params0 = _params(model, dev, generator)
+    state = init_state(params0, 1 if group is not None else n, opt,
+                       compressed=compression is not None, seed=1,
+                       draws=GeneratorDraws(1, n, params0.keys(), dev))
+    del params0
+    corpus = SyntheticLM(vocab_size=model.vocab_size, num_nodes=n)
+    host = []
+    for r in range(rounds):
+        one = dict(lm_batches_for_dfl(corpus, tau1, n, b, s, r))
+        if model.has_memory_input:
+            one["memory"] = _memory(model, (tau1, n, b), r)
+        host.append(one)
+    batches = stack_round_batches(host, tau1, dev)
+    if group is not None:
+        batches = local_rows(batches, group, axis=2)
+    engine = "sparse" if group is not None else "dense"
+    executor = RoundExecutor(dcfg, _loss(model), opt, engine=engine,
+                             dynamic=mixing_impl != "dense_power",
+                             group=group)
+
+    def round_fn(state, batches):
+        return executor.dispatch(state, batches, tau1, tau2)
+
+    return Built(round_fn, (state, batches), {
+        "kind": "round", "arch": arch.arch_id, "shape": shape_name,
+        "model": model.name, "nodes": n, "tau1": tau1, "tau2": tau2,
+        "rounds": rounds, "batch": b, "seq": s, "mixing": mixing_impl,
+        "engine": engine, "compressed": compression is not None,
+        "device": str(dev)}, executor=executor)
+
+
+def build_planned_round(
+    arch: ArchConfig,
+    shape_name: str,
+    nodes: Nodes = 1,
+    *,
+    budget_s: float,
+    topology: str = "ring",
+    compression: Optional[Compressor] = None,
+    reduced: bool = False,
+    cfg: Optional[ModelConfig] = None,
+    batch: Optional[int] = None,
+    seq: Optional[int] = None,
+    rounds: int = 1,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+    **plan_kw,
+) -> Built:
+    """``build_train_round`` with (tau1, tau2) chosen by the planner; the
+    chosen Plan's knobs and prediction land in ``meta["plan"]``, under the
+    reference's keys."""
+    p = plan_train_schedule(
+        arch, shape_name, nodes, budget_s=budget_s, topology=topology,
+        compression=compression, reduced=reduced, cfg=cfg, batch=batch,
+        seq=seq, **plan_kw)
+    built = build_train_round(
+        arch, shape_name, nodes, tau1=p.tau1, tau2=p.tau2,
+        compression=p.compressor, topology=topology, reduced=reduced,
+        rounds=rounds, cfg=cfg, batch=batch, seq=seq, device=device,
+        generator=generator)
+    built.meta["plan"] = {
+        "tau1": p.tau1, "tau2": p.tau2, "eta": p.eta,
+        "compressor": p.compressor_name, "rounds": p.rounds,
+        "predicted_bound": p.predicted_bound,
+        "round_time_s": p.round_cost.time_s,
+        "round_wire_bits": p.round_cost.wire_bits,
+        "budget_s": budget_s,
+        "use_roofline": bool(plan_kw.get("use_roofline", False)),
+    }
+    return built

@@ -9,6 +9,29 @@ trajectory lands within 1e-5 of the reference's final loss (the same numpy
 noise in the batches; f32 arithmetic on both); ``--smoke --check`` passes
 with its JSON in a temporary directory. ``bench_balance`` at 2 rounds
 records the reference's planned pick for every ratio.
+
+The launch benches and the LM example, on the CPU:
+  * ``bench_overlap --smoke`` on 8 gloo ranks, one spawn under its own
+    time limit, with ``--check``'s conditions but its wall-clock bar
+    asserted here: a gossip step's exchanged bytes are the ring's two
+    shifts of the packed ``w``, the config gossip-dominated, pipelined
+    under additive, the planner's max-form round times equal to the
+    roofline prediction (bar 1%; they agree to 1e-9 %), no executor builds
+    or captures after its warmup. The CPU's eager local step costs more an
+    element than the wire at the default 2 GB/s, so the test models a 20
+    MB/s link at the reference's 16,384 floats to stay in the
+    gossip-dominated regime (the bench's docstring). ``none_overhead``'s
+    2% wall-clock bar is held on the card (``chip_smoke.py`` phase 15),
+    as the dispatch measurement's 2x bar is: it reads two runs of one code
+    path, and 8 ranks sharing the host's cores with the test run's other
+    workers read up to 11% of noise.
+  * ``bench_round_overhead --measure reduced_arch --smoke --check``: no
+    build or capture on the re-plan; legacy builds twice.
+  * ``examples/train_lm.py``'s ``main`` at a narrow width (2 layers, d 32,
+    vocab 64, 2 nodes, 3 rounds of tau (2, 2), batch 2 x 8 tokens) against the reference example's
+    public-API sequence on the same weights (``convert.params_from_jax``):
+    losses to the LM contract's f32 rtol 1e-6 (ROADMAP.md, "The LM zoo");
+    a checkpoint is written every ``CKPT_EVERY`` rounds and restores.
 """
 import json
 import math
@@ -16,6 +39,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import benchmarks.bench_balance as jbb
 import benchmarks.bench_trajectory as jbt
@@ -123,3 +147,104 @@ def test_run_py_runs_theory(capsys):
     assert {"theory", "balance"} <= set(trun.BENCHES)
     trun.main(["--only", "theory", "--device", "cpu"])
     assert "all bounds hold" in capsys.readouterr().out
+
+
+def test_bench_overlap_smoke_on_cpu(tmp_path):
+    from repro_torch.benchmarks import bench_overlap as bo
+
+    payload = bo.main(["--smoke", "--device", "cpu", "--dim", "16384",
+                       "--link-bw", "2e7", "--rounds", "2", "--passes", "4",
+                       "--timeout", "150", "--out", str(tmp_path / "bo")])
+    assert json.loads((tmp_path / "bo.json").read_text()) == payload
+    m = payload["measured"]
+    assert m["shifts"] == 2 and m["packed_bytes_per_shift"] == 16384 * 4
+    assert m["wire_bytes_per_gossip_step"] == 2 * 16384 * 4
+    assert m["t_step_s"] > 1e-6
+    assert m["gossip_dominated"]
+    dep, plan = payload["deployment"], payload["planner"]
+    assert dep["pipelined_s"] < dep["additive_s"]
+    assert plan["pipelined_round_s"] < plan["additive_round_s"]
+    assert max(plan["err_vs_roofline_pct"].values()) < 1e-9
+    assert payload["zero_recompiles"]
+    assert payload["builds_captures"]["after"] == \
+        payload["builds_captures"]["warm"]
+    assert payload["none_overhead"]["pairs"] == bo.NONE_OVERHEAD_PAIRS
+    assert payload["pipeline_wall"]["pairs"] == 4
+    assert bo.PLANNER_TOL_PCT == 1.0 and bo.N == 8
+
+
+def test_reduced_arch_smoke_check_on_cpu(tmp_path):
+    from repro_torch.benchmarks import bench_round_overhead as bro
+
+    out = bro.main(["--measure", "reduced_arch", "--smoke", "--check",
+                    "--nodes", "4", "--rounds", "4", "--superstep", "2",
+                    "--device", "cpu", "--out", str(tmp_path / "ra")])
+    ra = out["reduced_arch"]
+    assert out["zero_recompile_replan"]
+    assert ra["executor_round"]["builds_after_warmup"] == 0
+    assert ra["executor_superstep"]["builds_after_warmup"] == 0
+    assert ra["legacy"]["builds"] == 2          # the first, the re-plan's
+    cfg = out["config"]
+    assert (cfg["nodes"], cfg["schedule"], cfg["replan_round"],
+            cfg["seq"]) == (4, [[2, 2], [4, 1]], 2, 8)
+    assert json.loads((tmp_path / "ra.json").read_text())["config"] == cfg
+
+
+def test_train_lm_equals_reference_sequence(tmp_path, monkeypatch):
+    import jax
+
+    from repro.core import init_state as jinit_state
+    from repro.core import make_round_fn as jmake_round_fn
+    from repro.data.lm import SyntheticLM as JSyntheticLM
+    from repro.data.lm import lm_batches_for_dfl as jlm_batches_for_dfl
+    from repro.models import ModelConfig as JModelConfig
+    from repro.models import init_params as jinit_params
+    from repro.models import train_loss as jtrain_loss
+    from repro.optim import adamw as jadamw
+    from repro.optim import warmup_cosine as jwarmup_cosine
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.convert import params_from_jax
+    from repro_torch.examples import train_lm
+    from repro_torch.models import ModelConfig
+
+    kw = dict(name="qwen3-narrow", arch_type="dense", num_layers=2,
+              d_model=32, num_heads=2, num_kv_heads=1, head_dim=16, d_ff=64,
+              vocab_size=64, qk_norm=True, attn_q_chunk=8, attn_kv_chunk=8,
+              loss_seq_chunk=8, remat=False)
+    jcfg = JModelConfig(dtype=jnp.float32, **kw)
+    nodes, tau1, tau2, batch, seq, rounds = 2, 2, 2, 2, 8, 3
+    # the reference example's sequence, at this width
+    params, _ = jinit_params(jcfg, jax.random.key(0))
+    total = rounds * tau1
+    opt = jadamw(jwarmup_cosine(3e-4, warmup_steps=total // 20,
+                                total_steps=total))
+    corpus = JSyntheticLM(vocab_size=jcfg.vocab_size, num_nodes=nodes,
+                          noniid_alpha=0.5, branching=8)
+    state = jinit_state(params, nodes, opt, jax.random.key(1))
+    round_fn = jax.jit(jmake_round_fn(
+        JDFLConfig(tau1=tau1, tau2=tau2, topology=jring(nodes)),
+        lambda p, b, k: jtrain_loss(p, b, jcfg, k), opt))
+    want = []
+    for r in range(rounds):
+        state, m = round_fn(state, jlm_batches_for_dfl(
+            corpus, tau1, nodes, batch, seq, r))
+        want.append(float(m["loss"]))
+
+    monkeypatch.setattr(train_lm, "CKPT_EVERY", 2)
+    lines = []
+    rec = train_lm.main(
+        ["--rounds", str(rounds), "--nodes", str(nodes), "--tau1", str(tau1),
+         "--tau2", str(tau2), "--batch", str(batch), "--seq", str(seq),
+         "--ckpt", str(tmp_path)],
+        ModelConfig(dtype=torch.float32, **kw), device="cpu",
+        params=params_from_jax(jax.tree_util.tree_map(np.asarray, params),
+                               "cpu"),
+        log=lines.append)
+    np.testing.assert_allclose(rec["losses"], want, rtol=1e-6)
+    assert lines[0].startswith("model: qwen3-narrow")
+    assert lines[1].startswith("round    1/3 loss=")
+    got = rec["state"].params
+    restored, step = restore_checkpoint(str(tmp_path), got)
+    assert step == 2 and set(restored) == set(got)
+    assert train_lm.CFG.num_layers == 12 and train_lm.CFG.d_model == 768
+    assert train_lm.CFG.vocab_size == 32768

@@ -13,8 +13,12 @@ Tolerances, each with its reason:
     ulp from a boundary).
   * K = 1 against the legacy round: rtol 2e-6, the reference's own
     (``z + (g - z)`` is not ``g`` bitwise).
-The telemetry events (item 9) and ``stale_mixing_zeta`` /
-``predict_overlap`` (item 5) wait for their modules (ROADMAP.md).
+  * ``predict_overlap`` / ``OverlapPrediction`` against the reference's on
+    the same ``Roofline`` numbers (the reference's
+    ``test_predict_overlap_arithmetic`` cases): bitwise, pure float
+    arithmetic in both; ``stale_mixing_zeta`` against the reference's at
+    the same staleness, bitwise (numpy in both), with the reference's
+    assertions.
 """
 import jax
 import jax.numpy as jnp
@@ -464,3 +468,90 @@ def test_run_report_aggregates_overlap():
     assert rep["overlap"] == {"supersteps": 2, "mode": "pipeline",
                               "inflight_s": pytest.approx(0.4)}
     assert "overlap: mode=pipeline over 2 superstep(s)" in format_report(rep)
+
+
+# ---------------------------------------------------------------------------
+# roofline and staleness: the predicted win before a round runs
+# ---------------------------------------------------------------------------
+
+
+def _overlap_cases():
+    from repro.launch import roofline as jroof
+    from repro_torch.launch import roofline as roof
+
+    def rooflines(mod):
+        local = mod.Roofline(flops=2e12, hbm_bytes=1e9, collective_bytes=0.0,
+                             chips=8)
+        gossip = mod.Roofline(flops=0.0, hbm_bytes=0.0,
+                              collective_bytes=9e8, chips=8)
+        return local, gossip
+
+    return (roof, rooflines(roof)), (jroof, rooflines(jroof))
+
+
+@pytest.mark.parametrize("taus,override", [
+    ((4, 2), None), ((4, 2), 0.5), ((64, 1), None), ((2, 4), 1e-3),
+    ((3, 0), None)])
+def test_predict_overlap_equals_reference(taus, override):
+    """The same Roofline numbers (each package's own peak and link rates
+    given explicitly as the port's) give the reference's prediction
+    bitwise; ``analyze_step``-style dicts give the same as Rooflines."""
+    (roof, (local, gossip)), (jroof, _) = _overlap_cases()
+    kw = {"t_local_step_s": override} if override is not None else {}
+    mine = roof.predict_overlap(local, gossip, *taus, **kw)
+    jlocal = jroof.Roofline(flops=2e12, hbm_bytes=1e9, collective_bytes=0.0,
+                            chips=8, peak_flops=local.peak_flops,
+                            hbm_bw=local.hbm_bw, link_bw=local.link_bw)
+    jgossip = jroof.Roofline(flops=0.0, hbm_bytes=0.0, collective_bytes=9e8,
+                             chips=8, peak_flops=gossip.peak_flops,
+                             hbm_bw=gossip.hbm_bw, link_bw=gossip.link_bw)
+    want = jroof.predict_overlap(jlocal, jgossip, *taus, **kw)
+    assert mine.as_dict() == want.as_dict()
+    as_dicts = roof.predict_overlap({"roofline": local.as_dict()},
+                                    gossip.as_dict(), *taus, **kw)
+    assert as_dicts.as_dict() == mine.as_dict()
+
+
+def test_predict_overlap_arithmetic():
+    """The reference's case, on the port's module."""
+    from repro_torch.launch.roofline import Roofline, predict_overlap
+
+    local = Roofline(flops=2e12, hbm_bytes=1e9, collective_bytes=0.0,
+                     chips=8)
+    gossip = Roofline(flops=0.0, hbm_bytes=0.0, collective_bytes=9e8,
+                      chips=8)
+    p = predict_overlap(local, gossip, tau1=4, tau2=2)
+    tl = max(local.compute_s, local.memory_s)
+    tg = gossip.collective_s
+    assert p.additive_s == pytest.approx(4 * tl + 2 * tg)
+    assert p.pipelined_s == pytest.approx(4 * tl + max(0.0, 2 * tg - 4 * tl))
+    assert p.hidden_s == pytest.approx(p.additive_s - p.pipelined_s)
+    assert p.speedup == pytest.approx(p.additive_s / p.pipelined_s)
+    assert p.hidden_s > 0                             # gossip-heavy: a win
+    pm = predict_overlap(local, gossip, tau1=4, tau2=2, t_local_step_s=0.5)
+    assert pm.t_local_step_s == 0.5
+    assert pm.t_gossip_step_s == pytest.approx(tg)
+    big = predict_overlap(local, gossip, tau1=64, tau2=1)
+    assert big.hidden_s == pytest.approx(big.tau2 * tg)
+    assert big.pipelined_s == pytest.approx(64 * tl)
+    assert p.as_dict()["speedup"] == pytest.approx(p.speedup)
+
+
+@pytest.mark.parametrize("topo", ["ring", "full"])
+def test_stale_mixing_zeta_equals_reference(topo):
+    from repro.core import fully_connected as jfully_connected
+    from repro.planner import stale_mixing_zeta as jstale
+    from repro.planner.bounds import sporadic_zeta as jsporadic
+    from repro_torch.core import fully_connected
+    from repro_torch.planner import stale_mixing_zeta
+    from repro_torch.planner.bounds import sporadic_zeta
+
+    t = ring(N) if topo == "ring" else fully_connected(N)
+    jt = jring(N) if topo == "ring" else jfully_connected(N)
+    zs = [stale_mixing_zeta(t, s) for s in (0.0, 0.5, 1.0, 3.0)]
+    assert zs == [jstale(jt, s) for s in (0.0, 0.5, 1.0, 3.0)]
+    assert zs[0] == sporadic_zeta(t, 1.0) == jsporadic(jt, 1.0)
+    if topo == "ring":
+        assert zs[0] < zs[2] < zs[3] < 1.0
+    with pytest.raises(ValueError, match="staleness"):
+        stale_mixing_zeta(t, -0.5)

@@ -122,6 +122,23 @@ def test_default_device_raises_without_cuda():
         init_decode_state(REGISTRY["qwen3-1.7b"].reduced, 1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         spawn(print, 2)
+    from repro_torch.benchmarks import bench_overlap
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import steps
+
+    qwen3 = REGISTRY["qwen3-1.7b"]
+    for build in (steps.build_local_step, steps.build_train_round):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(qwen3, "train_4k", 2, reduced=True, batch=1, seq=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.build_gossip_step(qwen3, 2, reduced=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.build_planned_round(qwen3, "train_4k", 2, budget_s=60.0,
+                                  reduced=True, batch=1, seq=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm.main(["--rounds", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_overlap.main(["--smoke"])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -6,8 +6,8 @@ The planner is numpy only in both packages, so the port is held BITWISE:
 every bound, ``evaluate_grid`` / ``plan`` / ``plan_trajectory`` over
 topologies x compressors x budgets, and both controllers fed one recorded
 observation sequence give exactly the reference's floats. The cases of the
-reference's ``tests/test_planner.py`` (but its two train-CLI sessions and
-``build_planned_round``, which wait for the port's train CLI), the planner
+reference's ``tests/test_planner.py`` (but its two train-CLI sessions, and
+``build_planned_round``, held in ``tests/test_torch_steps.py``), the planner
 cases of ``tests/test_overlap.py`` and the availability cases of
 ``tests/test_faults.py`` run against the port with the reference's
 assertions. The loop runs the MNIST CNN on the CPU under a small budget.
