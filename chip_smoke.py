@@ -198,11 +198,22 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    tokens/s, the loss by round, its fall at least ``TRAIN_LM_FALL``, which
    a control with K1 perturbed must miss. ``--only roofline_calibrate``
    prints (e) with several controls, ungated.
-16. Print the kernels line, the build and total wall times, the card's
+16. ``bench_kernels --check --device cuda`` (``run_bench_kernels_phase``,
+   ``repro_torch.benchmarks.bench_kernels``) into a temporary file: the
+   registry's parity of the seven ops against their oracles over
+   ``PARITY_SHAPES`` x {f32, bf16} (TopK's select and mask bitwise), the
+   TopK compressor bitwise its oracle at four fractions, the fused CHOCO
+   chains launching fewer kernels than the unfused ones with the same
+   bits, and every kernel at the CIFAR rows bitwise its plain version and
+   timed warm and from DRAM beside its bound. Its gates are deterministic;
+   its times are printed, not gated.
+17. Print the kernels line, the build and total wall times, the card's
    name and power limit, and the final ``{"ok": true, ...}`` line.
 
-Exits non-zero, printing no result, when ``torch.cuda.is_available()`` is
-false or when the ``src`` tree is missing.
+A phase that raises prints ``phase NAME failed: <type>: <message>`` on
+stdout and the exception propagates, so the exit code is non-zero. Exits
+non-zero, printing no result, when ``torch.cuda.is_available()`` is false
+or when the ``src`` tree is missing.
 
 ``python3 chip_smoke.py --calibrate-qsgd`` prints, after the build and the
 seam check, the readings behind the whole-run limits of phases 5, 6 and
@@ -216,9 +227,8 @@ ungated, ``telemetry``, ``lm``, ``lm_calibrate``, ``lm_kernels``: phase
 11 (c) alone, K1-K7 on the full-width tree, ``serve``,
 ``serve_calibrate``, ``sparse``, ``sparse_calibrate``,
 ``sparse_kernels``: phase 14 (a) alone, K1-received checked and timed,
-``roofline``, ``roofline_calibrate``,
-``cold_kernels``: K5's and K1-received's CIFAR readings with their
-operands read from DRAM, ...) and prints no result.
+``roofline``, ``roofline_calibrate``, ``bench_kernels``: phase 16, every
+kernel's CIFAR reading warm and from DRAM, ...) and prints no result.
 """
 import contextlib
 import dataclasses
@@ -235,6 +245,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+
+from repro_torch.benchmarks.timing import (  # noqa: E402
+    card_line, cold_device_ms, device_ms)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside tensor cores
@@ -260,68 +273,6 @@ def same_bits(a, b):
 
 def max_abs_err(a, b):
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
-
-
-def device_ms(fn, iters=20, reps=5):
-    """Device time of one ``fn()`` call: ``iters`` calls captured in a CUDA
-    graph, replayed ``reps`` times between CUDA events (no host overhead;
-    inputs stay warm in L2 where they fit, as between gossip steps)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
-
-
-def cold_device_ms(make, nbytes, reps=5):
-    """Device time of one call with its operands read from DRAM, not from
-    L2: ``make()`` returns a call on operands of its own, and so many are
-    made that the bytes moved between two uses of one set (``nbytes`` a
-    call) exceed three times the L2 cache. The calls are captured by turns
-    in one CUDA graph (20 at least), each keeping its outputs apart, and
-    replayed ``reps`` times between CUDA events."""
-    l2 = torch.cuda.get_device_properties(0).L2_cache_size
-    calls = [make() for _ in range(1 + math.ceil(3 * l2 / nbytes))]
-    iters = len(calls) * math.ceil(20 / len(calls))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        calls[0]()
-    torch.cuda.current_stream().wait_stream(side)
-    graph, kept = torch.cuda.CUDAGraph(), []
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            kept.append(calls[i % len(calls)]())
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 class Kernel:
@@ -713,12 +664,11 @@ def time_kernels(K, gen):
 def k5_tree_times(xs, ts):
     """K5 over the leaves ``xs`` (the CIFAR tree, 23 MB in f32) at the
     thresholds ``ts``, its operands read from DRAM (``cold_device_ms``, as
-    the bound assumes): one call (``ops.topk_mask_many``; a package
-    without it masks leaf by leaf), one launch a leaf, the plain version;
-    and the one call with the operands warm in L2 (``device_ms``)."""
+    the bound assumes): one call (``ops.topk_mask_many``), one launch a
+    leaf, the plain version; and the one call with the operands warm in L2
+    (``device_ms``)."""
     from repro_torch.kernels import ops, topk
 
-    many = getattr(ops, "topk_mask_many", None)
     nbytes = sum(8 * x.numel() + 4 * x.shape[0] for x in xs)
 
     def on_copies(fn):
@@ -734,11 +684,10 @@ def k5_tree_times(xs, ts):
                                                    nbytes),
             "plain_ms": cold_device_ms(on_copies(
                 lambda cs: [topk.mask_plain(x, t) for x, t in zip(cs, ts)]),
-                nbytes)}
-    if many is not None:
-        line["ms"] = cold_device_ms(on_copies(lambda cs: many(cs, ts)),
-                                    nbytes)
-        line["warm_ms"] = device_ms(lambda: many(xs, ts))
+                nbytes),
+            "ms": cold_device_ms(on_copies(
+                lambda cs: ops.topk_mask_many(cs, ts)), nbytes),
+            "warm_ms": device_ms(lambda: ops.topk_mask_many(xs, ts))}
     return line
 
 
@@ -4362,25 +4311,6 @@ def received_times(sizes, deg, dtype, gen, big=False):
     return out
 
 
-def cold_kernel_times():
-    """``--only cold_kernels``: the CIFAR readings of K5 (``k5_tree_times``)
-    and K1-received (deg 2 and 7, ``received_times``), their operands read
-    from DRAM. It calls only what a package whose K5 masks leaf by leaf
-    has too, so that an older checkout can be read the same way."""
-    from repro_torch.kernels import topk
-    from repro_torch.models.cnn import init_cnn
-
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    sizes = [v.numel() for v in init_cnn(torch.Generator().manual_seed(1),
-                                         "cifar", "cpu").values()]
-    xs = [torch.randn(10, d, generator=gen, device="cuda") for d in sizes]
-    ts = [topk.threshold_plain(x, math.ceil(0.67 * x.shape[1])) for x in xs]
-    print("K5 cifar " + json.dumps(k5_tree_times(xs, ts)))
-    for deg in (2, 7):
-        print(f"K1-received cifar_deg{deg} " + json.dumps(
-            received_times(sizes, deg, torch.float32, gen)))
-
-
 def received_kernel_phase(K):
     """Phase 14 (a) (alone: ``--only sparse_kernels``): K1-received checked
     (``received_kernel_checks``) and timed on one CIFAR node at deg 2 and
@@ -4949,6 +4879,36 @@ def run_roofline_phase(K, gate=True):
     print("roofline phase seconds " + json.dumps(times))
 
 
+def run_bench_kernels_phase():
+    """Phase 16: ``bench_kernels --check --device cuda`` into a temporary
+    file, its sections printed. Every gate is the bench's own and
+    deterministic (parity, bitwise, launch counts, TopK's equality with its
+    oracle); the times are printed, not gated."""
+    import tempfile
+
+    from repro_torch.benchmarks import bench_kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = bench_kernels.main(["--check", "--device", "cuda", "--out",
+                                  os.path.join(tmp, "BENCH_kernels.json")])
+    for name in ("parity", "topk_vs_reference", "buffer_passes"):
+        print(f"bench_kernels {name} " + json.dumps(out[name]))
+    for row in out["throughput"]["rows"]:
+        print("bench_kernels row " + json.dumps(row))
+
+
+def run_phase(name, phase):
+    """Run one phase and print its time; a phase that raises prints
+    ``phase NAME failed: <type>: <message>`` and the exception goes on."""
+    t0 = time.perf_counter()
+    try:
+        phase()
+    except BaseException as e:
+        print(f"phase {name} failed: {type(e).__name__}: {e}", flush=True)
+        raise
+    print(f"phase {name} time: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
@@ -4962,7 +4922,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = t0 = time.perf_counter()
-    libs = build.build_all()
+    libs = []
+    run_phase("build", lambda: libs.extend(build.build_all()))
     t_build = time.perf_counter() - t0
     print(f"build: {len(libs)} libraries in {t_build:.2f} s -> "
           f"{build.BUILD_DIR}")
@@ -5022,7 +4983,8 @@ def main():
         "serve": run_serve_phase,
         "telemetry": lambda: run_telemetry_phase(K),
         "sparse": lambda: run_sparse_phase(K),
-        "roofline": lambda: run_roofline_phase(K)}
+        "roofline": lambda: run_roofline_phase(K),
+        "bench_kernels": run_bench_kernels_phase}
     # phases run only when named after --only: readings ungated, or a part
     # of a phase above alone
     only = {
@@ -5038,20 +5000,15 @@ def main():
                                      ("gossip_mix_many", "x_scale", 1e-4))),
         "lm_kernels": lambda: lm_kernel_times(dataclasses.replace(
             REGISTRY[LM_FULL_ARCH].model, num_layers=LM_FULL_LAYERS), True),
-        "sparse_kernels": lambda: received_kernel_phase(K),
-        "cold_kernels": cold_kernel_times}
+        "sparse_kernels": lambda: received_kernel_phase(K)}
     if sys.argv[1:2] == ["--only"]:
         # a subset of the phases, for work on the card; no result line
         print(card_line())
         for name in sys.argv[2:]:
-            t0 = time.perf_counter()
-            {**phases, **only}[name]()
-            print(f"phase {name} time: {time.perf_counter() - t0:.1f} s")
+            run_phase(name, {**phases, **only}[name])
         return 0
     for name, phase in phases.items():
-        t0 = time.perf_counter()
-        phase()
-        print(f"phase {name} time: {time.perf_counter() - t0:.1f} s")
+        run_phase(name, phase)
     print(f"wall: {time.perf_counter() - t_start:.1f} s from the build on "
           f"({t_build:.2f} s of it the build)")
     card = card_line()

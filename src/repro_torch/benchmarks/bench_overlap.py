@@ -10,8 +10,8 @@ inputs:
 
   * ``T_step``   the paired wall-clock slope of the ``overlap="none"``
                  executor at tau2 = 0 between tau1 = 1 and tau1 = 4 (rank
-                 0's clock; ``fit_t_step``): the dispatch floor cancels in
-                 the difference.
+                 0's clock; ``fit_t_step``, at least ``FIT_PAIRS`` pairs):
+                 the dispatch floor cancels in the difference.
   * ``T_gossip`` the bytes one node sends in a gossip step, read off the
                  group's counter (``core.sharded.NodeGroup.exchange_bytes``:
                  the packed buffer, each leaf padded to 16 bytes, once a
@@ -35,8 +35,8 @@ cyclic GC off, median of the differences, as the reference's):
                       reference's executor without the knob; in the port
                       both are ``RoundExecutor``'s default path, so this
                       reads the pairing's noise floor, over at least
-                      ``NONE_OVERHEAD_PAIRS`` pairs), held under 2% by
-                      ``--check``.
+                      ``NONE_OVERHEAD_PAIRS`` pairs of one-round
+                      dispatches), held under 2% by ``--check``.
   * ``pipeline_wall`` ``overlap="pipeline"`` against ``"none"``: recorded,
                       not asserted (the ranks share one device and the
                       host's cores).
@@ -79,6 +79,7 @@ from repro_torch.core.executor import RoundExecutor, stack_round_batches
 from repro_torch.core.rng import GeneratorDraws
 from repro_torch.core.sharded import pack_layout, spawn
 from repro_torch.core.topology import ring
+from repro_torch.core.tree import tree_map
 from repro_torch.launch.roofline import Roofline, predict_overlap
 from repro_torch.optim import sgd
 from repro_torch.planner import CostModel
@@ -88,10 +89,14 @@ N = 8
 TAU_MAX = 4
 PLANNER_TOL_PCT = 1.0      # planner-vs-roofline max-form agreement bar
 NONE_OVERHEAD_PCT = 2.0    # the reference's bar on overlap="none"
-# pairs of the bar's reading, never cut by --smoke: the two executors are
-# one path in the port, so the reading is the pairing's noise, which at the
-# reference's 10 smoke pairs on 8 ranks sharing a card reached +-2.3%
-NONE_OVERHEAD_PAIRS = 24
+# one-round dispatch pairs of the bar's reading, never cut by --smoke: the
+# two executors are one path in the port, so the reading is the pairing's
+# noise (``pair_iqr_pct``), which with 8 ranks sharing an H100's host read
+# as far as -2.69% at 24 pairs of K = 4 rounds, against the 2% bar
+NONE_OVERHEAD_PAIRS = 384
+# pairs of the T_step fit at least: at 5 and at 12, 8 CPU ranks beside six
+# busy workers read a median slope at or below 0 (the fit's floor)
+FIT_PAIRS = 48
 
 
 def quad_loss(p, b):
@@ -145,7 +150,9 @@ def fit_t_step(ex, state, batches, k: int, reps: int) -> Dict[str, float]:
 
 def paired_delta(ex_a, ex_b, state, batches, taus, passes: int) -> Dict:
     """Median per-pair wall difference (b - a) over median a, dispatch for
-    dispatch, the order flipped each pass, GC off."""
+    dispatch, the order flipped each pass, GC off; ``pair_iqr_pct`` is the
+    spread (interquartile range) of the pairs' differences over median a,
+    the noise the median has to beat."""
     states = {"a": state, "b": state}
     exes = {"a": ex_a, "b": ex_b}
     diffs: List[float] = []
@@ -165,8 +172,10 @@ def paired_delta(ex_a, ex_b, state, batches, taus, passes: int) -> Dict:
             gc.enable()
     base_s = float(np.median(base))
     diff_s = float(np.median(diffs))
+    q1, q3 = np.percentile(diffs, [25, 75])
     return {"base_dispatch_s": base_s, "delta_s": diff_s,
-            "delta_pct": 100.0 * diff_s / base_s, "pairs": len(diffs)}
+            "delta_pct": 100.0 * diff_s / base_s, "pairs": len(diffs),
+            "pair_iqr_pct": 100.0 * float(q3 - q1) / base_s}
 
 
 def bench_rank(group, out_dir: str, cfg: Dict) -> None:
@@ -199,9 +208,13 @@ def bench_rank(group, out_dir: str, cfg: Dict) -> None:
     packed = pack_layout([state.params["w"]])[1]
 
     fit = fit_t_step(exes["none"], state, batches, k,
-                     max(cfg["passes"] // 2, 5))
+                     max(cfg["passes"] // 2, FIT_PAIRS))
+    # one round a dispatch: the executor's own work, where a knob's cost
+    # would show, is then the largest share of a dispatch, and four times
+    # the pairs fit in the time of K = 4
     none_overhead = paired_delta(exes["legacy"], exes["none"], state,
-                                 batches, taus,
+                                 tree_map(lambda b: b[:1], batches),
+                                 taus[:1],
                                  max(cfg["passes"], NONE_OVERHEAD_PAIRS))
     pipeline_wall = paired_delta(exes["none"], exes["pipeline"], state,
                                  batches, taus, cfg["passes"])
@@ -234,7 +247,7 @@ def main(argv=None) -> Dict:
     ap.add_argument("--link-bw", type=float, default=2e9,
                     help="deployment link bytes/s pricing T_gossip")
     ap.add_argument("--smoke", action="store_true",
-                    help="10 passes (the none_overhead bar keeps 24) and "
+                    help="10 passes (the none_overhead bar keeps its 384) and "
                          "K = 4 (the CI config)")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--device", default="cuda")

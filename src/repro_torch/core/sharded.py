@@ -181,11 +181,17 @@ def local_rows(tree: Any, group: NodeGroup, axis: int = 0) -> Any:
 def _rank_main(rank: int, world: int, store: str, backend: str, device: str,
                timeout_s: float, fn: Callable, args: Tuple) -> None:
     dev = torch.device(device)
-    if dev.type == "cpu":   # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    else:
+    # the ranks share the host's cores: each takes its share of intra-op
+    # threads and, beside a card, cores of its own, so that no rank's
+    # threads queue behind another's and jitter every collective
+    share = max(1, (os.cpu_count() or 1) // world)
+    torch.set_num_threads(share)
+    if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
+        cores = sorted(os.sched_getaffinity(0))
+        first = (rank * share) % len(cores)
+        os.sched_setaffinity(0, cores[first:first + share])
     dist.init_process_group(
         backend, store=dist.FileStore(store, world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=timeout_s))

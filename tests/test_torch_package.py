@@ -74,7 +74,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.examples.serve_decode", "repro_torch.obs",
             "repro_torch.obs.events", "repro_torch.obs.telemetry",
             "repro_torch.obs.history", "repro_torch.obs.report",
-            "repro_torch.obs.trace", "repro_torch.obs.__main__"} <= set(mods)
+            "repro_torch.obs.trace", "repro_torch.obs.__main__",
+            "repro_torch.kernels.registry", "repro_torch.kernels.ref",
+            "repro_torch.benchmarks.bench_kernels",
+            "repro_torch.benchmarks.timing"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                                   "ml_dtypes")]
     assert bad == []
