@@ -207,7 +207,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    bits, and every kernel at the CIFAR rows bitwise its plain version and
    timed warm and from DRAM beside its bound. Its gates are deterministic;
    its times are printed, not gated.
-17. Print the kernels line, the build and total wall times, the card's
+17. ``repro_torch.analysis`` (``run_analysis_phase``): the nine audits
+   of ``run_production_audits(device="cuda")`` under the reference's
+   names (ring(8), dim 33; the dense, pipelined and batched executors, and
+   8 sparse gloo ranks spawned once), all ``ok``, K1 launched in every
+   dense audit and K1-received on every rank, the ranks' sends ring(8)'s
+   shift pairs; the five dense audits again on the CIFAR CNN at full
+   width, ring(10), C-DFL TopK, maxima (4, 4), with K1, K4 and K3
+   launched; two controls that must fail (``audit_donation`` on a
+   ``donate=False`` executor, the sends against ``fully_connected(8)``);
+   ``python -m repro_torch.analysis lint`` exits 0. Gates deterministic
+   only; the times are printed.
+18. Print the kernels line, the build and total wall times, the card's
    name and power limit, and the final ``{"ok": true, ...}`` line.
 
 A phase that raises prints ``phase NAME failed: <type>: <message>`` on
@@ -228,7 +239,8 @@ ungated, ``telemetry``, ``lm``, ``lm_calibrate``, ``lm_kernels``: phase
 ``serve_calibrate``, ``sparse``, ``sparse_calibrate``,
 ``sparse_kernels``: phase 14 (a) alone, K1-received checked and timed,
 ``roofline``, ``roofline_calibrate``, ``bench_kernels``: phase 16, every
-kernel's CIFAR reading warm and from DRAM, ...) and prints no result.
+kernel's CIFAR reading warm and from DRAM, ``analysis``: phase 17, ...)
+and prints no result.
 """
 import contextlib
 import dataclasses
@@ -4897,6 +4909,120 @@ def run_bench_kernels_phase():
         print("bench_kernels row " + json.dumps(row))
 
 
+def run_analysis_phase(K):
+    """Phase 17, ``repro_torch.analysis`` on the card, every gate
+    deterministic: (a) ``run_production_audits(device="cuda")``, the nine
+    audits under the reference's names on ring(8), dim 33 (the dense,
+    pipelined and batched executors here, 8 sparse gloo ranks spawned once):
+    all ``ok``, K1 launched in every dense audit's dispatches and
+    K1-received on every rank, the ranks' sends ring(8)'s shift pairs; (b)
+    the five dense audits (``dense_audits``) on the main path, the CIFAR
+    CNN at full width, ring(10), C-DFL TopK (frac 0.67), tau maxima (4, 4):
+    all ``ok``, with K1, K4 and K3 launched in each; (c) two controls that
+    must fail: ``audit_donation`` on an executor built with
+    ``donate=False``, and the ranks' sends against ``fully_connected(8)``'s
+    pairs; (d) ``python -m repro_torch.analysis lint`` exits 0. The parts'
+    times are printed, not gated."""
+    from repro_torch.analysis import audits
+    from repro_torch.benchmarks import bench_round_overhead as bro
+    from repro_torch.core import RoundExecutor
+    from repro_torch.core.topology import fully_connected
+    from repro_torch.kernels import ops
+
+    times = {}
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    results = audits.run_production_audits(num_nodes=8, device="cuda")
+    torch.cuda.synchronize()
+    add_launches(K, dict(ops.LAUNCHES))
+    times["production"] = time.perf_counter() - t0
+    by = {r.name: r for r in results}
+    require([r.name for r in results] == list(audits.AUDIT_NAMES),
+            f"analysis: audits {[r.name for r in results]}")
+    for r in results:
+        print(f"analysis [{'PASS' if r.ok else 'FAIL'}] {r.name}: "
+              f"{r.detail} " + json.dumps(
+                  {"launches": r.data.get("launches"),
+                   "counts": r.data.get("counts")}))
+    require(all(r.ok for r in results), "analysis: failed audits "
+            f"{[(r.name, r.detail) for r in results if not r.ok]}")
+    sparse = ("collective-matching", "participation-collectives",
+              "overlap-collectives")
+    for name in audits.AUDIT_NAMES:
+        launched = by[name].data["launches"]
+        if name in sparse:
+            require(len(launched) == 8 and all(
+                counts.get("gossip_mix_received", 0) > 0
+                for counts in launched.values()),
+                f"analysis {name}: K1-received launches by rank {launched}")
+            add_launches(K, {"gossip_mix_received": sum(
+                counts["gossip_mix_received"]
+                for counts in launched.values())})
+        else:
+            require(launched.get("gossip_mix", 0) > 0,
+                    f"analysis {name}: K1 launches {launched}")
+    for name in sparse:
+        require(by[name].data["observed"] == by[name].data["expected"],
+                f"analysis {name}: the ranks' sends are not ring(8)'s pairs")
+
+    t0 = time.perf_counter()
+    s = bro.cnn_setup("top_k", rounds=2, device="cuda")
+    cfg = s.cfg(4, 4)
+    batches = tuple(torch.stack([s.batches[r][j] for r in range(2)])
+                    for j in (0, 1))
+
+    def build(**kw):
+        return (RoundExecutor(cfg, s.loss_fn, s.opt, **kw), s.fresh(),
+                batches, cfg.topology)
+
+    ops.reset_launches()
+    cifar = audits.dense_audits(build)
+    torch.cuda.synchronize()
+    add_launches(K, dict(ops.LAUNCHES))
+    times["cifar_topk"] = time.perf_counter() - t0
+    for r in cifar:
+        print(f"analysis cifar_topk [{'PASS' if r.ok else 'FAIL'}] {r.name}: "
+              f"{r.detail} " + json.dumps({"launches": r.data["launches"]}))
+    require(all(r.ok for r in cifar), "analysis cifar_topk: failed audits "
+            f"{[(r.name, r.detail) for r in cifar if not r.ok]}")
+    for r in cifar:
+        launched = r.data["launches"]
+        require(all(launched.get(k, 0) > 0 for k in (
+            "gossip_mix", "topk_threshold", "choco_topk")),
+            f"analysis cifar_topk {r.name}: K1 / K4 / K3 launches {launched}")
+
+    t0 = time.perf_counter()
+    ex, state, small, _ = audits.build_audit_executor(8, device="cuda",
+                                                      donate=False)
+    ex.warmup(state, small)
+    before = audits.state_pointers(state)
+    ops.reset_launches()
+    out, _ = ex.dispatch_trajectory(state, small, audits.TAUS_A)
+    torch.cuda.synchronize()
+    add_launches(K, dict(ops.LAUNCHES))
+    controls = {
+        "donation(donate=False)": audits.audit_donation(
+            before, audits.state_pointers(out)),
+        "collective-matching(fully_connected(8))":
+            audits.audit_collective_matching(
+                {(s, d): c for s, d, c in
+                 by["collective-matching"].data["sends"]},
+                fully_connected(8))}
+    for label, r in controls.items():
+        print(f"analysis control {label}: ok={r.ok}: {r.detail[:200]}")
+        require(not r.ok, f"analysis: the control {label} passed")
+
+    lint = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "lint"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+        capture_output=True, text=True, timeout=120)
+    print("analysis lint: " + lint.stdout.strip().splitlines()[-1])
+    require(lint.returncode == 0, f"analysis: the lint exited "
+            f"{lint.returncode}: {lint.stdout[-2000:]}")
+    times["controls_lint"] = time.perf_counter() - t0
+    print("analysis phase seconds " + json.dumps(times))
+
+
 def run_phase(name, phase):
     """Run one phase and print its time; a phase that raises prints
     ``phase NAME failed: <type>: <message>`` and the exception goes on."""
@@ -4984,7 +5110,8 @@ def main():
         "telemetry": lambda: run_telemetry_phase(K),
         "sparse": lambda: run_sparse_phase(K),
         "roofline": lambda: run_roofline_phase(K),
-        "bench_kernels": run_bench_kernels_phase}
+        "bench_kernels": run_bench_kernels_phase,
+        "analysis": lambda: run_analysis_phase(K)}
     # phases run only when named after --only: readings ungated, or a part
     # of a phase above alone
     only = {

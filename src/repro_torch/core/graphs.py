@@ -708,6 +708,7 @@ class StaticRounds:
 
     def run(self, state: DFLState, batches: Any, rows: np.ndarray, k: int,
             donate: bool) -> Tuple[DFLState, Dict[str, torch.Tensor]]:
+        # repro-lint: disable=no-host-coercion-of-device-scalars (rows: the trajectory's host copy)
         for t1, t2 in dict.fromkeys(map(tuple, rows[:, :2].tolist())):
             self.ensure((int(t1), int(t2)))
         dev, r0 = self.device, state.round_idx

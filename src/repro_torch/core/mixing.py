@@ -213,6 +213,7 @@ def shift_weights(shifts: Sequence[Tuple[int, float]], self_weight: float,
                          f"{len(shifts)} shifts")
     w_self, eff = masked_shift_weights(
         shifts, self_weight, [torch.as_tensor(m) for m in shift_masks])
+    # repro-lint: disable=no-host-coercion-of-device-scalars (host tensors of host masks)
     return torch.stack([w_self, *eff]).numpy()
 
 

@@ -32,6 +32,7 @@ of exactly the N > 1 nodes.
 """
 from __future__ import annotations
 
+import collections
 import datetime
 import os
 import shutil
@@ -82,6 +83,10 @@ class NodeGroup:
         # collective term (``launch.roofline``)
         self.exchange_s = 0.0
         self.exchange_bytes = 0
+        # how many sends ``shift_exchange`` made to each (src, dst): a host
+        # counter, at most one key a shift, for the collective audits
+        # (``repro_torch.analysis.audits``)
+        self.sends: collections.Counter = collections.Counter()
 
     @classmethod
     def current(cls, device) -> "NodeGroup":
@@ -113,7 +118,8 @@ class NodeGroup:
         leaf, its ``[len(shifts), D]`` received copies (row j from shift
         j's sender), in the leaf's dtype on the group's device. The tree
         travels as one packed byte buffer a shift, each leaf 16-byte
-        aligned in it."""
+        aligned in it. Each send is counted in ``sends`` under its
+        (src, dst) and its bytes added to ``exchange_bytes``."""
         t0 = time.perf_counter()
         offsets, total = pack_layout(leaves)
         send = torch.empty(total, dtype=torch.uint8, device=self.device)
@@ -125,8 +131,9 @@ class NodeGroup:
                            device=send.device, pin_memory=self.staged)
         ops = []
         for j, s in enumerate(shifts):
-            ops.append(dist.P2POp(dist.isend, send, (self.rank + s)
-                                  % self.world, tag=j))
+            dst = (self.rank + s) % self.world
+            ops.append(dist.P2POp(dist.isend, send, dst, tag=j))
+            self.sends[(self.rank, dst)] += 1
             ops.append(dist.P2POp(dist.irecv, recv[j], (self.rank - s)
                                   % self.world, tag=j))
         if ops:

@@ -294,6 +294,7 @@ class DenseSubstrate(NodeSubstrate):
         for dt in {torch.promote_types(d, torch.float32) for d in dtypes}:
             out[dt] = (self._on_device.get(
                 ("C", topo.mixing.tobytes(), str(dt)), device,
+                # repro-lint: disable=no-host-coercion-of-device-scalars (a host tensor cast on the host)
                 lambda: torch.from_numpy(topo.mixing).to(dt).numpy())
                 if dev_mask is None else mixing_lib.masked_mixing_matrix(
                     topo, dev_mask, dt))

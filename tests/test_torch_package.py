@@ -77,7 +77,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.obs.trace", "repro_torch.obs.__main__",
             "repro_torch.kernels.registry", "repro_torch.kernels.ref",
             "repro_torch.benchmarks.bench_kernels",
-            "repro_torch.benchmarks.timing"} <= set(mods)
+            "repro_torch.benchmarks.timing", "repro_torch.analysis",
+            "repro_torch.analysis.lint", "repro_torch.analysis.rules",
+            "repro_torch.analysis.audits",
+            "repro_torch.analysis.__main__"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro",
                                                   "ml_dtypes")]
     assert bad == []
