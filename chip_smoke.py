@@ -218,7 +218,26 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``donate=False`` executor, the sends against ``fully_connected(8)``);
    ``python -m repro_torch.analysis lint`` exits 0. Gates deterministic
    only; the times are printed.
-18. Print the kernels line, the build and total wall times, the card's
+18. The gossip-fsdp mesh (``run_mesh_phase``, ``--only mesh``):
+   DeepSeek-Coder-33B at its published widths in bf16 (d_model 7168, 56 /
+   8 heads of 128, d_ff 19200, vocab 32256), depth cut 62 -> 1, 4
+   replicated nodes on ring(4), 4 gloo ranks sharing the card as a data
+   2 x model 2 mesh, each node's batch of 2 at seq 256 split over data,
+   tau (1, 2), each round built by ``steps.build_train_round`` on the
+   mesh (the local step one node at a time) and dispatched by its
+   executor: (a) K4's sharded-row form on the TopK run's first gossip
+   step's gaps of every leaf, bitwise its plain version and the unsharded
+   K4 on the gathered rows; (b) one round each of plain DFL, TopK and
+   QSGD held to the dense port's round on one process (this one, before
+   any mesh round, while the ranks start) from the same weights and
+   batches, the whole tree, the loss and the consensus within
+   ``MESH_RUN_RTOL``, every limit of which the plain round with node 0's
+   copy of one rank's block of one leaf scaled first must break, exact
+   launches of K1, K3, K2 and K4's sharded form on every rank; (c) the phase's
+   seconds (within ``MESH_BUDGET_S``), each rank's peak memory, the bytes
+   gathered and reduced a local step, the collectives' share of a round.
+   ``--only mesh_calibrate`` prints (b) ungated.
+19. Print the kernels line, the build and total wall times, the card's
    name and power limit, and the final ``{"ok": true, ...}`` line.
 
 A phase that raises prints ``phase NAME failed: <type>: <message>`` on
@@ -239,8 +258,8 @@ ungated, ``telemetry``, ``lm``, ``lm_calibrate``, ``lm_kernels``: phase
 ``serve_calibrate``, ``sparse``, ``sparse_calibrate``,
 ``sparse_kernels``: phase 14 (a) alone, K1-received checked and timed,
 ``roofline``, ``roofline_calibrate``, ``bench_kernels``: phase 16, every
-kernel's CIFAR reading warm and from DRAM, ``analysis``: phase 17, ...)
-and prints no result.
+kernel's CIFAR reading warm and from DRAM, ``analysis``: phase 17,
+``mesh``, ``mesh_calibrate``: phase 18, ...) and prints no result.
 """
 import contextlib
 import dataclasses
@@ -890,7 +909,8 @@ def run_main_path(K):
         for key in totals:
             totals[key] += counts[key]
     for key, n in totals.items():
-        if key == "gossip_mix_received":    # the sparse engine's (phase 15)
+        # the sparse engine's (phase 14) and the mesh's (phase 18)
+        if key in ("gossip_mix_received", "topk_threshold_sharded"):
             continue
         K[key].launches = n
         require(n > 0, f"{key} was never launched on the main path")
@@ -5023,6 +5043,604 @@ def run_analysis_phase(K):
     print("analysis phase seconds " + json.dumps(times))
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the gossip-fsdp mesh
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = "deepseek-coder-33b"
+MESH_LAYERS = 1             # the one cut of the published config: 62 -> 1
+MESH_GRID = (2, 2)          # data x model: 4 gloo ranks sharing the card
+MESH_SHAPE = "train_4k"     # its batch and sequence overridden below
+MESH_BATCH = 2              # a node's batch: one sequence a data rank
+MESH_SEQ = 256
+MESH_TAUS = (1, 2)
+MESH_LR = 0.01
+MESH_SEED = 5               # the weights' generator on the card
+MESH_CHUNK = 1              # nodes a local step gathers at a time
+# (label, compressor, its arguments, the dense round it is held to); the
+# control is the plain round with node 0's copy of rank 1's block of one
+# leaf scaled before the round (``MESH_CONTROL``)
+MESH_RUNS = (("dfl", "", {}, "dfl"),
+             ("control", "", {}, "dfl"),
+             ("cdfl_topk", "top_k", {"frac": 0.5}, "cdfl_topk"),
+             ("cdfl_qsgd", "qsgd", {"levels": 16}, "cdfl_qsgd"))
+MESH_CONTROL = ("blocks/0/ffn/w_gate", 1, 1.0 + 2.0 ** -4)
+MESH_TIMEOUT_S = 600.0
+MESH_BUDGET_S = 200.0       # the phase's own time budget
+# the mesh's round against the dense port's on the card: the whole tree's
+# relative Frobenius difference, the loss and the consensus relative; each
+# limit between the largest sound reading and the control's
+# (``--only mesh_calibrate``, PERF.md §6): sound params 4.4e-5 (TopK),
+# loss 3.5e-7, consensus 7.3e-4 (TopK); control params 1.08e-3, loss
+# 7.7e-6, consensus 230
+MESH_RUN_RTOL = {"params": 2e-4, "loss": 2e-6, "consensus_sq": 5e-3}
+
+
+def mesh_model():
+    from repro_torch.configs import REGISTRY
+    return dataclasses.replace(REGISTRY[MESH_ARCH].model,
+                               num_layers=MESH_LAYERS)
+
+
+def mesh_cfg(compression, kw):
+    """The round's ``DFLConfig``, as ``steps.build_train_round`` makes it
+    on the mesh (ring over the arch's nodes, the default gamma)."""
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.core.dfl import DFLConfig
+    from repro_torch.core.topology import ring
+    from repro_torch.configs import REGISTRY
+    return DFLConfig(tau1=MESH_TAUS[0], tau2=MESH_TAUS[1],
+                     topology=ring(REGISTRY[MESH_ARCH].fsdp_nodes),
+                     compression=(make_compressor(compression, **kw)
+                                  if compression else None))
+
+
+def mesh_generator(dev):
+    """The weights' generator, as the dense round and the mesh's builder
+    both take it."""
+    return torch.Generator(device=dev).manual_seed(MESH_SEED)
+
+
+def mesh_weights(cfg, dev):
+    """One model's whole weights on the card, from ``MESH_SEED``, and their
+    logical axes."""
+    from repro_torch.models import init_params
+    return init_params(cfg, mesh_generator(dev), dev)
+
+
+def mesh_batches(cfg, n):
+    """The round's host batches ``[tau1, N, B, S]`` of the synthetic
+    corpus (``steps.build_train_round``'s first round)."""
+    from repro_torch.data.lm import SyntheticLM, lm_batches_for_dfl
+    return lm_batches_for_dfl(SyntheticLM(vocab_size=cfg.vocab_size,
+                                          num_nodes=n),
+                              MESH_TAUS[0], n, MESH_BATCH, MESH_SEQ, 0)
+
+
+def dense_round_by_leaf(dcfg, loss_fn, opt, state, batch):
+    """The dense port's round (``core.dfl.round_body`` on a
+    ``DenseSubstrate``) with its gossip phase run one leaf at a time:
+    gossip never mixes leaves (K1, K4's rows, K3 and K2 are per leaf, and
+    the seam's draws of a leaf do not depend on the others asked for), so
+    the parameters and metrics are bitwise the whole round's
+    (``tests/test_torch_mesh.py``), while the card holds one leaf's
+    C-DFL temporaries at a time instead of the tree's: four full-width
+    DeepSeek-Coder nodes' whole-tree TopK step needs more than the card's
+    80 GB beside the mesh's ranks. Returns (params, metrics)."""
+    from repro_torch.core.dfl import gossip_phase, local_phase
+    from repro_torch.core.substrate import DenseSubstrate
+    from repro_torch.core.tree import leaf_order
+
+    sub = DenseSubstrate(dcfg.topology)
+    params, _, loss = local_phase(dcfg, loss_fn, opt, sub, state.params,
+                                  state.opt_state, batch)
+    hat = state.hat_params
+    out = {}
+    for name in leaf_order(params):
+        x, _ = gossip_phase(dcfg, sub, {name: params.pop(name)},
+                            None if hat is None else {name: hat.pop(name)},
+                            state.draws, state.round_idx)
+        out[name] = x[name]
+    return out, {"loss": loss, "consensus_sq": sub.consensus_sq(out)}
+
+
+def mesh_dense_round(cfg, dcfg, dev):
+    """The dense port's round on one process, every node stacked on the
+    card (``dense_round_by_leaf``); (whole parameters on the host,
+    metrics, peak bytes, seconds)."""
+    from repro_torch.core.dfl import init_state
+    from repro_torch.core.rng import GeneratorDraws
+    from repro_torch.models import train_loss
+    from repro_torch.optim import sgd
+
+    n = dcfg.topology.num_nodes
+    torch.cuda.reset_peak_memory_stats(dev)
+    p0, _ = mesh_weights(cfg, dev)
+    state = init_state(p0, n, sgd(MESH_LR), compressed=dcfg.is_compressed,
+                       draws=GeneratorDraws(1, n, p0, dev))
+    del p0
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in mesh_batches(cfg, n).items()}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    params, m = dense_round_by_leaf(dcfg, lambda p, b: train_loss(p, b, cfg),
+                                    sgd(MESH_LR), state, batch)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    del state, batch
+    host = {k: params.pop(k).cpu() for k in list(params)}
+    metrics = {k: float(v) for k, v in m.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    return host, metrics, peak, secs
+
+
+def mesh_dense_rounds(out_dir):
+    """The dense port's round of each configuration that a mesh run is held
+    to, one after another in this process, every node's whole leaves
+    written to ``out_dir/dense_<label>.pt``; then the card's cache is
+    emptied and ``dense_ready`` written, which the ranks wait for
+    (``dense_failed`` if a round raised). Returns each round's metrics,
+    peak bytes, seconds and file seconds."""
+    dev = torch.device("cuda")
+    cfg = mesh_model()
+    out = {}
+    try:
+        for label, compression, kw, ref in MESH_RUNS:
+            if ref != label:
+                continue
+            host, metrics, peak, secs = mesh_dense_round(
+                cfg, mesh_cfg(compression, kw), dev)
+            t0 = time.perf_counter()
+            torch.save(host, os.path.join(out_dir, f"dense_{label}.pt"))
+            del host
+            out[label] = {"metrics": metrics, "peak": peak, "s": secs,
+                          "save_s": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    except BaseException:
+        open(os.path.join(out_dir, "dense_failed"), "w").close()
+        raise
+    open(os.path.join(out_dir, "dense_ready"), "w").close()
+    return out
+
+
+def mesh_warmup(cfg, dev, batch, loss):
+    """One node's whole-weight forward and backward at the mesh's local
+    step's shapes, on every rank while the phase's own process runs the
+    dense rounds: a process's first step pays its one-time CUDA set-up
+    (module loads, library handles; about 10 s on the card), which is no
+    part of a mesh round."""
+    from torch.func import grad_and_value, vmap
+    whole, _ = mesh_weights(cfg, dev)
+    one = {k: v.unsqueeze(0) for k, v in whole.items()}
+    del whole
+    vmap(grad_and_value(loss))(one, {k: v[0, :1] for k, v in batch.items()})
+    torch.cuda.synchronize(dev)
+    del one
+    torch.cuda.empty_cache()
+
+
+def mesh_step_launches(sub, compression):
+    """One gossip step's launches on a rank: K1 once a 32 leaves of a
+    dtype; TopK K3 a leaf and K4's sharded form, a count and a pick
+    launch a digit, for the leaves of each (dtype, row axes); QSGD K2 a
+    leaf."""
+    import collections
+
+    from repro_torch.kernels import topk
+    leaves = len(sub.specs)
+    out = {"gossip_mix": -(-leaves // 32)}
+    if compression == "top_k":
+        groups = collections.Counter(sub.row_axes.values())
+        out["choco_topk"] = leaves
+        out["topk_threshold_sharded"] = sum(
+            2 * len(topk.DIGITS[torch.bfloat16]) * -(-c // topk.MAX_LEAVES)
+            for c in groups.values())
+    elif compression == "qsgd":
+        out["choco_qsgd"] = leaves
+    return out
+
+
+def mesh_rank(group, out_dir):
+    """One rank of phase 18: a warm-up step, then, once the phase's process
+    has written the dense rounds' leaves to ``out_dir``
+    (``mesh_dense_rounds``), per run the mesh's round, built by
+    ``steps.build_train_round`` on the mesh and dispatched by its executor
+    (launches set to 0 just before), and this rank's blocks held to the
+    dense leaves, read from their file; (a) K4's sharded form on the TopK
+    run's first gossip step's gaps. Writes ``mesh<r>.pt``."""
+    import torch.distributed as dist
+    from unittest import mock
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.core.substrate import MeshSubstrate
+    from repro_torch.device import deterministic_algorithms
+    from repro_torch.kernels import ops, topk
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params, train_loss
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_rank = time.perf_counter()
+    dev = group.device
+    mesh = make_host_mesh(*MESH_GRID)
+    cfg = mesh_model()
+    arch = REGISTRY[MESH_ARCH]
+    n = arch.fsdp_nodes
+    meta, axes = init_params(cfg, None, "meta", abstract=True)
+    specs = {k: sharding.spec_for_param(axes[k], (n,) + tuple(v.shape),
+                                        "gossip-fsdp", mesh, node_dim=True)
+             for k, v in meta.items()}
+    bspec = sharding.batch_spec(mesh, "gossip-fsdp", has_tau_dim=True)
+    batch = {k: sharding.shard_leaf(torch.from_numpy(v), bspec, mesh).to(dev)
+             for k, v in mesh_batches(cfg, n).items()}
+    loss = lambda p, b: train_loss(p, b, cfg)  # noqa: E731
+    res = {"rank": mesh.rank, "coords": mesh.coords, "runs": {}}
+    real_grads = MeshSubstrate.node_grads
+    real_k4 = ops.topk_threshold_sharded_many
+    with deterministic_algorithms(True):
+        mesh_warmup(cfg, dev, batch, loss)
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        while not os.path.exists(os.path.join(out_dir, "dense_ready")):
+            require(not os.path.exists(os.path.join(out_dir, "dense_failed")),
+                    "mesh: the dense rounds failed")
+            require(time.monotonic() < deadline,
+                    "mesh: no dense rounds in time")
+            time.sleep(0.05)
+        dist.barrier()
+        res["wait_s"] = time.perf_counter() - t0
+        for i, (label, compression, kw, ref) in enumerate(MESH_RUNS):
+            path = os.path.join(out_dir, f"dense_{ref}.pt")
+            # the mesh's round through its builder: this rank's blocks of
+            # the N copies, its part of each node's batch
+            t0 = time.perf_counter()
+            built = steps.build_train_round(
+                arch, MESH_SHAPE, mesh, tau1=MESH_TAUS[0], tau2=MESH_TAUS[1],
+                compression=(make_compressor(compression, **kw)
+                             if compression else None),
+                lr=MESH_LR, cfg=cfg, batch=MESH_BATCH, seq=MESH_SEQ,
+                device=dev, generator=mesh_generator(dev),
+                node_chunk=MESH_CHUNK)
+            require(built.meta["engine"] == "dense" and all(
+                torch.equal(built.args[1][k][0], batch[k]) for k in batch),
+                f"mesh (b) {label}: the builder's engine or batches differ")
+            if label == "control" and mesh.rank == MESH_CONTROL[1]:
+                built.args[0].params[MESH_CONTROL[0]][0].mul_(MESH_CONTROL[2])
+            build_s = time.perf_counter() - t0
+            # the bytes and seconds of each local step's collectives, and
+            # the round's substrate (its group's counters, its leaves)
+            local, seen = [], {}
+
+            def counted(sub, *a):
+                sg = sub.group
+                seen.setdefault("sub", sub)
+                seen.setdefault("c0", sg.collective_s)
+                before = (sg.gathered_bytes, sg.reduced_bytes,
+                          sg.collective_s)
+                out = real_grads(sub, *a)
+                local.append([after - b0 for after, b0 in zip(
+                    (sg.gathered_bytes, sg.reduced_bytes, sg.collective_s),
+                    before)])
+                return out
+            # (a)'s inputs: the first gossip step's gaps, copied to the
+            # host (the card holds four ranks' C-DFL state); the copies'
+            # time is taken out of the round's
+            captured, copy_s = [], [0.0]
+
+            def capture(xs, ks, span):
+                if len(captured) < len(set(seen["sub"].row_axes.values())):
+                    t0 = time.perf_counter()
+                    captured.append(([x.cpu() for x in xs], list(ks), span))
+                    copy_s[0] += time.perf_counter() - t0
+                return real_k4(xs, ks, span)
+            torch.cuda.reset_peak_memory_stats(dev)
+            dist.barrier()
+            ops.reset_launches()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with mock.patch.object(MeshSubstrate, "node_grads", counted), \
+                    mock.patch.object(ops, "topk_threshold_sharded_many",
+                                      capture):
+                state, m = built.run()
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0 - copy_s[0]
+            sub = seen["sub"]
+            sg = sub.group
+            run = {"metrics": {k: float(v[-1]) for k, v in m.items()},
+                   "s": secs, "collective_s": sg.collective_s - seen["c0"],
+                   "local": local, "launches": dict(ops.LAUNCHES),
+                   "expect": {k: v * MESH_TAUS[1] for k, v in
+                              mesh_step_launches(sub, compression).items()},
+                   "peak": torch.cuda.max_memory_allocated(dev),
+                   "build_s": build_s,
+                   "builds": built.executor.compile_count,
+                   "captures": built.executor.capture_count}
+            res["backend"] = sg.backend
+            del built, m, seen
+            # every rank's blocks against the dense leaves (rank 0's file,
+            # mapped, so each rank reads its blocks only)
+            t0 = time.perf_counter()
+            want_all = torch.load(path, mmap=True, weights_only=True)
+            diffs = {}
+            for k in sorted(state.params):
+                mine = state.params.pop(k)
+                want = sharding.shard_leaf(want_all[k], specs[k],
+                                           mesh).to(dev)
+                d = mine.float() - want.float()
+                diffs[k] = [float((d * d).sum()),
+                            float(want.float().pow(2).sum()),
+                            float(d.abs().max())]
+                del d, want, mine
+            del want_all, state
+            run["diffs"] = diffs
+            run["compare_s"] = time.perf_counter() - t0
+            if captured:
+                t0 = time.perf_counter()
+                run["k4"] = mesh_k4_check(captured, sg, topk, ops, dev)
+                run["k4_s"] = time.perf_counter() - t0
+                captured.clear()
+            res["runs"][label] = run
+            del sub, sg
+            torch.cuda.empty_cache()
+            dist.barrier()
+            if mesh.rank == 0 and all(r[3] != ref for r in MESH_RUNS[i + 1:]):
+                os.remove(path)      # no later run is held to it
+    res["s"] = time.perf_counter() - t_rank
+    torch.save(res, os.path.join(out_dir, f"mesh{mesh.rank}.pt"))
+
+
+def mesh_k4_check(captured, sg, topk, ops, dev):
+    """Phase 18 (a): K4's sharded form again on the captured gaps of the
+    TopK run's first gossip step (every leaf): every rank's thresholds
+    bitwise the same (each rank selects every row whole), and rank 0's
+    bitwise its plain version (``threshold_sharded_plain``: the rows
+    gathered, to rank 0 alone, ``threshold_plain``) and the unsharded K4
+    on the gathered rows. The sharded call's time (host clock, synced,
+    its collectives included) and its collectives' part, rank 0's plain
+    version's time (the gather and the select), and the bytes of this
+    rank's keys."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    out = {"bitwise": True, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+           "collective_ms": 0.0, "key_bytes": 0, "rows": 0, "launches": 0}
+    for host, ks, span in captured:
+        xs = [x.to(dev) for x in host]
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        before = ops.LAUNCHES["topk_threshold_sharded"]
+        c0 = sg.collective_s
+        t0 = time.perf_counter()
+        got = ops.topk_threshold_sharded_many(xs, ks, span)
+        torch.cuda.synchronize(dev)
+        out["ms"] += (time.perf_counter() - t0) * 1e3
+        out["collective_ms"] += (sg.collective_s - c0) * 1e3
+        out["launches"] += ops.LAUNCHES["topk_threshold_sharded"] - before
+        out["key_bytes"] += sum(x.numel() * x.element_size() for x in xs)
+        out["rows"] += sum(x.shape[0] for x in xs)
+        bits_of = torch.cat([bits(g).to(torch.int32) for g in got])
+        every = sg.all_gather(bits_of, sg.mesh.axis_names)
+        out["bitwise"] &= all(torch.equal(e, every[0]) for e in every)
+        pg, size = sg.mesh.group_of(span.axes)
+        if 0 not in sg.mesh.members(span.axes):
+            continue        # these rows are rank 0's group's too: held above
+        for x, k, g in zip(xs, ks, got):
+            if size > 1:
+                dist.barrier(group=pg)
+            t0 = time.perf_counter()
+            # the rows' parts to rank 0 only (the plain version's gather,
+            # without every rank receiving every row)
+            part = x.cpu()
+            parts = ([torch.empty_like(part) for _ in range(size)]
+                     if rank == 0 else None)
+            if size > 1:
+                dist.gather(part, parts, dst=0, group=pg)
+            if rank == 0:
+                rows = torch.cat(parts if size > 1 else [part], dim=1).to(dev)
+                plain = topk.threshold_sharded_plain(x, k, lambda _: rows)
+                torch.cuda.synchronize(dev)
+                out["plain_ms"] += (time.perf_counter() - t0) * 1e3
+                whole = ops.topk_threshold(rows, k)
+                out["bitwise"] &= same_bits(g, plain) and same_bits(g, whole)
+                out["max_abs_err"] = max(out["max_abs_err"],
+                                         max_abs_err(g, plain))
+                del plain, whole, rows
+            del part, parts
+            torch.cuda.empty_cache()
+        del xs, got
+    return out
+
+
+def mesh_k4_alone():
+    """Phase 18 (a0), in this process: K4's sharded form over a span of one
+    rank (the sum the identity), every row through every count and pick
+    pass, bitwise the unsharded K4 at the parity sizes, f32 and bf16,
+    normal rows, ties and a -0.0 row, k = 1, a third and all."""
+    from repro_torch.core.sharded import ShardGroup
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    span = ShardGroup(make_host_mesh(1, 1), "cuda").span(())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dt in (torch.float32, torch.bfloat16):
+        xs, ks = [], []
+        for i, d in enumerate(PARITY_SIZES):
+            x = torch.randn((3, d), generator=gen, device="cuda").to(dt)
+            x[1, ::3] = 0.5
+            x[2, : d // 2] = -0.0
+            xs.append(x)
+            ks.append((1, max(1, d // 3), d)[i % 3])
+        got = ops.topk_threshold_sharded_many(xs, ks, span)
+        want = ops.topk_threshold_many(xs, ks)
+        for g, w, d in zip(got, want, PARITY_SIZES):
+            require(same_bits(g, w), f"mesh (a0): K4's sharded form over one "
+                    f"rank differs from K4 at D = {d}, {dt}")
+    print("mesh (a0) K4-sharded over one rank bitwise K4 at the parity "
+          "sizes, f32 and bf16")
+
+
+def run_mesh_phase(K, gate=True):
+    """Phase 18, the gossip-fsdp mesh (``launch.mesh``, ``launch.sharding``,
+    ``core.substrate.MeshSubstrate``): DeepSeek-Coder-33B at its published
+    widths in bf16, depth cut 62 -> 1, 4 replicated nodes on ring(4), 4
+    gloo ranks sharing the card as a data 2 x model 2 mesh, each node's
+    batch of 2 at seq 256 split over ``data``, tau (1, 2), each round
+    built by ``steps.build_train_round`` on the mesh (the local step one
+    node at a time) and dispatched by its executor. (a) K4's sharded-row
+    form on the TopK run's first gossip step's gaps of every leaf: bitwise
+    its plain version and the unsharded K4 on the gathered rows. (b) One
+    round each of plain DFL, TopK (frac 0.5) and QSGD (16 levels) from the
+    same weights and batches as the dense port on one process (this one,
+    before any mesh round, while the ranks start and take a warm-up step;
+    ``mesh_dense_rounds``): the whole leaves within
+    ``MESH_RUN_RTOL`` (the tree's relative Frobenius difference), the loss
+    and consensus too; the control, the plain round with node 0's copy of
+    rank 1's block of one leaf scaled first (``MESH_CONTROL``), must break
+    every limit; exact launches of K1, K3, K2 and K4's sharded form on
+    every rank, no capture. (c) The phase's seconds, each rank's peak
+    memory, the bytes gathered and reduced a local step, the collectives'
+    share of a round (host clock). The phase must end within
+    ``MESH_BUDGET_S``. ``gate=False`` (``--only mesh_calibrate``) prints
+    the readings and holds none of the run limits."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.core.sharded import spawn
+
+    t_phase = time.perf_counter()
+    mesh_k4_alone()
+    out = tempfile.mkdtemp(prefix="mesh_phase_")
+    free = shutil.disk_usage(out).free
+    torch.cuda.empty_cache()
+    world = MESH_GRID[0] * MESH_GRID[1]
+    # the ranks start and warm up while this process runs the dense rounds
+    # (``mesh_dense_rounds``); they wait for its files. Four ranks' C-DFL
+    # state share the card: their allocators grow segments instead of
+    # caching blocks of every size
+    failed = []
+
+    def ranks_main():
+        try:
+            spawn(mesh_rank, world, (out,), device="cuda",
+                  timeout_s=MESH_TIMEOUT_S)
+        except BaseException as e:      # re-raised below
+            failed.append(e)
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    ranks_thread = threading.Thread(target=ranks_main)
+    try:
+        ranks_thread.start()
+        dense = mesh_dense_rounds(out)
+    finally:
+        ranks_thread.join()
+        if env is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+    if failed:
+        raise failed[0]
+    ranks = [torch.load(os.path.join(out, f"mesh{r}.pt"), weights_only=False)
+             for r in range(world)]
+    shutil.rmtree(out, ignore_errors=True)
+    readings, control = {}, {}
+    k4 = [r["runs"]["cdfl_topk"]["k4"] for r in ranks]
+    require(all(x["bitwise"] for x in k4), "mesh (a): K4's sharded form is "
+            "not bitwise its plain version and the unsharded K4")
+    print("mesh (a) K4-sharded on the first gossip step's gaps of every "
+          "leaf, bitwise its plain version and the unsharded K4 on the "
+          "gathered rows, every rank: " + json.dumps(
+              [{k: x[k] for k in ("ms", "collective_ms", "plain_ms",
+                                  "key_bytes", "rows", "launches")}
+               for x in k4]))
+
+    def tree_rel(runs):
+        """The whole tree's relative Frobenius difference, every rank's
+        blocks summed (a block held twice, as a leaf replicated along an
+        axis is, counts twice in both sums)."""
+        num = sum(v[0] for r in runs for v in r["diffs"].values())
+        den = sum(v[1] for r in runs for v in r["diffs"].values())
+        return math.sqrt(num / den)
+
+    for label, compression, _, ref in MESH_RUNS:
+        runs = [r["runs"][label] for r in ranks]
+        want = dense[ref]["metrics"]
+        for r in runs:
+            require(r["launches"] == expect_launches(K, **r["expect"]),
+                    f"mesh (b) {label}: launches {r['launches']}, expected "
+                    f"{r['expect']}")
+            require((r["builds"], r["captures"]) == (1, 0),
+                    f"mesh (b) {label}: {r['builds']} builds, "
+                    f"{r['captures']} captures; expected 1 and 0")
+            require(all(math.isfinite(v) for v in r["metrics"].values()),
+                    f"mesh (b) {label}: non-finite metrics {r['metrics']}")
+        # per leaf, the largest absolute difference is printed (the norms
+        # are initialised to 0, so a leaf's own relative reading is no
+        # scale)
+        worst = {k: max(r["diffs"][k][2] for r in runs)
+                 for k in runs[0]["diffs"]}
+        got = {"params": tree_rel(runs),
+               "loss": abs(runs[0]["metrics"]["loss"] - want["loss"])
+               / abs(want["loss"]),
+               "consensus_sq": abs(runs[0]["metrics"]["consensus_sq"]
+                                   - want["consensus_sq"])
+               / max(abs(want["consensus_sq"]), FIG_CONSENSUS_FLOOR)}
+        print(f"mesh (b) {label}: mesh {json.dumps(runs[0]['metrics'])} "
+              f"dense {json.dumps(want)} rel diffs {json.dumps(got)} "
+              f"max abs diff a leaf {json.dumps(worst)} launches a rank "
+              f"{json.dumps(runs[0]['launches'])}")
+        if label == "control":
+            control = got
+            if gate:
+                require(all(control[k] > lim
+                            for k, lim in MESH_RUN_RTOL.items()),
+                        f"mesh control {MESH_CONTROL} within a limit "
+                        f"{control}, limits {MESH_RUN_RTOL}")
+        else:
+            for k, v in got.items():
+                readings[k] = max(readings.get(k, 0.0), v)
+            if gate:
+                for k, lim in MESH_RUN_RTOL.items():
+                    require(got[k] <= lim, f"mesh (b) {label}: {k} rel "
+                            f"diff {got[k]} beyond {lim}")
+        # (c): the round's costs on each rank
+        print(f"mesh (c) {label}: round s a rank " + json.dumps(
+            [r["s"] for r in runs]) + " collectives' share " + json.dumps(
+            [r["collective_s"] / r["s"] for r in runs])
+            + " gathered / reduced bytes and collective s a local step "
+            "(rank 0) " + json.dumps(runs[0]["local"])
+            + " peak bytes a rank " + json.dumps([r["peak"] for r in runs])
+            + " build s a rank " + json.dumps([r["build_s"] for r in runs])
+            + " compare s a rank " + json.dumps([r["compare_s"] for r in runs])
+            + (" dense round s " + json.dumps(dense[label]["s"])
+               + " its file s " + json.dumps(dense[label]["save_s"])
+               + " dense peak bytes " + json.dumps(dense[label]["peak"])
+               if label in dense else ""))
+    print("mesh (b) largest sound readings " + json.dumps(readings)
+          + " control " + json.dumps(control) + " limits "
+          + json.dumps(MESH_RUN_RTOL))
+    k = K["topk_threshold_sharded"]
+    k.launches = sum(r["runs"]["cdfl_topk"]["launches"][
+        "topk_threshold_sharded"] for r in ranks)
+    k.max_abs_err = max(x["max_abs_err"] for x in k4)
+    k.ms, k.plain_ms = k4[0]["ms"], k4[0]["plain_ms"]
+    # rank 0's keys read once and its thresholds written once (bf16)
+    k.add_bound(k4[0]["key_bytes"] + 2 * k4[0]["rows"], 0)
+    secs = time.perf_counter() - t_phase
+    print(f"mesh (c) phase {secs:.1f} s (budget {MESH_BUDGET_S} s), ranks "
+          + json.dumps([r["s"] for r in ranks]) + " of them waiting for "
+          "the dense rounds " + json.dumps([r["wait_s"] for r in ranks])
+          + " (a) s "
+          + json.dumps(ranks[0]["runs"]["cdfl_topk"]["k4_s"]) + ", backend "
+          + ranks[0]["backend"] + ", mesh data x model "
+          + json.dumps(MESH_GRID) + f", {free} bytes free for the dense "
+          "rounds' files")
+    require(not gate or secs <= MESH_BUDGET_S,
+            f"mesh phase took {secs:.1f} s, over its {MESH_BUDGET_S} s")
+
+
 def run_phase(name, phase):
     """Run one phase and print its time; a phase that raises prints
     ``phase NAME failed: <type>: <message>`` and the exception goes on."""
@@ -5066,6 +5684,9 @@ def main():
                "src/repro/kernels/choco_fused.py:108", False),
         Kernel("topk_threshold", "src/repro_torch/kernels/csrc/topk.cu",
                "src/repro/kernels/topk.py:51", True),
+        Kernel("topk_threshold_sharded",
+               "src/repro_torch/kernels/csrc/topk.cu",
+               "src/repro/kernels/topk.py:51", False),
         Kernel("topk_mask", "src/repro_torch/kernels/csrc/topk.cu",
                "src/repro/kernels/topk.py:79", False),
         Kernel("qsgd_quantize", "src/repro_torch/kernels/csrc/qsgd.cu",
@@ -5111,7 +5732,8 @@ def main():
         "sparse": lambda: run_sparse_phase(K),
         "roofline": lambda: run_roofline_phase(K),
         "bench_kernels": run_bench_kernels_phase,
-        "analysis": lambda: run_analysis_phase(K)}
+        "analysis": lambda: run_analysis_phase(K),
+        "mesh": lambda: run_mesh_phase(K)}
     # phases run only when named after --only: readings ungated, or a part
     # of a phase above alone
     only = {
@@ -5127,7 +5749,8 @@ def main():
                                      ("gossip_mix_many", "x_scale", 1e-4))),
         "lm_kernels": lambda: lm_kernel_times(dataclasses.replace(
             REGISTRY[LM_FULL_ARCH].model, num_layers=LM_FULL_LAYERS), True),
-        "sparse_kernels": lambda: received_kernel_phase(K)}
+        "sparse_kernels": lambda: received_kernel_phase(K),
+        "mesh_calibrate": lambda: run_mesh_phase(K, gate=False)}
     if sys.argv[1:2] == ["--only"]:
         # a subset of the phases, for work on the card; no result line
         print(card_line())

@@ -15,6 +15,13 @@ threshold over its scores runs K4 (``repro_torch.kernels.ops``).
 ``per_node_many`` applies Q to every stacked leaf of a tree: leaf by leaf,
 but for TopK one K4 call and one K5 call, and for QSGD one K6 call, for
 the leaves of each dtype.
+
+What Q reads of a whole row (its length d, TopK's k-th largest |x|,
+QSGD's norm) comes from a ``RowOps``: ``WHOLE_ROWS``, the default, when
+every row is whole in its tensor; on the gossip-fsdp mesh a row is split
+over ranks and the substrate passes one that reads the whole row across
+them (``core.substrate.MeshSubstrate``), so ``_k`` and ``_c`` always see
+the row's global length.
 """
 from __future__ import annotations
 
@@ -36,18 +43,49 @@ __all__ = [
     "make_compressor",
     "compress_tree",
     "tree_wire_bits",
+    "RowOps",
+    "WHOLE_ROWS",
 ]
 
 
-def by_dtype(leaves: List[torch.Tensor], fn: Callable) -> List[Any]:
-    """``fn`` on the leaves of each dtype in one call (``fn(group) ->
-    one output per leaf``), the outputs back in the leaves' order."""
+def by_dtype(leaves: List[torch.Tensor], fn: Callable,
+             *aligned: Sequence[Any]) -> List[Any]:
+    """``fn`` on the leaves of each dtype in one call (``fn(group,
+    *aligned_groups) -> one output per leaf``, each list of ``aligned``
+    cut the same way), the outputs back in the leaves' order."""
     out: List[Any] = [None] * len(leaves)
     for dtype in dict.fromkeys(x.dtype for x in leaves):
         idx = [i for i, x in enumerate(leaves) if x.dtype == dtype]
-        for i, o in zip(idx, fn([leaves[i] for i in idx])):
+        for i, o in zip(idx, fn([leaves[i] for i in idx],
+                                *[[a[i] for i in idx] for a in aligned])):
             out[i] = o
     return out
+
+
+class RowOps:
+    """What a compressor reads of whole rows, for ``[R, D]`` row tensors:
+    ``lengths`` (each tensor's whole row length), ``thresholds`` (each
+    row's exact k-th largest |x| for the tensors' ``ks``, one K4 call for
+    the tensors of each dtype) and ``norms`` (each row's f32 2-norm), for
+    the tensors it was made for, in order; ``part(idx)`` the same for the
+    tensors at positions ``idx`` of those. This one holds every row whole
+    in its tensor."""
+
+    def part(self, idx: Sequence[int]) -> "RowOps":
+        return self
+
+    def lengths(self, rows: Sequence[torch.Tensor]) -> List[int]:
+        return [r.shape[1] for r in rows]
+
+    def thresholds(self, rows: Sequence[torch.Tensor],
+                   ks: Sequence[int]) -> List[torch.Tensor]:
+        return by_dtype(list(rows), ops.topk_threshold_many, ks)
+
+    def norms(self, rows: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [torch.linalg.vector_norm(r.float(), dim=1) for r in rows]
+
+
+WHOLE_ROWS = RowOps()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,15 +117,24 @@ class Compressor:
 
     def draw_many(self, draws, round_idx: int, step: int,
                   leaves: Sequence[str], ds: Sequence[int],
-                  node_ids=None) -> List[Optional[torch.Tensor]]:
+                  node_ids=None, blocks=None) -> List[Optional[torch.Tensor]]:
         """``draw`` for each leaf of ``leaves`` (d-vectors of ``ds``), in
-        one ``uniform_many`` call on the seam."""
+        one ``uniform_many`` call on the seam. ``blocks[i]``: leaf i is
+        held as a block of its whole ``[d]`` row (``core.rng.Block``); a
+        draw of one value per coordinate is then drawn at the block's
+        global indices, ``[rows, block elements]``, and a draw of one
+        value a node (``draw_shape`` ``()``) whole."""
         shapes = [self.draw_shape(d) for d in ds]
         if all(s is None for s in shapes):
             return [None] * len(shapes)
         if draws is None:
             raise ValueError(f"compressor {self.name!r} draws random numbers; "
                              "pass the round's draws (DFLState.draws)")
+        if blocks is not None:
+            blocks = [b if s == (d,) else None
+                      for b, s, d in zip(blocks, shapes, ds)]
+            return draws.uniform_many(round_idx, step, leaves, shapes,
+                                      node_ids, blocks=blocks)
         return draws.uniform_many(round_idx, step, leaves, shapes, node_ids)
 
     def __call__(self, x: torch.Tensor,
@@ -104,9 +151,11 @@ class Compressor:
         return x
 
     def per_node_many(self, xs: Sequence[torch.Tensor],
-                      draws: Sequence[Optional[torch.Tensor]]
-                      ) -> List[torch.Tensor]:
-        """``per_node`` on each stacked leaf ``xs[i]`` with ``draws[i]``."""
+                      draws: Sequence[Optional[torch.Tensor]],
+                      row_ops: RowOps = WHOLE_ROWS) -> List[torch.Tensor]:
+        """``per_node`` on each stacked leaf ``xs[i]`` with ``draws[i]``;
+        ``row_ops`` reads their whole rows (a compressor that needs
+        nothing of the whole row ignores it)."""
         return [self.per_node(x, u) for x, u in zip(xs, draws)]
 
 
@@ -138,15 +187,18 @@ class TopK(Compressor):
     def per_node(self, x, draws=None):
         return self.per_node_many([x], [draws])[0]
 
-    def per_node_many(self, xs, draws):
+    def per_node_many(self, xs, draws, row_ops=WHOLE_ROWS):
         """One K4 call for the thresholds and one K5 call for the masks of
         the leaves of each dtype (one of each for a tree of one dtype)."""
-        def mask(rows):
-            return ops.topk_mask_many(rows, ops.topk_threshold_many(
-                rows, [self._k(r.shape[1]) for r in rows]))
+        def mask(group, ks, idx):
+            return ops.topk_mask_many(group, row_ops.part(idx).thresholds(
+                group, ks))
 
         rows = [x.reshape(x.shape[0], -1) for x in xs]
-        return [m.reshape(x.shape) for x, m in zip(xs, by_dtype(rows, mask))]
+        masked = by_dtype(rows, mask, [self._k(d) for d in
+                                       row_ops.lengths(rows)],
+                          range(len(rows)))
+        return [m.reshape(x.shape) for x, m in zip(xs, masked)]
 
 
 def _rows_draws(comp: Compressor, rows: torch.Tensor,
@@ -184,12 +236,22 @@ class RandK(Compressor):
         return (d,)
 
     def per_node(self, x, draws=None):
-        rows = x.reshape(x.shape[0], -1)
-        scores = _rows_draws(self, rows, draws)
-        thresh = ops.topk_threshold(scores, self._k(rows.shape[1]))
-        kept = torch.where(scores >= thresh[:, None], rows,
-                           torch.zeros_like(rows))
-        return kept.reshape(x.shape)
+        return self.per_node_many([x], [draws])[0]
+
+    def per_node_many(self, xs, draws, row_ops=WHOLE_ROWS):
+        """One K4 call a leaf on its scores (the whole row's k-th largest
+        score through ``row_ops``), then the keep."""
+        out = []
+        for i, (x, u) in enumerate(zip(xs, draws)):
+            rows = x.reshape(x.shape[0], -1)
+            scores = _rows_draws(self, rows, u)
+            leaf = row_ops.part([i])
+            (d,) = leaf.lengths([rows])
+            (thresh,) = leaf.thresholds([scores], [self._k(d)])
+            kept = torch.where(scores >= thresh[:, None], rows,
+                               torch.zeros_like(rows))
+            out.append(kept.reshape(x.shape))
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,22 +280,15 @@ class QSGD(Compressor):
     def per_node(self, x, draws=None):
         return self.per_node_many([x], [draws])[0]
 
-    def per_node_many(self, xs, draws):
+    def per_node_many(self, xs, draws, row_ops=WHOLE_ROWS):
         """Every leaf's per-node f32 norm, then one K6 call for the leaves
         of each dtype (one call for a tree of one dtype)."""
         rows = [x.reshape(x.shape[0], -1) for x in xs]
         noises = [_rows_draws(self, r, u) for r, u in zip(rows, draws)]
-        out = [None] * len(rows)
-        for dtype in dict.fromkeys(r.dtype for r in rows):
-            idx = [i for i, r in enumerate(rows) if r.dtype == dtype]
-            qs = ops.qsgd_quantize_many(
-                [rows[i] for i in idx], [noises[i] for i in idx],
-                [torch.linalg.vector_norm(rows[i].float(), dim=1)
-                 for i in idx],
-                self.levels, [self._c(rows[i].shape[1]) for i in idx])
-            for i, q in zip(idx, qs):
-                out[i] = q.reshape(xs[i].shape)
-        return out
+        cs = [self._c(d) for d in row_ops.lengths(rows)]
+        qs = by_dtype(rows, lambda r, u, n, c: ops.qsgd_quantize_many(
+            r, u, n, self.levels, c), noises, row_ops.norms(rows), cs)
+        return [q.reshape(x.shape) for x, q in zip(xs, qs)]
 
 
 @dataclasses.dataclass(frozen=True)

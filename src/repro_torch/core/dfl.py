@@ -37,7 +37,11 @@ round k-1's exchange folded one round late), and the sparse engine, one
 node per process of a ``torch.distributed`` group
 (``make_round_fn(..., engine="sparse", group=...)``, ``core.sharded``):
 the same ``round_body`` on a ``ShardedSubstrate``, every leaf the rank's
-``[1, ...]`` row.
+``[1, ...]`` row. On the gossip-fsdp mesh (``make_round_fn(...,
+substrate=MeshSubstrate(...))``, ``launch.steps``) the dense engine runs
+on every rank over its blocks of all N nodes; the local step reaches the
+weights through the substrate's seam (``NodeSubstrate.node_grads``),
+which gathers them whole and reduces the gradients back to the blocks.
 """
 from __future__ import annotations
 
@@ -222,12 +226,18 @@ def local_phase(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,
     (``sub.node_mask_local``). Every node runs the steps; a masked node
     keeps its old parameters and optimizer state, step count included, so
     its schedule does not advance (``sub.select_nodes``), and the loss is
-    the mean over active nodes."""
+    the mean over active nodes.
+
+    The gradients come through the substrate's seam
+    (``sub.node_grads``): the vmapped call itself on whole parameters, a
+    gather before it and a reduction to the blocks after it on the mesh;
+    the optimizer then updates what the substrate holds."""
     grad_fn = vmap(grad_and_value(loss_fn))
     params0, opt_state0 = params, opt_state
     losses = []
     for t in range(cfg.tau1 if tau1 is None else tau1):
-        grads, loss = grad_fn(params, tree_map(lambda b: b[t], batches))
+        grads, loss = sub.node_grads(grad_fn, params,
+                                     tree_map(lambda b: b[t], batches))
         updates, opt_state = opt.update(grads, opt_state, params)
         params = {name: (p + updates[name]).to(p.dtype)
                   for name, p in params.items()}
@@ -348,7 +358,8 @@ def check_taus(cfg: DFLConfig, tau1, tau2) -> Tuple[int, int]:
 def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
                   engine: str = "dense", dynamic_taus: bool = False,
                   participation: bool = False,
-                  population: Optional[int] = None, group=None):
+                  population: Optional[int] = None, group=None,
+                  substrate: Optional[NodeSubstrate] = None):
     """round_fn(state, batches) -> (state', metrics) on the dense engine;
     batch leaves [tau1, N, B, ...].
 
@@ -382,6 +393,12 @@ def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
     Every rank calls it the same number of times with the same host taus
     and masks. Misuse raises ``ValueError`` with the reference's reasons
     (``check_sparse``).
+
+    ``substrate``: the dense engine over another node-stacked substrate,
+    the gossip-fsdp mesh's ``MeshSubstrate`` (every rank its blocks of all
+    N nodes; batch leaves ``[tau1, N, B / data, ...]``, this rank's part of
+    each node's batch). Every rank calls it alike, as on the sparse
+    engine.
     """
     if dynamic_taus and cfg.mixing_impl == "dense_power":
         raise ValueError(
@@ -395,6 +412,12 @@ def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
             raise ValueError("participation masks index cfg.topology.edges(); "
                              "a round-varying topology schedule has no "
                              "stable edge list")
+    if substrate is not None:
+        return round_fn_over(cfg, loss_fn, opt,
+                             _given_substrate(cfg, engine, substrate,
+                                              population, group),
+                             dynamic_taus=dynamic_taus,
+                             participation=participation)
     if engine == "auto":
         engine = ("batched" if population is not None else "sparse"
                   if sparse_engine_eligible(cfg, group) else "dense")
@@ -433,6 +456,22 @@ def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
         sub = DenseSubstrate(cfg.topology)
     return round_fn_over(cfg, loss_fn, opt, sub, dynamic_taus=dynamic_taus,
                          participation=participation)
+
+
+def _given_substrate(cfg: DFLConfig, engine: str, substrate: NodeSubstrate,
+                     population=None, group=None) -> NodeSubstrate:
+    """``substrate`` checked to be a dense-engine substrate of the config's
+    nodes."""
+    if engine not in ("dense", "auto"):
+        raise ValueError(f"a given substrate runs the dense engine, not "
+                         f"engine={engine!r}")
+    if population is not None or group is not None:
+        raise ValueError("a given substrate takes neither population= nor "
+                         "group=")
+    if substrate.num_nodes != cfg.topology.num_nodes:
+        raise ValueError(f"the substrate holds {substrate.num_nodes} nodes, "
+                         f"the topology has {cfg.topology.num_nodes}")
+    return substrate
 
 
 def round_fn_over(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer,

@@ -94,7 +94,10 @@ and re-plans, the static fallback, participation masks,
 exchange under gloo goes through the host, which a CUDA graph cannot
 capture. So ``capture_count`` stays 0 there, and ``compile_count`` counts
 the round functions built (1 in the dynamic mode, one per distinct
-(tau1, tau2) in the static fallback).
+(tau1, tau2) in the static fallback). Rounds on the gossip-fsdp mesh
+(``substrate=MeshSubstrate(...)``) run the same way, for the same reason,
+in every mode but the batched one and ``overlap="pipeline"`` (not
+ported to the mesh).
 """
 from __future__ import annotations
 
@@ -231,6 +234,11 @@ class RoundExecutor:
         ``core.sharded.NodeGroup``: the sparse engine's eager rounds
         (``EagerRounds``); misuse raises ``ValueError`` with the
         reference's reasons.
+      substrate: the gossip-fsdp mesh's ``core.substrate.MeshSubstrate``
+        (dense engine): every rank dispatches its blocks of all N nodes
+        and its part of each node's batches, as eager rounds
+        (``EagerRounds``): a collective over gloo cannot be captured.
+        ``overlap="pipeline"`` with a substrate raises (not ported).
     """
 
     _TRAJ_CACHE_MAX = 128
@@ -239,7 +247,7 @@ class RoundExecutor:
                  dynamic: bool = True, participation: bool = False,
                  donate: bool = True, telemetry=None, overlap: str = "none",
                  population: Optional[int] = None,
-                 deterministic: bool = True, group=None):
+                 deterministic: bool = True, group=None, substrate=None):
         if overlap not in ("none", "pipeline"):
             raise ValueError(
                 f"unknown overlap mode {overlap!r} (use 'none'|'pipeline')")
@@ -250,6 +258,13 @@ class RoundExecutor:
             raise ValueError(f"unknown engine {engine!r}")
         if engine == "sparse":
             check_sparse(cfg, group)
+        if substrate is not None and (engine != "dense"
+                                      or population is not None):
+            raise ValueError("a given substrate (the gossip-fsdp mesh's) "
+                             "runs the dense engine's eager rounds")
+        if substrate is not None and overlap == "pipeline":
+            raise ValueError("overlap='pipeline' on the gossip-fsdp mesh is "
+                             "not ported (use overlap='none')")
         if overlap == "pipeline" and not dynamic:
             raise ValueError(
                 "overlap='pipeline' rides the dynamic superstep scan; the "
@@ -299,10 +314,14 @@ class RoundExecutor:
         self._tel = telemetry
         self._in_warmup = False
         self.engine = engine
-        self._eager = (EagerRounds(cfg, loss_fn, opt, group, dynamic=dynamic,
+        eager_kw = (dict(engine="sparse", group=group) if engine == "sparse"
+                    else dict(substrate=substrate) if substrate is not None
+                    else None)
+        self._eager = (EagerRounds(cfg, loss_fn, opt, eager_kw,
+                                   dynamic=dynamic,
                                    participation=participation,
                                    pipeline=overlap == "pipeline")
-                       if engine == "sparse" else None)
+                       if eager_kw is not None else None)
         graphed = dynamic and self._eager is None
         self._graph = (GraphedRounds(cfg, loss_fn, opt,
                                      participation=participation,
@@ -574,17 +593,21 @@ class RoundExecutor:
 
 
 class EagerRounds:
-    """The sparse engine's rounds for ``RoundExecutor``, run eagerly on this
-    rank: ``make_round_fn(engine="sparse")`` built once in the dynamic mode
-    (with participation masks), once per distinct (tau1, tau2) in the static
-    fallback, or ``make_pipeline_fns``' pair under ``pipeline``. A dispatch
+    """The rounds of a process group's ranks for ``RoundExecutor``, run
+    eagerly on this rank: ``make_round_fn(**engine_kw)`` (the sparse
+    engine's ``engine="sparse", group=...``, or the gossip-fsdp mesh's
+    ``substrate=MeshSubstrate(...)``) built once in the dynamic mode (with
+    participation masks), once per distinct (tau1, tau2) in the static
+    fallback, or ``make_pipeline_fns``' pair under ``pipeline`` (the
+    sparse engine's only). A dispatch
     is K sequential calls of those functions, so it is bitwise the eager
-    rounds; nothing is captured (a gloo exchange goes through the host)."""
+    rounds; nothing is captured (a gloo collective goes through the
+    host)."""
 
-    def __init__(self, cfg: DFLConfig, loss_fn, opt, group, *, dynamic: bool,
-                 participation: bool, pipeline: bool):
-        self.cfg, self._loss_fn, self._opt, self._group = (cfg, loss_fn, opt,
-                                                           group)
+    def __init__(self, cfg: DFLConfig, loss_fn, opt, engine_kw: dict, *,
+                 dynamic: bool, participation: bool, pipeline: bool):
+        self.cfg, self._loss_fn, self._opt = cfg, loss_fn, opt
+        self._engine_kw = dict(engine_kw)
         self.dynamic, self.participation = dynamic, participation
         self.pipeline = pipeline
         self._fns: Dict[Any, Any] = {}
@@ -598,20 +621,20 @@ class EagerRounds:
             cfg, loss_fn, opt = self.cfg, self._loss_fn, self._opt
             if key == "pipeline":
                 self._fns[key] = make_pipeline_superstep(
-                    *make_pipeline_fns(cfg, loss_fn, opt, engine="sparse",
+                    *make_pipeline_fns(cfg, loss_fn, opt,
                                        participation=self.participation,
-                                       group=self._group),
+                                       **self._engine_kw),
                     participation=self.participation,
                     num_nodes=cfg.topology.num_nodes,
                     num_edges=cfg.topology.num_edges)
             elif key == "dynamic":
                 self._fns[key] = make_round_fn(
-                    cfg, loss_fn, opt, engine="sparse", dynamic_taus=True,
-                    participation=self.participation, group=self._group)
+                    cfg, loss_fn, opt, dynamic_taus=True,
+                    participation=self.participation, **self._engine_kw)
             else:
                 self._fns[key] = make_round_fn(
                     dataclasses.replace(cfg, tau1=key[0], tau2=key[1]),
-                    loss_fn, opt, engine="sparse", group=self._group)
+                    loss_fn, opt, **self._engine_kw)
         return self._fns[key]
 
     def run(self, state: DFLState, batches: Any, rows: np.ndarray, k: int,

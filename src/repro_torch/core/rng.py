@@ -28,6 +28,14 @@ never depends on the order of calls or on which other nodes or leaves
 were asked for. ``ReplayDraws`` returns arrays it was given under the same
 indices, rows picked by id: the tests feed it the reference's own draws.
 
+A substrate whose leaves are blocks of the node's row (the gossip-fsdp
+mesh, ``core.substrate.MeshSubstrate``) asks for a block of a leaf's
+draws (``uniform_many(..., blocks=)``): the values at the block's global
+element indices, built from the whole leaf's strides, bitwise the whole
+draw cut to the block. ``GeneratorDraws`` evaluates its counters there
+and nowhere else; every other seam (``ReplayDraws`` among them) draws the
+whole leaf and cuts it.
+
 ``KeyedDraws`` (``GeneratorDraws.keyed``) draws the same bits under a key
 read from a device tensor instead of folded from host ints: a captured
 CUDA graph cannot see a host scalar change, so the executor writes each
@@ -47,9 +55,12 @@ import torch
 from repro_torch.core.tree import leaf_order
 from repro_torch.device import resolve_device, to_device
 
-__all__ = ["Draws", "GeneratorDraws", "KeyedDraws", "ReplayDraws"]
+__all__ = ["Draws", "GeneratorDraws", "KeyedDraws", "ReplayDraws",
+           "block_index", "cut_block"]
 
 Key = Tuple[int, int, str]
+# a block of a leaf: (the leaf's per-node shape, (start, size) a dim)
+Block = Tuple[Tuple[int, ...], Tuple[Tuple[int, int], ...]]
 _M64 = (1 << 64) - 1
 _SPLITMIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
 _GAMMA = _SPLITMIX[0]
@@ -69,12 +80,48 @@ class Draws:
 
     def uniform_many(self, round_idx: int, step: int, leaves: Sequence[str],
                      shapes: Sequence[Sequence[int]],
-                     node_ids: Optional[Sequence[int]] = None
+                     node_ids: Optional[Sequence[int]] = None,
+                     blocks: Optional[Sequence[Optional[Block]]] = None
                      ) -> List[torch.Tensor]:
         """``uniform`` for each leaf of ``leaves`` with its shape, bitwise
-        those calls; a seam may draw them all at once."""
-        return [self.uniform(round_idx, step, leaf, shape, node_ids)
-                for leaf, shape in zip(leaves, shapes)]
+        those calls; a seam may draw them all at once. ``blocks[i]``, where
+        given, is a block of leaf i (``Block``: its per-node shape, whose
+        element count is ``shapes[i]``'s, and a span a dim): that leaf
+        comes back as ``[len(node_ids), block elements]``, the draws at the
+        block's elements in its row-major order, bitwise the whole draw cut
+        to them. This default draws the whole leaf and cuts it."""
+        out = []
+        for i, (leaf, shape) in enumerate(zip(leaves, shapes)):
+            u = self.uniform(round_idx, step, leaf, shape, node_ids)
+            block = None if blocks is None else blocks[i]
+            out.append(u if block is None else cut_block(u, block))
+        return out
+
+
+def cut_block(u: torch.Tensor, block: Block) -> torch.Tensor:
+    """``[rows, *]`` draws of whole leaves cut to ``block``, flat a row."""
+    whole, spans = block
+    out = u.reshape((u.shape[0],) + tuple(whole))
+    for i, (start, size) in enumerate(spans):
+        out = out.narrow(i + 1, start, size)
+    return out.reshape(u.shape[0], -1).contiguous()
+
+
+def block_index(block: Block, begin: int, end: int,
+                device) -> torch.Tensor:
+    """The whole leaf's flat element indices (int64) of the block's
+    elements ``begin .. end - 1``, in the block's row-major order: each
+    position unravelled over the block's sizes and put together from the
+    whole shape's strides."""
+    whole, spans = block
+    pos = torch.arange(begin, end, dtype=torch.int64, device=device)
+    out = torch.zeros_like(pos)
+    stride = 1
+    for dim, (start, size) in zip(reversed(whole), reversed(spans)):
+        out.add_(pos.remainder(size).add_(start).mul_(stride))
+        pos = pos.div(size, rounding_mode="floor")
+        stride *= dim
+    return out
 
 
 def _ids(node_ids, num_nodes: int) -> List[int]:
@@ -149,6 +196,12 @@ class GeneratorDraws(Draws):
         return elem.mul_(_signed(_GAMMA)).add_(_signed(
             _splitmix(0, self.leaves.index(leaf))))
 
+    def _elems_at(self, leaf: str, index: torch.Tensor) -> torch.Tensor:
+        """``o_l + GAMMA * e`` for the element indices ``index`` of the
+        leaf ``leaf``, int64 (wrapping), in place."""
+        return index.mul_(_signed(_GAMMA)).add_(_signed(
+            _splitmix(0, self.leaves.index(leaf))))
+
     def _base(self, ids: Optional[bytes], leaves: Tuple[str, ...],
               numels: Tuple[int, ...],
               keep: Optional[Dict[tuple, torch.Tensor]] = None
@@ -188,9 +241,41 @@ class GeneratorDraws(Draws):
         return self.uniform_many(round_idx, step, [leaf], [shape],
                                  node_ids)[0]
 
-    def uniform_many(self, round_idx, step, leaves, shapes, node_ids=None):
-        return self.draw_at(self.step_key(round_idx, step), leaves, shapes,
-                            node_ids)
+    def uniform_many(self, round_idx, step, leaves, shapes, node_ids=None,
+                     blocks=None):
+        key = self.step_key(round_idx, step)
+        if blocks is None or all(b is None for b in blocks):
+            return self.draw_at(key, leaves, shapes, node_ids)
+        return [self.draw_at(key, [leaf], [shape], node_ids)[0]
+                if block is None else
+                self.draw_block(key, leaf, shape, block, node_ids)
+                for leaf, shape, block in zip(leaves, shapes, blocks)]
+
+    def draw_block(self, key, leaf: str, shape: Sequence[int], block: Block,
+                   node_ids=None) -> torch.Tensor:
+        """The draws of ``leaf`` (``shape``: its whole flat draw) at the
+        elements of ``block``, ``[rows, block elements]``: the counters at
+        the block's global indices (``block_index``), at most
+        ``BLOCK_MAX`` counters at a time, bitwise ``draw_at``'s whole draw
+        cut to the block."""
+        numel = int(np.prod(block[0], dtype=np.int64))
+        if tuple(shape) != (numel,):
+            raise ValueError(f"a block of {leaf!r} needs its flat draw shape "
+                             f"({numel},), got {tuple(shape)}")
+        n = int(np.prod([size for _, size in block[1]], dtype=np.int64))
+        ids = None if node_ids is None else np.asarray(
+            _ids(node_ids, self.num_nodes), np.int64).tobytes()
+        node_part = self._rows(ids)
+        rows = node_part.numel()
+        width = max(1, self.BLOCK_MAX // max(rows, 1))
+        out = torch.empty((rows, n), dtype=torch.float32, device=self.device)
+        for c0 in range(0, n, width):
+            c1 = min(n, c0 + width)
+            elems = self._elems_at(leaf, block_index(block, c0, c1,
+                                                     self.device))
+            out[:, c0:c1] = _finish(node_part[:, None] + elems[None, :]
+                                    + key)
+        return out
 
     def draw_at(self, key, leaves, shapes, node_ids=None,
                 keep: Optional[Dict[tuple, torch.Tensor]] = None
@@ -307,7 +392,12 @@ class KeyedDraws(Draws):
         return self.uniform_many(round_idx, step, [leaf], [shape],
                                  node_ids)[0]
 
-    def uniform_many(self, round_idx, step, leaves, shapes, node_ids=None):
+    def uniform_many(self, round_idx, step, leaves, shapes, node_ids=None,
+                     blocks=None):
+        if blocks is not None and any(b is not None for b in blocks):
+            # the mesh's rounds run eagerly, never under a device key
+            raise ValueError("KeyedDraws draws whole leaves; blocks are "
+                             "drawn by a GeneratorDraws")
         key = self.key[step] if self._per_step else self.key
         if self.ids is not None and node_ids is None:
             return self.draws.draw_ids(key, leaves, shapes, self.ids,

@@ -42,6 +42,13 @@ shift of a circulant C (``core.sharded.NodeGroup``) and mixes the copies
 received with K1's received-buffer form; ``choco_step`` and ``compress``
 are the dense ones above (``NodeSubstrate``), on one row; the means over
 nodes are sums over the ranks.
+
+``MeshSubstrate`` is the gossip-fsdp mesh's: every rank holds all N
+nodes, each leaf cut into blocks over the ranks of a mesh
+(``launch.sharding``); the dense hooks run on the blocks, what spans a
+whole row is reduced over the ranks that hold it, and the local step
+gathers the weights and reduces the gradients back to the blocks
+(``node_grads``, the round's seam between parameters and gradients).
 """
 from __future__ import annotations
 
@@ -52,7 +59,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import mixing as mixing_lib
-from repro_torch.core.compression import QSGD, Compressor, TopK, by_dtype
+from repro_torch.core.compression import (QSGD, WHOLE_ROWS, Compressor,
+                                          RowOps, TopK, by_dtype)
+from repro_torch.core.sharded import DATA_AXIS, block_spans, spec_axes
 from repro_torch.core.topology import Topology
 from repro_torch.core.tree import leaf_order, tree_leaves, tree_map
 from repro_torch.device import to_device
@@ -62,7 +71,7 @@ from repro_torch.kernels.choco_fused import gap
 Params = Dict[str, torch.Tensor]
 
 __all__ = ["NodeSubstrate", "DenseSubstrate", "BatchedSubstrate",
-           "ShardedSubstrate"]
+           "ShardedSubstrate", "MeshSubstrate"]
 
 
 class _DeviceCache:
@@ -153,6 +162,28 @@ class NodeSubstrate:
                                mask_local) -> torch.Tensor:
         raise NotImplementedError
 
+    def row_ops(self, names) -> RowOps:
+        """How a compressor reads the whole rows of the leaves ``names``
+        (``compression.RowOps``): here every row is whole in its tensor."""
+        return WHOLE_ROWS
+
+    def draw_leaves(self, comp: Compressor, draws, round_idx: int, step: int,
+                    tree: Params) -> list:
+        """``comp``'s draws for every leaf of ``tree`` (its rows flat), for
+        the nodes ``node_ids``, in one ``draw_many`` call on the seam."""
+        names = list(tree)
+        return comp.draw_many(draws, round_idx, step, names,
+                              [tree[name][0].numel() for name in names],
+                              self.node_ids)
+
+    def node_grads(self, grad_fn: Callable, params: Params, batch: Any):
+        """The local step's ``(grads, per-node loss)``: ``grad_fn``
+        (``vmap(grad_and_value(loss))``) on the nodes' parameters and one
+        step's batch. Here the parameters are whole, so it is that call;
+        a substrate that holds blocks gathers first and reduces after
+        (``MeshSubstrate``)."""
+        return grad_fn(params, batch)
+
     def compress(self, comp: Compressor, tree: Params, draws=None,
                  round_idx: int = 0, step: int = 0) -> Params:
         """Q on every node's slice of each leaf of ``tree``, whose leading
@@ -163,11 +194,9 @@ class NodeSubstrate:
         call per dtype under TopK, one K6 call per dtype under QSGD, and
         goes leaf by leaf for the other compressors."""
         names = list(tree)
-        us = comp.draw_many(draws, round_idx, step, names,
-                            [tree[name][0].numel() for name in names],
-                            self.node_ids)
-        return dict(zip(names, comp.per_node_many([tree[name]
-                                                   for name in names], us)))
+        us = self.draw_leaves(comp, draws, round_idx, step, tree)
+        return dict(zip(names, comp.per_node_many(
+            [tree[name] for name in names], us, self.row_ops(names))))
 
     def choco_step(self, comp: Compressor, x: Params, y: Params,
                    mixed_y: Params, gamma: float, draws=None,
@@ -181,33 +210,43 @@ class NodeSubstrate:
         leaf dtype, the thresholds of the leaves of each dtype in one K4
         call, then K3 per leaf. QSGD, per leaf: d's per-node f32 norm and
         K2 (which recomputes d bitwise). Other compressors: the unfused
-        composition (``choco_unfused``)."""
+        composition (``choco_unfused``). Whole-row quantities (k, c, the
+        thresholds and norms) come from ``row_ops``."""
         if not isinstance(comp, (TopK, QSGD)):
             return self.choco_unfused(comp, x, y, mixed_y, gamma, draws,
                                       round_idx, step)
         n = self.rows
         rows = {name: tuple(t[name].reshape(n, -1) for t in (x, y, mixed_y))
                 for name in x}
+        row_ops = self.row_ops(list(rows))
         x_new, y_new = {}, {}
         if isinstance(comp, TopK):
             gaps = [gap(a, b, my, gamma) for a, b, my in rows.values()]
-            threshs = by_dtype(gaps, lambda ds: ops.topk_threshold_many(
-                ds, [comp._k(d.shape[1]) for d in ds]))
-            for (name, (a, b, my)), d, t in zip(rows.items(), gaps, threshs):
-                x_new[name], y_new[name] = ops.choco_topk(a, b, my, d, t,
-                                                          gamma)
+            threshs = row_ops.thresholds(
+                gaps, [comp._k(d) for d in row_ops.lengths(gaps)])
+            for i, ((name, (a, b, my)), t) in enumerate(zip(rows.items(),
+                                                            threshs)):
+                x_new[name], y_new[name] = ops.choco_topk(a, b, my, gaps[i],
+                                                          t, gamma)
+                gaps[i] = None     # each gap freed once its leaf is done
         else:
-            noises = comp.draw_many(draws, round_idx, step, list(rows),
-                                    [r[0].shape[1] for r in rows.values()],
-                                    self.node_ids)
-            for (name, (a, b, my)), noise in zip(rows.items(), noises):
+            lengths = row_ops.lengths([r[0] for r in rows.values()])
+            noises = self.gap_noises(comp, draws, round_idx, step, x)
+            for i, ((name, (a, b, my)), noise, length) in enumerate(zip(
+                    rows.items(), noises, lengths)):
                 d = gap(a, b, my, gamma)
-                norm = torch.linalg.vector_norm(d.float(), dim=1)
+                (norm,) = row_ops.part([i]).norms([d])
                 x_new[name], y_new[name] = ops.choco_qsgd(
                     a, b, my, noise, norm, gamma, comp.levels,
-                    comp._c(d.shape[1]))
+                    comp._c(length))
         return ({name: v.reshape(x[name].shape) for name, v in x_new.items()},
                 {name: v.reshape(x[name].shape) for name, v in y_new.items()})
+
+    def gap_noises(self, comp: Compressor, draws, round_idx: int, step: int,
+                   x: Params):
+        """QSGD's noise for the gaps of every leaf of ``x``, in its order:
+        here one ``draw_leaves`` call for the step."""
+        return self.draw_leaves(comp, draws, round_idx, step, x)
 
     def choco_unfused(self, comp: Compressor, x: Params, y: Params,
                       mixed_y: Params, gamma: float, draws=None,
@@ -566,3 +605,166 @@ class ShardedSubstrate(NodeSubstrate):
                                              device=x.device)]))
         both = both / self.num_nodes
         return both[0] / both[1].clamp(min=1.0 / max(self.num_nodes, 1))
+
+
+class MeshSubstrate(DenseSubstrate):
+    """The gossip-fsdp mesh: every rank holds all N nodes (node-replicated),
+    each leaf the block of every node that its spec gives this rank's
+    coordinates on a ``launch.mesh.Mesh`` (``specs``: the reference's
+    ``spec_for_param`` with the node dim, whose entry must be None here;
+    ``shapes``: every leaf's whole ``[N, ...]`` shape). ``group`` is the
+    rank's ``core.sharded.ShardGroup``.
+
+    The node axis is whole on every rank, so the dense hooks run on the
+    blocks as they are: ``mix`` is ``DenseSubstrate.mix_by`` on the block
+    tree (K1), and the means over nodes are local. What spans a whole row
+    is reduced over the ranks that hold that row's distinct parts, the axes
+    the leaf's spec names (a leaf replicated along an axis is counted once
+    on it): TopK's thresholds by K4's sharded-row form, QSGD's norm as the
+    square root of the summed f32 sums of squares (then K2 with it), the
+    consensus distance's sums. ``_k`` and ``_c`` take the whole row's
+    length, and the random compressors draw at the block's global element
+    indices, so a rank's block of a gossip step is the dense step's block
+    (QSGD's ``y_new`` within K2's ulps, the norm being summed in another
+    order).
+
+    The local step (``node_grads``) gathers the nodes' whole weights,
+    ``chunk`` nodes at a time (all N by default), runs the vmapped
+    gradient on this rank's part of each node's batch (split over
+    ``data``), and keeps this rank's block of the gradients' mean over the
+    ``data`` ranks; the loss is the mean over the ``data`` ranks. Ranks
+    along ``model`` compute the same step on the same gathered weights:
+    the ``model`` axis splits storage and the gossip work, not compute.
+    On a 1 x 1 mesh every collective is the identity and the round is
+    bitwise the dense engine's."""
+
+    def __init__(self, topology: Topology, group, specs: Dict[str, tuple],
+                 shapes: Dict[str, Tuple[int, ...]],
+                 chunk: Optional[int] = None):
+        super().__init__(topology)
+        self.group = group
+        mesh = group.mesh
+        self.specs = {name: tuple(spec) for name, spec in specs.items()}
+        self.shapes = {name: tuple(int(d) for d in shape)
+                       for name, shape in shapes.items()}
+        for name, spec in self.specs.items():
+            if spec and spec[0] is not None:
+                raise ValueError(
+                    f"leaf {name!r} has its node dim sharded ({spec[0]}): "
+                    "gossip-dp and multi-pod gossip-fsdp meshes are not "
+                    "ported; the mesh substrate holds every node")
+            if self.shapes[name][0] != self.num_nodes:
+                raise ValueError(f"leaf {name!r} stacks {self.shapes[name][0]}"
+                                 f" nodes, the topology has {self.num_nodes}")
+        self.chunk = self.num_nodes if chunk is None else max(1, int(chunk))
+        # the axes a leaf's rows are split over, and its block of one node
+        self.row_axes = {name: spec_axes(spec, mesh)
+                         for name, spec in self.specs.items()}
+        self.blocks = {name: (self.shapes[name][1:], block_spans(
+            self.shapes[name][1:], self.specs[name][1:], mesh))
+            for name in self.specs}
+        self.lengths = {name: int(np.prod(shape[1:], dtype=np.int64))
+                        for name, shape in self.shapes.items()}
+
+    def row_ops(self, names) -> RowOps:
+        return _MeshRows(self, list(names))
+
+    def draw_leaves(self, comp, draws, round_idx, step, tree):
+        names = list(tree)
+        return comp.draw_many(draws, round_idx, step, names,
+                              [self.lengths[name] for name in names],
+                              self.node_ids,
+                              blocks=[self.blocks[name] for name in names])
+
+    def gap_noises(self, comp, draws, round_idx, step, x):
+        """One leaf's noise at a time, each freed after its K2: a block of
+        the full-width tree's draws is gigabytes."""
+        for name in x:
+            yield self.draw_leaves(comp, draws, round_idx, step,
+                                   {name: x[name]})[0]
+
+    def node_grads(self, grad_fn, params, batch):
+        grads, losses = [], []
+        for c0 in range(0, self.num_nodes, self.chunk):
+            sl = slice(c0, min(self.num_nodes, c0 + self.chunk))
+            whole = self.group.gather({name: p[sl] for name, p in
+                                       params.items()}, self.specs)
+            g, loss = grad_fn(whole, tree_map(lambda b: b[sl], batch))
+            del whole
+            grads.append(self.group.reduce_to_shard(g, self.specs))
+            losses.append(self.group.mean_over(loss, (DATA_AXIS,)))
+        if len(grads) == 1:
+            return grads[0], losses[0]
+        return ({name: torch.cat([g[name] for g in grads])
+                 for name in grads[0]}, torch.cat(losses))
+
+    def sum_rows(self, values: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Each leaf's per-row values (``[N]`` f32 partial sums of this
+        rank's block) summed over the ranks of that leaf's row axes: one
+        collective for the leaves of each set of axes, in the leaves'
+        order."""
+        out = {}
+        by_axes: Dict[tuple, list] = {}
+        for name in values:
+            by_axes.setdefault(self.row_axes[name], []).append(name)
+        for axes, names in by_axes.items():
+            total = self.group.sum_over(
+                torch.stack([values[name] for name in names]), axes)
+            out.update(zip(names, total))
+        return out
+
+    def consensus_sq(self, params: Params) -> torch.Tensor:
+        """``NodeSubstrate.consensus_sq`` with each leaf's per-node sums
+        added over the ranks of its row (``sum_rows``), then the leaves in
+        the reference's leaf order."""
+        mean = self.mean_tree(params)
+        sums = self.sum_rows({name: self.sum_per_node(
+            (params[name].float() - mean[name].float()) ** 2)
+            for name in leaf_order(params)})
+        dev = None
+        for name in leaf_order(params):
+            dev = sums[name] if dev is None else dev + sums[name]
+        return self.mean_over_nodes(dev)
+
+
+
+class _MeshRows(RowOps):
+    """``RowOps`` of a ``MeshSubstrate``'s leaves ``names`` (the rows given
+    in that order): whole-row lengths, K4's sharded-row form for the leaves
+    of each (dtype, row axes), norms from the summed sums of squares."""
+
+    def __init__(self, sub: MeshSubstrate, names):
+        self.sub, self.names = sub, names
+
+    def part(self, idx):
+        return _MeshRows(self.sub, [self.names[i] for i in idx])
+
+    def lengths(self, rows):
+        return [self.sub.lengths[name] for name in self.names]
+
+    def thresholds(self, rows, ks):
+        out = [None] * len(rows)
+        groups: Dict[tuple, list] = {}
+        for i, (name, r) in enumerate(zip(self.names, rows)):
+            groups.setdefault((r.dtype, self.sub.row_axes[name]), []).append(i)
+        for (_, axes), idx in groups.items():
+            found = ops.topk_threshold_sharded_many(
+                [rows[i] for i in idx], [ks[i] for i in idx],
+                self.sub.group.span(axes))
+            for i, t in zip(idx, found):
+                out[i] = t
+        return out
+
+    def norms(self, rows):
+        """A row held whole on this rank takes the dense engine's norm; a
+        split one the square root of its parts' f32 sums of squares,
+        summed over its ranks."""
+        mesh = self.sub.group.mesh
+        split = {name: r.float().pow(2).sum(dim=1)
+                 for name, r in zip(self.names, rows)
+                 if mesh.axes_size(self.sub.row_axes[name]) > 1}
+        sums = self.sub.sum_rows(split)
+        return [sums[name].sqrt() if name in sums
+                else WHOLE_ROWS.norms([r])[0]
+                for name, r in zip(self.names, rows)]

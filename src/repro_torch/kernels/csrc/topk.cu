@@ -33,6 +33,25 @@
 // (__grid_constant__, read in place), so a call copies nothing to the card
 // beside the zeroed scratch the wrapper allocates.
 //
+// K4's sharded-row form (topk_shard_count, topk_shard_pick) is the same
+// select for rows split over the ranks of a gossip-fsdp mesh, each rank
+// holding a part of every row: the exact k-th largest |x| of the WHOLE row
+// (the reference's argument for partials, src/repro/kernels/topk.py:9-18:
+// whatever the parts, the count of keys above a digit is the sum of the
+// parts' counts). Every row takes one count launch and one pick launch a
+// pass, whether or not its part has a key left under the prefix:
+//   * count: each block histograms the keys of its chunk that match the
+//     row's prefix into shared memory and adds the non-zero bins to the
+//     row's histogram in the [segments, 2^bits] buffer (integer atomics);
+//   * between the two launches the wrapper sums that buffer over the
+//     row's ranks (one all-gather a pass a call, 8 KB a row at 11 bits);
+//   * pick: one block a row scans the summed bins, fixes the digit and
+//     the rank left inside it, and carries (prefix, rank) to the next
+//     pass in a [segments, 2] state, or writes the threshold after the
+//     last. The sum is the same on every rank, so every rank picks the
+//     same digits, and the threshold is bitwise the unsharded K4's on the
+//     whole row. Bound: bytes, one read of this rank's keys a pass.
+//
 // K5 replaces src/repro/kernels/topk.py:topk_mask_2d (_mask_kernel):
 // out = |x| >= t[row] ? x : +0 in the input dtype, over every leaf of a
 // list in one launch. Bound: bytes, one read and one write of every
@@ -245,6 +264,73 @@ topk_select_kernel(const __grid_constant__ SelectPlan plan, unsigned* __restrict
   }
 }
 
+// K4's sharded-row form, count: pass `pass` over every chunk of the plan,
+// each row's keys matching its prefix (state[2 * seg], 0 at pass 0) added
+// into hist[seg][2^bits] (zeroed by the wrapper).
+template <typename T>
+__global__ void __launch_bounds__(kSelectThreads)
+topk_shard_count_kernel(const __grid_constant__ SelectPlan plan,
+                        const uint32_t* __restrict__ state, unsigned* __restrict__ hist,
+                        int pass) {
+  __shared__ unsigned local[kMaxBins];
+  int li = 0;
+  while (li + 1 < plan.num_leaves && plan.leaf[li + 1].chunk_begin <= (int)blockIdx.x) ++li;
+  const SelectLeaf& leaf = plan.leaf[li];
+  const int64_t at = (int64_t)blockIdx.x - leaf.chunk_begin;
+  const int64_t row = at / leaf.chunks_per_row;
+  const int64_t start = (at % leaf.chunks_per_row) * plan.chunk;
+  const int64_t stop = start + plan.chunk < leaf.cols ? start + plan.chunk : leaf.cols;
+  const int64_t seg = leaf.seg_begin + row;
+  const int shift = plan.shift[pass];
+  const int nbins = 1 << plan.bits[pass];
+  const uint32_t prefix = pass == 0 ? 0u : state[2 * seg];
+  const uint32_t fixed =
+      Key<T>::kAbs & ~(uint32_t)((1ull << (shift + plan.bits[pass])) - 1ull);
+  for (int b = threadIdx.x; b < nbins; b += blockDim.x) local[b] = 0u;
+  __syncthreads();
+  count_chunk<T>(leaf, row, start, stop, prefix, fixed, shift, (uint32_t)nbins - 1u, local);
+  __syncthreads();
+  unsigned* seg_hist = hist + seg * nbins;
+  for (int b = threadIdx.x; b < nbins; b += blockDim.x) {
+    if (local[b]) atomicAdd(&seg_hist[b], local[b]);
+  }
+}
+
+// K4's sharded-row form, pick: one block a row (segment) over the bins
+// summed across the row's ranks; the digit holding the row's rank (k at
+// pass 0) extends the prefix, and the last pass writes it as the
+// threshold in the leaf's dtype.
+template <typename T>
+__global__ void __launch_bounds__(kSelectThreads)
+topk_shard_pick_kernel(const __grid_constant__ SelectPlan plan,
+                       const unsigned* __restrict__ hist, uint32_t* __restrict__ state,
+                       int pass) {
+  using U = typename Key<T>::U;
+  __shared__ unsigned bins[kMaxBins];
+  __shared__ uint32_t pick[2];
+  const int64_t seg = blockIdx.x;
+  int li = 0;
+  while (li + 1 < plan.num_leaves && plan.leaf[li + 1].seg_begin <= seg) ++li;
+  const SelectLeaf& leaf = plan.leaf[li];
+  const int64_t row = seg - leaf.seg_begin;
+  const int shift = plan.shift[pass];
+  const int nbins = 1 << plan.bits[pass];
+  const uint32_t prefix = pass == 0 ? 0u : state[2 * seg];
+  const uint32_t rank = pass == 0 ? (uint32_t)leaf.k : state[2 * seg + 1];
+  for (int b = threadIdx.x; b < nbins; b += blockDim.x) bins[b] = hist[seg * nbins + b];
+  if (threadIdx.x == 0) pick[0] = pick[1] = 0u;
+  __syncthreads();
+  select_digit(bins, nbins, rank, pick);
+  if (threadIdx.x != 0) return;
+  const uint32_t found = prefix | (pick[0] << shift);
+  if (pass == plan.passes - 1) {
+    static_cast<U*>(leaf.out)[row] = static_cast<U>(found);
+  } else {
+    state[2 * seg] = found;
+    state[2 * seg + 1] = pick[1];
+  }
+}
+
 constexpr int kMaskThreads = 256;
 constexpr int kMaskLoads = 4;  // 16-byte vectors a thread loads before any compare
 
@@ -376,6 +462,46 @@ extern "C" int topk_select_f32(const void* plan, void* scratch, int pass, int64_
 extern "C" int topk_select_bf16(const void* plan, void* scratch, int pass, int64_t blocks,
                                 void* stream) {
   return launch_select<__nv_bfloat16>(plan, scratch, pass, blocks, stream);
+}
+
+template <typename T>
+static int launch_shard_count(const void* plan, const void* state, void* hist, int pass,
+                              int64_t blocks, void* stream) {
+  topk_shard_count_kernel<T><<<(unsigned)blocks, kSelectThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      *static_cast<const SelectPlan*>(plan), static_cast<const uint32_t*>(state),
+      static_cast<unsigned*>(hist), pass);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int launch_shard_pick(const void* plan, const void* hist, void* state, int pass,
+                             int64_t segments, void* stream) {
+  topk_shard_pick_kernel<T><<<(unsigned)segments, kSelectThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      *static_cast<const SelectPlan*>(plan), static_cast<const unsigned*>(hist),
+      static_cast<uint32_t*>(state), pass);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int topk_shard_count_f32(const void* plan, const void* state, void* hist, int pass,
+                                    int64_t blocks, void* stream) {
+  return launch_shard_count<float>(plan, state, hist, pass, blocks, stream);
+}
+
+extern "C" int topk_shard_count_bf16(const void* plan, const void* state, void* hist, int pass,
+                                     int64_t blocks, void* stream) {
+  return launch_shard_count<__nv_bfloat16>(plan, state, hist, pass, blocks, stream);
+}
+
+extern "C" int topk_shard_pick_f32(const void* plan, const void* hist, void* state, int pass,
+                                   int64_t segments, void* stream) {
+  return launch_shard_pick<float>(plan, hist, state, pass, segments, stream);
+}
+
+extern "C" int topk_shard_pick_bf16(const void* plan, const void* hist, void* state, int pass,
+                                    int64_t segments, void* stream) {
+  return launch_shard_pick<__nv_bfloat16>(plan, hist, state, pass, segments, stream);
 }
 
 // sizeof(MaskPlan), its leaf limit and its threads a block, for the

@@ -29,6 +29,11 @@ for each of the reference's seven Pallas kernels:
   * ``topk_threshold_many(xs, ks)``        K4, per-row k-th largest |x| of
                                            every leaf of a list;
                                            ``topk_threshold`` for one.
+  * ``topk_threshold_sharded_many(xs, ks, span)``
+                                           K4's sharded-row form: the
+                                           k-th largest |x| of rows split
+                                           over the ranks of ``span``
+                                           (``core.sharded.RowSpan``).
   * ``topk_mask_many(xs, threshs)``       K5, per-row keep-or-zero of
                                            every leaf of a list;
                                            ``topk_mask`` for one.
@@ -54,6 +59,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 LAUNCHES: Dict[str, int] = {"gossip_mix": 0, "gossip_mix_received": 0,
                             "choco_qsgd": 0,
                             "choco_topk": 0, "topk_threshold": 0,
+                            "topk_threshold_sharded": 0,
                             "topk_mask": 0, "qsgd_quantize": 0,
                             "choco_move": 0}
 
@@ -234,6 +240,44 @@ def topk_threshold_many(xs: Sequence[torch.Tensor],
             for x in xs]
     with torch.cuda.device(xs[0].device):
         LAUNCHES[op] += _topk.launch_threshold_many(xs, ks, outs)
+    return outs
+
+
+def topk_threshold_sharded_many(xs: Sequence[torch.Tensor],
+                                ks: Sequence[int],
+                                span) -> List[torch.Tensor]:
+    """K4's sharded-row form: ``xs[i]`` ([R_i, D_i], one dtype) is this
+    rank's part of R_i rows that ``span`` (``core.sharded.RowSpan``)
+    splits over ``span.size`` ranks; per row, the ``ks[i]``-th largest |x|
+    of the WHOLE row in that dtype (ties inclusive), the same on every rank
+    and bitwise ``topk_threshold`` on the gathered rows. Every rank of the
+    span calls it with the same shapes. On the card one call of
+    ``topk.launch_threshold_sharded_many`` per ``topk.MAX_LEAVES`` leaves,
+    the histograms summed through ``span.sum``; on the CPU the plain
+    version gathers each leaf's rows (``span.gather_cols``)."""
+    op = "topk_threshold_sharded"
+    xs, ks = list(xs), [int(k) for k in ks]
+    if not xs or len(xs) != len(ks):
+        raise ValueError(f"{op}: {len(xs)} leaves and {len(ks)} k values")
+    on_card = _on_card(op, *xs)
+    for x, k in zip(xs, ks):
+        _check_leaf(op, "x", x)
+        if x.dtype != xs[0].dtype:
+            raise TypeError(f"{op}: leaves of {x.dtype} and {xs[0].dtype}")
+        if not 1 <= k <= x.shape[1] * span.size:
+            raise ValueError(f"TopK k={k} out of range for a size-"
+                             f"{x.shape[1] * span.size} vector")
+        if x.shape[1] * span.size >= 2 ** 31:
+            raise ValueError(f"{op}: {x.shape[1] * span.size} columns exceed "
+                             "the 32-bit counts")
+    if not on_card:
+        return [_topk.threshold_sharded_plain(x, k, span.gather_cols)
+                for x, k in zip(xs, ks)]
+    outs = [torch.empty(x.shape[0], dtype=x.dtype, device=x.device)
+            for x in xs]
+    with torch.cuda.device(xs[0].device):
+        LAUNCHES[op] += _topk.launch_threshold_sharded_many(xs, ks, outs,
+                                                            span.sum)
     return outs
 
 

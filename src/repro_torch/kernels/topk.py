@@ -17,13 +17,21 @@ gives a block's chunk), moved 16 bytes at a time from the chunk's first
 16-byte boundary, with a scalar head and tail (all scalar where x and out
 are not congruent modulo 16 bytes). Callers go through
 ``repro_torch.kernels.ops``.
+
+K4's sharded-row form (``launch_threshold_sharded_many``) selects the same
+threshold for rows split over the ranks of a gossip-fsdp mesh: every row
+a segment of its own (``select_plans(..., segment_all=True)``), one count
+launch and one pick launch a digit, the histograms summed over the row's
+ranks in between by the caller's ``reduce``. Its plain version gathers
+the row's parts and selects on the whole row
+(``threshold_sharded_plain``).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +50,8 @@ DIGITS: Dict[torch.dtype, Tuple[int, ...]] = {torch.float32: (11, 10, 10),
 _SELECT_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_int64, ctypes.c_void_p)
 _MASK_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p)
+_SHARD_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_int, ctypes.c_int64, ctypes.c_void_p)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -104,17 +114,20 @@ def digit_passes(dtype: torch.dtype) -> List[Tuple[int, int]]:
     return out
 
 
-def select_plans(shapes: Sequence[Tuple[int, int]],
-                 chunk: int = CHUNK) -> List[SelectPlan]:
+def select_plans(shapes: Sequence[Tuple[int, int]], chunk: int = CHUNK,
+                 segment_all: bool = False) -> List[SelectPlan]:
     """The calls for leaves of ``shapes[i] = (rows, cols)``: at most
-    ``MAX_LEAVES`` leaves each, every row cut into chunks of ``chunk``."""
+    ``MAX_LEAVES`` leaves each, every row cut into chunks of ``chunk``.
+    ``segment_all``: every row owns a scratch segment, in the leaves'
+    order (the sharded-row form, whose rows all take every pass)."""
     if chunk < 16 or chunk % 16:
         raise ValueError(f"topk_threshold: chunk {chunk} is not a positive "
                          "multiple of 16")
     plans = []
     for first in range(0, len(shapes), MAX_LEAVES):
         group = range(first, min(first + MAX_LEAVES, len(shapes)))
-        order = ([i for i in group if shapes[i][1] > chunk]
+        order = (list(group) if segment_all
+                 else [i for i in group if shapes[i][1] > chunk]
                  + [i for i in group if shapes[i][1] <= chunk])
         begin, per_row, seg_begin = [], [], []
         blocks = segments = multi_blocks = 0
@@ -124,7 +137,7 @@ def select_plans(shapes: Sequence[Tuple[int, int]],
             begin.append(blocks)
             per_row.append(n)
             blocks += rows * n
-            if n > 1:
+            if n > 1 or segment_all:
                 seg_begin.append(segments)
                 segments += rows
                 multi_blocks = blocks
@@ -197,6 +210,13 @@ def threshold_plain(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(x.abs(), k, dim=1).values[:, k - 1].contiguous()
 
 
+def threshold_sharded_plain(x: torch.Tensor, k: int,
+                            gather_cols) -> torch.Tensor:
+    """K4's sharded-row form, plainly: ``gather_cols`` puts the rows' parts
+    together (in any order of elements) and the whole rows select."""
+    return threshold_plain(gather_cols(x), k)
+
+
 def mask_plain(x: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() >= thresh[:, None], x, torch.zeros_like(x))
 
@@ -227,17 +247,7 @@ def launch_threshold_many(xs: Sequence[torch.Tensor], ks: Sequence[int],
     stream = torch.cuda.current_stream(device).cuda_stream
     launches = 0
     for plan in select_plans([tuple(x.shape) for x in xs], chunk):
-        c = _CPlan(num_leaves=len(plan.index), chunk=plan.chunk,
-                   passes=len(passes), num_segs=plan.segments)
-        for p, (shift, bits) in enumerate(passes):
-            c.shift[p], c.bits[p] = shift, bits
-        for slot, i in enumerate(plan.index):
-            c.leaf[slot] = _CLeaf(xs[i].data_ptr(), outs[i].data_ptr(),
-                                  plan.cols[slot], ks[i],
-                                  plan.chunk_begin[slot],
-                                  plan.chunks_per_row[slot],
-                                  plan.seg_begin[slot],
-                                  int(build.rows_aligned(xs[i])))
+        c = _plan_struct(plan, xs, ks, outs, passes)
         words = plan.segments * (2 ** MAX_DIGIT_BITS + len(passes) + 2)
         scratch = torch.zeros(max(words, 1), dtype=torch.int32, device=device)
         for p in range(len(passes) if plan.multi_blocks else 1):
@@ -245,6 +255,59 @@ def launch_threshold_many(xs: Sequence[torch.Tensor], ks: Sequence[int],
                      plan.blocks if p == 0 else plan.multi_blocks, stream)
             build.check("topk", symbol, err)
             launches += 1
+    return launches
+
+
+def _plan_struct(plan: SelectPlan, xs, ks, outs, passes) -> _CPlan:
+    c = _CPlan(num_leaves=len(plan.index), chunk=plan.chunk,
+               passes=len(passes), num_segs=plan.segments)
+    for p, (shift, bits) in enumerate(passes):
+        c.shift[p], c.bits[p] = shift, bits
+    for slot, i in enumerate(plan.index):
+        c.leaf[slot] = _CLeaf(xs[i].data_ptr(), outs[i].data_ptr(),
+                              plan.cols[slot], ks[i], plan.chunk_begin[slot],
+                              plan.chunks_per_row[slot], plan.seg_begin[slot],
+                              int(build.rows_aligned(xs[i])))
+    return c
+
+
+def launch_threshold_sharded_many(xs: Sequence[torch.Tensor],
+                                  ks: Sequence[int],
+                                  outs: Sequence[torch.Tensor],
+                                  reduce: Callable[[torch.Tensor],
+                                                   torch.Tensor],
+                                  chunk: int = CHUNK) -> int:
+    """Thresholds of the whole rows whose parts ``xs`` holds into ``outs``
+    (``ks[i]``: the rank within leaf i's whole row); ``reduce`` sums an
+    int32 histogram buffer over the rows' ranks (every rank calls it as
+    often, in the same order). Returns the number of kernel launches: one
+    count and one pick launch a digit a call of ``MAX_LEAVES`` leaves."""
+    _checked_layout()
+    dtype = xs[0].dtype
+    passes = digit_passes(dtype)
+    count = build.kernel("topk", f"topk_shard_count_{_SUFFIX[dtype]}",
+                         _SHARD_ARGS)
+    pick = build.kernel("topk", f"topk_shard_pick_{_SUFFIX[dtype]}",
+                        _SHARD_ARGS)
+    device = xs[0].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    launches = 0
+    for plan in select_plans([tuple(x.shape) for x in xs], chunk,
+                             segment_all=True):
+        c = _plan_struct(plan, xs, ks, outs, passes)
+        state = torch.empty(2 * plan.segments, dtype=torch.int32,
+                            device=device)
+        for p, (_, bits) in enumerate(passes):
+            hist = torch.zeros(plan.segments << bits, dtype=torch.int32,
+                               device=device)
+            build.check("topk", "topk_shard_count", count(
+                ctypes.addressof(c), state.data_ptr(), hist.data_ptr(), p,
+                plan.blocks, stream))
+            hist = reduce(hist)
+            build.check("topk", "topk_shard_pick", pick(
+                ctypes.addressof(c), hist.data_ptr(), state.data_ptr(), p,
+                plan.segments, stream))
+            launches += 2
     return launches
 
 

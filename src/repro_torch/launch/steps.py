@@ -8,8 +8,15 @@ train CLI uses (``core.dfl`` / ``RoundExecutor``), so a round on the card
 launches the kernels: K1 for a plain gossip step, K4 + K3 under TopK, K2
 under QSGD. Where the reference takes a mesh, the port takes ``nodes``:
 an int (every node stacked ``[N, ...]`` on one device, the dense engine),
-or this rank's ``core.sharded.NodeGroup`` (one node a process, the sparse
-engine). No mesh builder is ported (ROADMAP.md item 12).
+this rank's ``core.sharded.NodeGroup`` (one node a process, the sparse
+engine), or a ``launch.mesh.Mesh`` of ranks (``make_host_mesh``), as the
+reference's functions here take one, placing each leaf by the architecture's
+``sharding_mode`` (``launch.sharding``). Of the mesh's modes the port runs
+single-pod gossip-fsdp: the arch's ``fsdp_nodes`` nodes, replicated on
+every rank, each leaf a block of every node over (``data``, ``model``),
+each node's batch split over ``data``; the round is the dense engine's on
+``core.substrate.MeshSubstrate`` (``dfl_setup``, ``select_engine``). Every
+rank of the mesh calls these functions alike.
 
   * ``build_local_step``  ONE local SGD step on all of a device's nodes:
                           the roofline's compute unit.
@@ -46,20 +53,23 @@ from repro_torch.core.compression import Compressor
 from repro_torch.core.dfl import DFLConfig, gossip_phase, init_state, replicate
 from repro_torch.core.executor import RoundExecutor, stack_round_batches
 from repro_torch.core.rng import GeneratorDraws
-from repro_torch.core.sharded import NodeGroup, local_rows
-from repro_torch.core.substrate import DenseSubstrate, ShardedSubstrate
+from repro_torch.core.sharded import NodeGroup, ShardGroup, local_rows
+from repro_torch.core.substrate import (DenseSubstrate, MeshSubstrate,
+                                        ShardedSubstrate)
 from repro_torch.core.topology import fully_connected, ring, torus
 from repro_torch.data.lm import SyntheticLM, lm_batches_for_dfl
 from repro_torch.device import resolve_device
 from repro_torch.launch import roofline as roof_lib
+from repro_torch.launch import sharding as shard_lib
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import ModelConfig, init_params, train_loss
 from repro_torch.optim import sgd
 
-__all__ = ["Built", "kernelize_compressor", "build_local_step",
-           "build_gossip_step", "roofline_cost_inputs", "plan_train_schedule",
-           "build_train_round", "build_planned_round"]
+__all__ = ["Built", "kernelize_compressor", "dfl_setup", "select_engine",
+           "build_local_step", "build_gossip_step", "roofline_cost_inputs",
+           "plan_train_schedule", "build_train_round", "build_planned_round"]
 
-Nodes = Union[int, NodeGroup]
+Nodes = Union[int, NodeGroup, Mesh]
 
 
 @dataclasses.dataclass
@@ -103,10 +113,17 @@ def kernelize_compressor(compression: Optional[Compressor],
 # ---------------------------------------------------------------------------
 
 
-def _split(nodes: Nodes) -> Tuple[int, Optional[NodeGroup]]:
-    """(N, the group or None) of a ``nodes`` argument."""
+def _split(nodes: Nodes, arch: Optional[ArchConfig] = None
+           ) -> Tuple[int, Optional[NodeGroup]]:
+    """(N, the group or None) of a ``nodes`` argument; a mesh's N is the
+    arch's (``sharding.num_nodes_for``)."""
     if isinstance(nodes, NodeGroup):
         return nodes.world, nodes
+    if isinstance(nodes, Mesh):
+        if arch is None:
+            raise ValueError("a mesh's node count comes from the arch")
+        return shard_lib.num_nodes_for(arch.sharding_mode, nodes,
+                                       arch.fsdp_nodes), None
     return int(nodes), None
 
 
@@ -119,6 +136,40 @@ def _topology(n: int, topology: str):
         "full": fully_connected,
         "torus": lambda k: torus(2, k // 2) if k >= 4 else ring(k),
     }[topology](n)
+
+
+def dfl_setup(arch: ArchConfig, mesh: Mesh, *, tau1: int, tau2: int,
+              compression: Optional[Compressor], mixing_impl: str = "dense",
+              topology: str = "ring"):
+    """(mode, N, the round's ``DFLConfig``) of ``arch`` on ``mesh``: the
+    reference's ``dfl_setup``."""
+    mode = arch.sharding_mode
+    n = shard_lib.num_nodes_for(mode, mesh, arch.fsdp_nodes)
+    dcfg = DFLConfig(tau1=tau1, tau2=tau2, topology=_topology(n, topology),
+                     mixing_impl=mixing_impl, compression=compression)
+    return mode, n, dcfg
+
+
+def select_engine(engine: str, dcfg: DFLConfig, mesh: Mesh,
+                  mode: str) -> str:
+    """The reference's engine choice: an explicit one as given; "auto"
+    picks the sparse engine only where the node axes enumerate all N > 1
+    nodes, every other axis has one rank, and the topology is circulant,
+    with one topology mixed by iterated steps; else the dense engine
+    (gossip-fsdp on one pod: replicated nodes, always dense)."""
+    if engine != "auto":
+        return engine
+    node_axes = shard_lib.node_axes_for(mode, mesh)
+    if not node_axes:
+        return "dense"
+    if any(mesh.shape[a] > 1 for a in mesh.axis_names if a not in node_axes):
+        return "dense"
+    n = mesh.axes_size(node_axes)
+    topo = dcfg.topology
+    eligible = (topo.num_nodes > 1 and topo.num_nodes == n
+                and topo.is_shift_structured() and not dcfg.topology_schedule
+                and dcfg.mixing_impl == "dense")
+    return "sparse" if eligible else "dense"
 
 
 def _model(arch: ArchConfig, reduced: bool,
@@ -165,6 +216,42 @@ def _params(cfg: ModelConfig, dev: torch.device,
     return init_params(cfg, generator, dev)[0]
 
 
+def _mesh_parts(arch: ArchConfig, model: ModelConfig, mesh: Mesh, n: int,
+                dev: torch.device, generator: Optional[torch.Generator],
+                node_chunk: Optional[int], topo):
+    """This rank's blocks of ``n`` copies of one model's initial weights,
+    and the mesh substrate over them (which holds their specs and whole
+    shapes)."""
+    mode = arch.sharding_mode
+    if mode != "gossip-fsdp" or shard_lib.node_axes_for(mode, mesh):
+        raise ValueError(
+            f"{arch.arch_id}: the port's mesh runs single-pod gossip-fsdp; "
+            f"sharding_mode={mode!r} on axes {mesh.axis_names} is not "
+            "ported (ROADMAP.md queue 1)")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    whole, axes = init_params(model, generator, dev)
+    shapes = {name: (n,) + tuple(x.shape) for name, x in whole.items()}
+    specs = {name: shard_lib.spec_for_param(axes[name], shapes[name], mode,
+                                            mesh, node_dim=True)
+             for name in whole}
+    params = {}
+    for name in list(whole):
+        block = shard_lib.shard_leaf(whole.pop(name), specs[name][1:], mesh)
+        params[name] = block.unsqueeze(0).repeat((n,) + (1,) * block.dim())
+    sub = MeshSubstrate(topo, ShardGroup(mesh, dev), specs, shapes,
+                        chunk=node_chunk)
+    return params, sub
+
+
+def _mesh_batch(tree, mesh: Mesh, mode: str, lead: int):
+    """This rank's part of batches ``[*lead dims, N, B, ...]``: B split
+    over ``data`` (``sharding.batch_spec``)."""
+    spec = (None,) * lead + shard_lib.batch_spec(mesh, mode,
+                                                 has_tau_dim=False)
+    return {k: shard_lib.shard_leaf(v, spec, mesh) for k, v in tree.items()}
+
+
 # ---------------------------------------------------------------------------
 # Unit steps and their counts
 # ---------------------------------------------------------------------------
@@ -179,17 +266,30 @@ def build_local_step(arch: ArchConfig, shape_name: str, nodes: Nodes = 1, *,
     """ONE local SGD step on all of this device's nodes (N stacked, or a
     group's one): ``fn(params, opt_state, batch) -> (params', opt_state',
     mean loss)``, each node's gradient by ``vmap(grad)`` as in the round.
-    ``device="meta"`` gives shape-only arguments, for counting."""
+    ``device="meta"`` gives shape-only arguments, for counting. On a mesh
+    the parameters are this rank's blocks of all N nodes and the batch its
+    part of each node's; the step gathers all N nodes' weights and keeps
+    its block of the gradients' mean over ``data``
+    (``MeshSubstrate.node_grads``)."""
     model = _model(arch, reduced, cfg)
-    n, group = _split(nodes)
+    n, group = _split(nodes, arch)
+    mesh = nodes if isinstance(nodes, Mesh) else None
     rows = 1 if group is not None else n
     b, s = _batch_shape(arch, shape_name, n, batch, seq)
     if str(device) == "meta":
+        if mesh is not None:
+            raise ValueError("a mesh's local step runs collectives; count "
+                             "its nodes' step with nodes=N")
         dev = torch.device("meta")
     else:
         dev = group.device if group is not None else resolve_device(device)
     opt = sgd(lr)
-    params = replicate(_params(model, dev, generator), rows)
+    sub = None
+    if mesh is not None:
+        params, sub = _mesh_parts(arch, model, mesh, n, dev, generator,
+                                  None, _topology(n, "ring"))
+    else:
+        params = replicate(_params(model, dev, generator), rows)
     lead = (rows, b)
     if dev.type == "meta":
         data = {k: torch.empty(lead + (s,), dtype=torch.int32, device=dev)
@@ -206,10 +306,16 @@ def build_local_step(arch: ArchConfig, shape_name: str, nodes: Nodes = 1, *,
         if model.has_memory_input:
             host["memory"] = _memory(model, lead, 0)
         data = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        if mesh is not None:
+            data = _mesh_batch(data, mesh, arch.sharding_mode, 0)
     loss_fn = _loss(model)
+    grad_fn = vmap(grad_and_value(loss_fn))
 
     def local_step(params, opt_state, batch):
-        grads, losses = vmap(grad_and_value(loss_fn))(params, batch)
+        if sub is None:
+            grads, losses = grad_fn(params, batch)
+        else:
+            grads, losses = sub.node_grads(grad_fn, params, batch)
         updates, opt_state = opt.update(grads, opt_state, params)
         params = {k: (p + updates[k]).to(p.dtype) for k, p in params.items()}
         return params, opt_state, torch.mean(losses)
@@ -217,7 +323,8 @@ def build_local_step(arch: ArchConfig, shape_name: str, nodes: Nodes = 1, *,
     return Built(local_step, (params, opt.init(params), data), {
         "kind": "local", "arch": arch.arch_id, "shape": shape_name,
         "model": model.name, "nodes": n, "rows": rows, "batch": b,
-        "seq": s, "device": str(dev)})
+        "seq": s, "device": str(dev),
+        "mode": arch.sharding_mode if mesh is not None else None})
 
 
 def build_gossip_step(arch: ArchConfig, nodes: Nodes = 1, *,
@@ -228,19 +335,24 @@ def build_gossip_step(arch: ArchConfig, nodes: Nodes = 1, *,
                       generator: Optional[torch.Generator] = None) -> Built:
     """ONE gossip step over the stacked parameters (plain: ``fn(params)``),
     or one CHOCO-G iteration (``fn(params, hat)``), through the round's own
-    ``gossip_phase`` on the dense substrate or the group's sharded one."""
+    ``gossip_phase`` on the dense substrate, the group's sharded one or
+    the mesh's (this rank's blocks of all N nodes)."""
     model = _model(arch, reduced, cfg)
-    n, group = _split(nodes)
+    n, group = _split(nodes, arch)
     dev = group.device if group is not None else resolve_device(device)
     dcfg = DFLConfig(tau1=1, tau2=1, topology=_topology(n, topology),
                      compression=compression)
-    if group is not None:
+    rows = n
+    if isinstance(nodes, Mesh):
+        params, sub = _mesh_parts(arch, model, nodes, n, dev, generator,
+                                  None, dcfg.topology)
+    elif group is not None:
         sub = ShardedSubstrate(dcfg.topology, group)
         rows = 1
     else:
         sub = DenseSubstrate(dcfg.topology)
-        rows = n
-    params = replicate(_params(model, dev, generator), rows)
+    if not isinstance(nodes, Mesh):
+        params = replicate(_params(model, dev, generator), rows)
 
     if compression is None:
         def gossip_step(params):
@@ -342,7 +454,7 @@ def plan_train_schedule(
 
     model = _model(arch, reduced, cfg)
     shape = SHAPES[shape_name]
-    n, _ = _split(nodes)
+    n, _ = _split(nodes, arch)
     topo = _topology(n, topology)
     params = model.param_count()
     if batch is None:
@@ -399,6 +511,7 @@ def build_train_round(
     seq: Optional[int] = None,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    node_chunk: Optional[int] = None,
 ) -> Built:
     """DFL rounds at (tau1, tau2) on a ``RoundExecutor``, as the train CLI
     runs them: ``fn(state, batches) -> (state', metrics)`` dispatches the
@@ -406,18 +519,34 @@ def build_train_round(
     the synthetic corpus, ``data.lm``) as one superstep, the state kept in
     place. Every node starts from one model (``generator``, default a CPU
     generator seeded 0), SGD at ``lr``, the seam drawing from seed 1. On
-    the card the executor replays CUDA graphs captured in ``warmup()``."""
+    the card the executor replays CUDA graphs captured in ``warmup()``.
+    On a mesh (single-pod gossip-fsdp, where ``select_engine`` picks the
+    dense engine) the state is this rank's blocks of all N nodes and the
+    batches its part of each node's, and the executor runs eager rounds
+    over ``MeshSubstrate``, whose local step gathers the weights
+    ``node_chunk`` nodes at a time (all N by default)."""
+    mesh = nodes if isinstance(nodes, Mesh) else None
+    if node_chunk is not None and mesh is None:
+        raise ValueError("node_chunk= sets a mesh's local step; nodes= "
+                         "is not a mesh")
     model = _model(arch, reduced, cfg)
-    n, group = _split(nodes)
+    n, group = _split(nodes, arch)
     b, s = _batch_shape(arch, shape_name, n, batch, seq)
     dev = group.device if group is not None else resolve_device(device)
     dcfg = DFLConfig(tau1=tau1, tau2=tau2, topology=_topology(n, topology),
                      mixing_impl=mixing_impl, compression=compression)
     opt = sgd(lr)
-    params0 = _params(model, dev, generator)
+    sub = None
+    if mesh is not None:
+        params0, sub = _mesh_parts(arch, model, mesh, n, dev, generator,
+                                   node_chunk, dcfg.topology)
+        stacked = True
+    else:
+        params0 = _params(model, dev, generator)
+        stacked = False
     state = init_state(params0, 1 if group is not None else n, opt,
-                       compressed=compression is not None, seed=1,
-                       draws=GeneratorDraws(1, n, params0.keys(), dev))
+                       stacked=stacked, compressed=compression is not None,
+                       seed=1, draws=GeneratorDraws(1, n, params0.keys(), dev))
     del params0
     corpus = SyntheticLM(vocab_size=model.vocab_size, num_nodes=n)
     host = []
@@ -429,10 +558,12 @@ def build_train_round(
     batches = stack_round_batches(host, tau1, dev)
     if group is not None:
         batches = local_rows(batches, group, axis=2)
+    if mesh is not None:
+        batches = _mesh_batch(batches, mesh, arch.sharding_mode, 2)
     engine = "sparse" if group is not None else "dense"
     executor = RoundExecutor(dcfg, _loss(model), opt, engine=engine,
                              dynamic=mixing_impl != "dense_power",
-                             group=group)
+                             group=group, substrate=sub)
 
     def round_fn(state, batches):
         return executor.dispatch(state, batches, tau1, tau2)
@@ -442,7 +573,9 @@ def build_train_round(
         "model": model.name, "nodes": n, "tau1": tau1, "tau2": tau2,
         "rounds": rounds, "batch": b, "seq": s, "mixing": mixing_impl,
         "engine": engine, "compressed": compression is not None,
-        "device": str(dev)}, executor=executor)
+        "device": str(dev),
+        "mode": arch.sharding_mode if mesh is not None else None},
+        executor=executor)
 
 
 def build_planned_round(

@@ -69,6 +69,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.configs.jamba_1_5_large_398b",
             "repro_torch.data.lm", "repro_torch.checkpoint",
             "repro_torch.checkpoint.io", "repro_torch.launch.steps",
+            "repro_torch.launch.mesh", "repro_torch.launch.sharding",
             "repro_torch.launch.train", "repro_torch.serving",
             "repro_torch.serving.engine", "repro_torch.launch.serve",
             "repro_torch.examples.serve_decode", "repro_torch.obs",
