@@ -42,6 +42,8 @@ substrate=MeshSubstrate(...))``, ``launch.steps``) the dense engine runs
 on every rank over its blocks of all N nodes; the local step reaches the
 weights through the substrate's seam (``NodeSubstrate.node_grads``),
 which gathers them whole and reduces the gradients back to the blocks.
+On a gossip-dp mesh (``substrate=NodeMeshSubstrate(...)``) the same
+round runs on every rank over its block of its own node's row.
 """
 from __future__ import annotations
 
@@ -394,11 +396,12 @@ def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
     and masks. Misuse raises ``ValueError`` with the reference's reasons
     (``check_sparse``).
 
-    ``substrate``: the dense engine over another node-stacked substrate,
-    the gossip-fsdp mesh's ``MeshSubstrate`` (every rank its blocks of all
-    N nodes; batch leaves ``[tau1, N, B / data, ...]``, this rank's part of
-    each node's batch). Every rank calls it alike, as on the sparse
-    engine.
+    ``substrate``: the round over a mesh's substrate: the gossip-fsdp
+    mesh's ``MeshSubstrate`` (every rank its blocks of all N nodes; batch
+    leaves ``[tau1, N, B / data, ...]``, this rank's part of each node's
+    batch) or gossip-dp's ``NodeMeshSubstrate`` (its block of its node;
+    batch leaves ``[tau1, 1, B, ...]``, its node's whole batch). Every
+    rank calls it alike, as on the sparse engine.
     """
     if dynamic_taus and cfg.mixing_impl == "dense_power":
         raise ValueError(
@@ -471,6 +474,11 @@ def _given_substrate(cfg: DFLConfig, engine: str, substrate: NodeSubstrate,
     if substrate.num_nodes != cfg.topology.num_nodes:
         raise ValueError(f"the substrate holds {substrate.num_nodes} nodes, "
                          f"the topology has {cfg.topology.num_nodes}")
+    if isinstance(substrate, ShardedSubstrate) and (
+            cfg.topology_schedule or cfg.mixing_impl == "dense_power"):
+        raise ValueError("a substrate of one node a rank mixes one "
+                         "topology by iterated steps: no topology schedule, "
+                         "no dense_power")
     return substrate
 
 

@@ -94,8 +94,9 @@ and re-plans, the static fallback, participation masks,
 exchange under gloo goes through the host, which a CUDA graph cannot
 capture. So ``capture_count`` stays 0 there, and ``compile_count`` counts
 the round functions built (1 in the dynamic mode, one per distinct
-(tau1, tau2) in the static fallback). Rounds on the gossip-fsdp mesh
-(``substrate=MeshSubstrate(...)``) run the same way, for the same reason,
+(tau1, tau2) in the static fallback). Rounds on a mesh (the gossip-fsdp
+mesh's ``substrate=MeshSubstrate(...)``, gossip-dp's
+``NodeMeshSubstrate``) run the same way, for the same reason,
 in every mode but the batched one and ``overlap="pipeline"`` (not
 ported to the mesh).
 """
@@ -234,11 +235,13 @@ class RoundExecutor:
         ``core.sharded.NodeGroup``: the sparse engine's eager rounds
         (``EagerRounds``); misuse raises ``ValueError`` with the
         reference's reasons.
-      substrate: the gossip-fsdp mesh's ``core.substrate.MeshSubstrate``
-        (dense engine): every rank dispatches its blocks of all N nodes
-        and its part of each node's batches, as eager rounds
-        (``EagerRounds``): a collective over gloo cannot be captured.
-        ``overlap="pipeline"`` with a substrate raises (not ported).
+      substrate: a mesh's substrate (dense engine): the gossip-fsdp
+        mesh's ``core.substrate.MeshSubstrate`` (every rank dispatches its
+        blocks of all N nodes and its part of each node's batches) or
+        gossip-dp's ``NodeMeshSubstrate`` (its block of its node, its
+        node's batches), as eager rounds (``EagerRounds``): a collective
+        over gloo cannot be captured. ``overlap="pipeline"`` with a
+        substrate raises (not ported: ROADMAP item 18).
     """
 
     _TRAJ_CACHE_MAX = 128
@@ -260,11 +263,12 @@ class RoundExecutor:
             check_sparse(cfg, group)
         if substrate is not None and (engine != "dense"
                                       or population is not None):
-            raise ValueError("a given substrate (the gossip-fsdp mesh's) "
-                             "runs the dense engine's eager rounds")
+            raise ValueError("a given substrate (a mesh's) runs the dense "
+                             "engine's eager rounds")
         if substrate is not None and overlap == "pipeline":
-            raise ValueError("overlap='pipeline' on the gossip-fsdp mesh is "
-                             "not ported (use overlap='none')")
+            raise ValueError("overlap='pipeline' on a mesh is not ported "
+                             "(ROADMAP.md queue 1, item 18; use "
+                             "overlap='none')")
         if overlap == "pipeline" and not dynamic:
             raise ValueError(
                 "overlap='pipeline' rides the dynamic superstep scan; the "
@@ -595,8 +599,8 @@ class RoundExecutor:
 class EagerRounds:
     """The rounds of a process group's ranks for ``RoundExecutor``, run
     eagerly on this rank: ``make_round_fn(**engine_kw)`` (the sparse
-    engine's ``engine="sparse", group=...``, or the gossip-fsdp mesh's
-    ``substrate=MeshSubstrate(...)``) built once in the dynamic mode (with
+    engine's ``engine="sparse", group=...``, or a mesh's
+    ``substrate=MeshSubstrate(...)`` / ``NodeMeshSubstrate(...)``) built once in the dynamic mode (with
     participation masks), once per distinct (tau1, tau2) in the static
     fallback, or ``make_pipeline_fns``' pair under ``pipeline`` (the
     sparse engine's only). A dispatch

@@ -45,6 +45,12 @@ whatever the backend does inside; under gloo on the card the bytes are
 staged through pinned host memory, as ``shift_exchange``'s are. The
 block arithmetic (``block_spans``, ``take_block``, ``place_blocks``)
 lives here too.
+
+On a gossip-dp mesh (a node a ``data`` coordinate, its weights split over
+``model``) ``ShardGroup`` also carries the sparse engine's exchange:
+``shift_exchange`` along ``data`` among the ranks of one ``model``
+coordinate, each rank sending its block of its node, and ``node_rows``,
+every node's block gathered for a C that is not circulant.
 """
 from __future__ import annotations
 
@@ -61,7 +67,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.tree import tree_map
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, share_host_threads
 
 __all__ = ["NodeGroup", "ShardGroup", "RowSpan", "backend_for", "local_rows",
            "pack_layout", "spawn", "entry_axes", "spec_axes", "block_spans",
@@ -102,6 +108,14 @@ def _unpacked(buf: torch.Tensor, like: Sequence[torch.Tensor],
             .view(t.shape) for t, at in zip(like, offsets)]
 
 
+def _unpacked_rows(buf: torch.Tensor, like: Sequence[torch.Tensor],
+                   offsets: Sequence[int]) -> List[torch.Tensor]:
+    """Views of the rows of ``[R, packed]`` buffers as ``[R, D]`` flat
+    copies of the tensors ``like``."""
+    return [buf[:, at:at + t.numel() * t.element_size()].view(t.dtype)
+            for t, at in zip(like, offsets)]
+
+
 class _Staged:
     """A rank's ``device`` and ``backend`` (``gloo`` or ``nccl``, as the
     caller initialised ``torch.distributed``), and the staging that gloo
@@ -115,6 +129,15 @@ class _Staged:
             raise ValueError("the nccl backend moves device tensors; give "
                              "the group a CUDA device")
         self.staged = backend == "gloo" and self.device.type == "cuda"
+        # seconds the shift exchanges took (host clock, waits for the device
+        # included) and the bytes this rank sent in them (the packed buffer,
+        # once a shift), for the callers' reports and the roofline's
+        # collective term (``launch.roofline``); how many sends it made to
+        # each (src, dst) node pair: a host counter, at most one key a
+        # shift, for the collective audits (``repro_torch.analysis.audits``)
+        self.exchange_s = 0.0
+        self.exchange_bytes = 0
+        self.sends: collections.Counter = collections.Counter()
 
     def _staging(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` where the backend can move it: a pinned host copy under
@@ -127,8 +150,53 @@ class _Staged:
         return host
 
     def _home(self, t: torch.Tensor) -> torch.Tensor:
-        """A staged tensor back on the device."""
-        return t.to(self.device, non_blocking=True) if self.staged else t
+        """A staged tensor back on the device. The copy ends before the
+        host goes on, so its pinned buffer is free for the next collective
+        as soon as it is dropped: a copy still in flight would keep the
+        buffer from the host allocator's reuse, and ranks sharing a card
+        would pin a new set of buffers at every exchange."""
+        return t.to(self.device) if self.staged else t
+
+    def _all_reduce(self, t: torch.Tensor, group=None) -> torch.Tensor:
+        """The sum of ``t`` over the ranks of ``group`` (None: the default
+        group) in one all-reduce, a new tensor on ``t``'s device, the same
+        bits on every rank of the group."""
+        buf = self._staging(t.contiguous())
+        if buf is t or buf.data_ptr() == t.data_ptr():
+            buf = buf.clone()
+        dist.all_reduce(buf, group=group)
+        return self._home(buf)
+
+    def _shift_exchange(self, leaves: Sequence[torch.Tensor],
+                        shifts: Sequence[int], node: int, world: int,
+                        peer: Callable[[int], int]) -> List[torch.Tensor]:
+        """The shift exchange of node ``node`` of ``world`` (``peer``: a
+        node's global rank): for each shift s the packed ``leaves`` go to
+        node (node + s) mod N and node (node - s) mod N's come back, one
+        buffer a shift (tagged with the shift's position); returns each
+        leaf's ``[len(shifts), D]`` received copies on the device. Counted
+        in ``exchange_s``, ``exchange_bytes`` and ``sends`` (under the
+        node pair)."""
+        t0 = time.perf_counter()
+        send, offsets = _pack(leaves, self.device)
+        total = send.numel()
+        send = self._staging(send)
+        recv = torch.empty((len(shifts), total), dtype=torch.uint8,
+                           device=send.device, pin_memory=self.staged)
+        ops = []
+        for j, s in enumerate(shifts):
+            dst = (node + s) % world
+            ops.append(dist.P2POp(dist.isend, send, peer(dst), tag=j))
+            self.sends[(node, dst)] += 1
+            ops.append(dist.P2POp(dist.irecv, recv[j],
+                                  peer((node - s) % world), tag=j))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        recv = self._home(recv)
+        self.exchange_s += time.perf_counter() - t0
+        self.exchange_bytes += total * len(shifts)
+        return _unpacked_rows(recv, leaves, offsets)
 
 
 class NodeGroup(_Staged):
@@ -140,16 +208,6 @@ class NodeGroup(_Staged):
     def __init__(self, rank: int, world: int, device, backend: str):
         super().__init__(device, backend)
         self.rank, self.world = int(rank), int(world)
-        # seconds the exchanges took (host clock, waits for the device
-        # included) and the bytes this node sent in them (the packed
-        # buffer, once a shift), for the callers' reports and the roofline's
-        # collective term (``launch.roofline``)
-        self.exchange_s = 0.0
-        self.exchange_bytes = 0
-        # how many sends ``shift_exchange`` made to each (src, dst): a host
-        # counter, at most one key a shift, for the collective audits
-        # (``repro_torch.analysis.audits``)
-        self.sends: collections.Counter = collections.Counter()
 
     @classmethod
     def current(cls, device) -> "NodeGroup":
@@ -169,39 +227,13 @@ class NodeGroup(_Staged):
         travels as one packed byte buffer a shift, each leaf 16-byte
         aligned in it. Each send is counted in ``sends`` under its
         (src, dst) and its bytes added to ``exchange_bytes``."""
-        t0 = time.perf_counter()
-        send, offsets = _pack(leaves, self.device)
-        total = send.numel()
-        send = self._staging(send)
-        recv = torch.empty((len(shifts), total), dtype=torch.uint8,
-                           device=send.device, pin_memory=self.staged)
-        ops = []
-        for j, s in enumerate(shifts):
-            dst = (self.rank + s) % self.world
-            ops.append(dist.P2POp(dist.isend, send, dst, tag=j))
-            self.sends[(self.rank, dst)] += 1
-            ops.append(dist.P2POp(dist.irecv, recv[j], (self.rank - s)
-                                  % self.world, tag=j))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        recv = self._home(recv)
-        self.exchange_s += time.perf_counter() - t0
-        self.exchange_bytes += total * len(shifts)
-        out = []
-        for x, at in zip(leaves, offsets):
-            nb = x.numel() * x.element_size()
-            out.append(recv[:, at:at + nb].view(x.dtype))
-        return out
+        return self._shift_exchange(leaves, shifts, self.rank, self.world,
+                                    lambda node: node)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks, a new tensor on ``t``'s
         device."""
-        buf = self._staging(t.contiguous())
-        if buf is t or buf.data_ptr() == t.data_ptr():
-            buf = buf.clone()
-        dist.all_reduce(buf)
-        return self._home(buf)
+        return self._all_reduce(t)
 
     def gather_rows(self, tree: Any) -> Any:
         """The ``[N, ...]`` stack of every rank's ``[1, ...]`` leaves of
@@ -333,9 +365,10 @@ class ShardGroup(_Staged):
     in the same order.
 
     Counters for the callers' reports (host clock, waits for the device
-    included): ``collective_s`` in all collectives, ``gathered_bytes``
-    received by ``gather``, ``reduced_bytes`` received by the sums and
-    ``reduce_to_shard``."""
+    included): ``collective_s`` in all collectives but the shift exchange,
+    ``gathered_bytes`` received by ``gather``, ``reduced_bytes`` received
+    by the sums and ``reduce_to_shard``; the shift exchange's
+    ``exchange_s``, ``exchange_bytes`` and ``sends``, as ``NodeGroup``'s."""
 
     def __init__(self, mesh, device, backend: Optional[str] = None):
         if backend is None and mesh.size > 1:
@@ -374,6 +407,38 @@ class ShardGroup(_Staged):
         """Every rank's ``t`` over the ranks of ``axes``, in their order."""
         return [got[0] for got in self.all_gather_many([t], axes)]
 
+    def shift_exchange(self, leaves: Sequence[torch.Tensor],
+                       shifts: Sequence[int], axis: str = DATA_AXIS
+                       ) -> List[torch.Tensor]:
+        """``NodeGroup.shift_exchange`` along one mesh axis (gossip-dp: a
+        node a ``data`` coordinate): for each shift s this rank's packed
+        ``leaves`` go to the rank at (``axis`` + s) mod N with the same
+        other coordinates, and the rank at (``axis`` - s) mod N's come
+        back; returns each leaf's ``[len(shifts), D]`` received copies.
+        ``sends`` counts the (src, dst) ``axis`` coordinates, so the ranks
+        of one ``model`` coordinate together hold what the sparse engine's
+        ranks would (``analysis.audits.expected_shift_pairs``)."""
+        mesh = self.mesh
+        coords = mesh.coords
+
+        def peer(node):
+            return mesh.global_ranks[mesh.rank_of({**coords, axis: node})]
+        return self._shift_exchange(leaves, shifts, coords[axis],
+                                    mesh.shape[axis], peer)
+
+    def node_rows(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Every node's copy of this rank's ``[1, ...]`` ``leaves`` (the
+        ranks that differ only in ``data``), stacked ``[N, ...]`` in node
+        order, in one all-gather: what a gossip step over a C that is not
+        circulant reads. The bytes this rank sent to the others count in
+        ``exchange_bytes``."""
+        got = self.all_gather_many(leaves, (DATA_AXIS,))
+        self.exchange_bytes += (len(got) - 1) * sum(
+            x.numel() * x.element_size() for x in leaves)
+        if len(got) == 1:
+            return list(leaves)
+        return [torch.cat([g[i] for g in got]) for i in range(len(leaves))]
+
     @staticmethod
     def _received(blocks: List[torch.Tensor]) -> int:
         """Bytes an all-gather of ``blocks`` brought in from other ranks."""
@@ -394,6 +459,22 @@ class ShardGroup(_Staged):
             return t
         self.reduced_bytes += self._received(blocks)
         return self._summed(blocks)
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the nodes (the ranks that differ only in
+        ``data``) in one all-reduce (``t`` itself where there is one node):
+        the same bits on every rank of the group, in the backend's order of
+        the sum; ``NodeGroup.all_reduce_sum`` on a gossip-dp mesh, where
+        ``sum_over``'s all-gather would bring every node's block to every
+        rank."""
+        pg, size = self.mesh.group_of((DATA_AXIS,))
+        if size == 1:
+            return t
+        t0 = time.perf_counter()
+        out = self._all_reduce(t, pg)
+        self.collective_s += time.perf_counter() - t0
+        self.reduced_bytes += t.numel() * t.element_size()
+        return out
 
     def mean_over(self, t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         """The mean of ``t`` over the ranks of ``axes``, summed in f32 in
@@ -512,8 +593,7 @@ def _rank_main(rank: int, world: int, store: str, backend: str, device: str,
     # the ranks share the host's cores: each takes its share of intra-op
     # threads and, beside a card, cores of its own, so that no rank's
     # threads queue behind another's and jitter every collective
-    share = max(1, (os.cpu_count() or 1) // world)
-    torch.set_num_threads(share)
+    share = share_host_threads(world)
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)

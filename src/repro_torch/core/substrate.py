@@ -49,6 +49,11 @@ nodes, each leaf cut into blocks over the ranks of a mesh
 whole row is reduced over the ranks that hold it, and the local step
 gathers the weights and reduces the gradients back to the blocks
 (``node_grads``, the round's seam between parameters and gradients).
+
+``NodeMeshSubstrate`` is gossip-dp's on such a mesh: a node a ``data``
+coordinate, its leaves split over ``model``; the sparse engine's hooks on
+the rank's block of its node, the shift exchange along ``data``, and the
+gossip-fsdp mesh's row operations over ``model``.
 """
 from __future__ import annotations
 
@@ -61,7 +66,8 @@ import torch
 from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.compression import (QSGD, WHOLE_ROWS, Compressor,
                                           RowOps, TopK, by_dtype)
-from repro_torch.core.sharded import DATA_AXIS, block_spans, spec_axes
+from repro_torch.core.sharded import (DATA_AXIS, block_spans, spec_axes,
+                                      take_block)
 from repro_torch.core.topology import Topology
 from repro_torch.core.tree import leaf_order, tree_leaves, tree_map
 from repro_torch.device import to_device
@@ -71,7 +77,7 @@ from repro_torch.kernels.choco_fused import gap
 Params = Dict[str, torch.Tensor]
 
 __all__ = ["NodeSubstrate", "DenseSubstrate", "BatchedSubstrate",
-           "ShardedSubstrate", "MeshSubstrate"]
+           "ShardedSubstrate", "MeshSubstrate", "NodeMeshSubstrate"]
 
 
 class _DeviceCache:
@@ -521,7 +527,7 @@ class ShardedSubstrate(NodeSubstrate):
         self.num_nodes = n = topology.num_nodes
         self.shifts = topology.shifts()
         self.self_weight = float(topology.self_weights[0]) if n else 1.0
-        self.node_ids = np.asarray([group.rank], np.int64)
+        self.node_ids = np.asarray([self.node_index()], np.int64)
         # Per-shift edge lookup for participation masks: entry [k, i] is
         # the ``topology.edges()`` index of the edge node i receives over
         # on shift k (from node (i - s_k) mod N); both endpoints of an
@@ -566,8 +572,12 @@ class ShardedSubstrate(NodeSubstrate):
         return mixing_lib.mix_shifts(tree, self._terms, self.self_weight,
                                      self.group.shift_exchange, masks)
 
+    def sum_over_nodes(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the nodes' ranks (``group.all_reduce_sum``)."""
+        return self.group.all_reduce_sum(t)
+
     def mean_over_nodes(self, x):
-        return (self.group.all_reduce_sum(x) / self.num_nodes)[0]
+        return (self.sum_over_nodes(x) / self.num_nodes)[0]
 
     def sum_per_node(self, x):
         return x.reshape(1, -1).sum(dim=1)
@@ -577,7 +587,7 @@ class ShardedSubstrate(NodeSubstrate):
         ranks in one call."""
         names = list(tree)
         flat = torch.cat([tree[name].float().reshape(-1) for name in names])
-        total = self.group.all_reduce_sum(flat) / self.num_nodes
+        total = self.sum_over_nodes(flat) / self.num_nodes
         out, at = {}, 0
         for name in names:
             shape = tree[name].shape[1:]
@@ -600,20 +610,98 @@ class ShardedSubstrate(NodeSubstrate):
         """mean(x m) / max(mean(m), 1/N) over the ranks, m this node's 0/1
         value: 0 (not NaN) when every node is masked."""
         m = float(mask_local)
-        both = self.group.all_reduce_sum(torch.stack(
+        both = self.sum_over_nodes(torch.stack(
             [(x * m).reshape(()), torch.full((), m, dtype=x.dtype,
                                              device=x.device)]))
         both = both / self.num_nodes
         return both[0] / both[1].clamp(min=1.0 / max(self.num_nodes, 1))
 
 
-class MeshSubstrate(DenseSubstrate):
+class _Blocks:
+    """What a substrate whose leaves are blocks of the nodes' rows shares,
+    the blocks cut over the ranks of a ``launch.mesh.Mesh`` by each leaf's
+    spec (``specs``: the reference's ``spec_for_param`` with the node dim;
+    ``shapes``: every leaf's whole ``[N, ...]`` shape): whole-row lengths,
+    TopK's thresholds and QSGD's norms reduced over the ranks that hold a
+    row's parts (``row_ops``, ``sum_rows``), draws at the block's global
+    indices, QSGD's noise a leaf at a time (a block of the full-width
+    tree's draws is gigabytes), and the consensus distance with each
+    leaf's per-node sums added over its row's ranks. ``row_axes[name]``:
+    the mesh axes a leaf's rows are split over (its spec past the node
+    dim); ``blocks[name]``: its block of one node's row."""
+
+    def _set_blocks(self, group, specs: Dict[str, tuple],
+                    shapes: Dict[str, Tuple[int, ...]]) -> None:
+        self.group = group
+        mesh = group.mesh
+        self.specs = {name: tuple(spec) for name, spec in specs.items()}
+        self.shapes = {name: tuple(int(d) for d in shape)
+                       for name, shape in shapes.items()}
+        for name in self.specs:
+            if self.shapes[name][0] != self.num_nodes:
+                raise ValueError(f"leaf {name!r} stacks {self.shapes[name][0]}"
+                                 f" nodes, the topology has {self.num_nodes}")
+        self.row_axes = {name: spec_axes(spec[1:], mesh)
+                         for name, spec in self.specs.items()}
+        self.blocks = {name: (self.shapes[name][1:], block_spans(
+            self.shapes[name][1:], self.specs[name][1:], mesh))
+            for name in self.specs}
+        self.lengths = {name: int(np.prod(shape[1:], dtype=np.int64))
+                        for name, shape in self.shapes.items()}
+
+    def row_ops(self, names) -> RowOps:
+        return _MeshRows(self, list(names))
+
+    def draw_leaves(self, comp, draws, round_idx, step, tree):
+        names = list(tree)
+        return comp.draw_many(draws, round_idx, step, names,
+                              [self.lengths[name] for name in names],
+                              self.node_ids,
+                              blocks=[self.blocks[name] for name in names])
+
+    def gap_noises(self, comp, draws, round_idx, step, x):
+        """One leaf's noise at a time, each freed after its K2."""
+        for name in x:
+            yield self.draw_leaves(comp, draws, round_idx, step,
+                                   {name: x[name]})[0]
+
+    def sum_rows(self, values: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """Each leaf's per-row values (f32 partial sums of this rank's
+        block, one a node held) summed over the ranks of that leaf's row
+        axes: one collective for the leaves of each set of axes, in the
+        leaves' order."""
+        out = {}
+        by_axes: Dict[tuple, list] = {}
+        for name in values:
+            by_axes.setdefault(self.row_axes[name], []).append(name)
+        for axes, names in by_axes.items():
+            total = self.group.sum_over(
+                torch.stack([values[name] for name in names]), axes)
+            out.update(zip(names, total))
+        return out
+
+    def consensus_sq(self, params: Params) -> torch.Tensor:
+        """``NodeSubstrate.consensus_sq`` with each leaf's per-node sums
+        added over the ranks of its row (``sum_rows``), then the leaves in
+        the reference's leaf order."""
+        mean = self.mean_tree(params)
+        sums = self.sum_rows({name: self.sum_per_node(
+            (params[name].float() - mean[name].float()) ** 2)
+            for name in leaf_order(params)})
+        dev = None
+        for name in leaf_order(params):
+            dev = sums[name] if dev is None else dev + sums[name]
+        return self.mean_over_nodes(dev)
+
+
+class MeshSubstrate(_Blocks, DenseSubstrate):
     """The gossip-fsdp mesh: every rank holds all N nodes (node-replicated),
     each leaf the block of every node that its spec gives this rank's
-    coordinates on a ``launch.mesh.Mesh`` (``specs``: the reference's
-    ``spec_for_param`` with the node dim, whose entry must be None here;
-    ``shapes``: every leaf's whole ``[N, ...]`` shape). ``group`` is the
-    rank's ``core.sharded.ShardGroup``.
+    coordinates on a ``launch.mesh.Mesh`` (``specs``, ``shapes``: as
+    ``_Blocks``; the node dim's entry must be None here: a node dim
+    sharded over ``data`` is gossip-dp's placement, ``NodeMeshSubstrate``).
+    ``group`` is the rank's ``core.sharded.ShardGroup``.
 
     The node axis is whole on every rank, so the dense hooks run on the
     blocks as they are: ``mix`` is ``DenseSubstrate.mix_by`` on the block
@@ -642,46 +730,15 @@ class MeshSubstrate(DenseSubstrate):
                  shapes: Dict[str, Tuple[int, ...]],
                  chunk: Optional[int] = None):
         super().__init__(topology)
-        self.group = group
-        mesh = group.mesh
-        self.specs = {name: tuple(spec) for name, spec in specs.items()}
-        self.shapes = {name: tuple(int(d) for d in shape)
-                       for name, shape in shapes.items()}
-        for name, spec in self.specs.items():
+        for name, spec in specs.items():
             if spec and spec[0] is not None:
                 raise ValueError(
                     f"leaf {name!r} has its node dim sharded ({spec[0]}): "
-                    "gossip-dp and multi-pod gossip-fsdp meshes are not "
-                    "ported; the mesh substrate holds every node")
-            if self.shapes[name][0] != self.num_nodes:
-                raise ValueError(f"leaf {name!r} stacks {self.shapes[name][0]}"
-                                 f" nodes, the topology has {self.num_nodes}")
+                    "that is gossip-dp's placement, a node a data "
+                    "coordinate (NodeMeshSubstrate); the gossip-fsdp mesh "
+                    "substrate holds every node")
+        self._set_blocks(group, specs, shapes)
         self.chunk = self.num_nodes if chunk is None else max(1, int(chunk))
-        # the axes a leaf's rows are split over, and its block of one node
-        self.row_axes = {name: spec_axes(spec, mesh)
-                         for name, spec in self.specs.items()}
-        self.blocks = {name: (self.shapes[name][1:], block_spans(
-            self.shapes[name][1:], self.specs[name][1:], mesh))
-            for name in self.specs}
-        self.lengths = {name: int(np.prod(shape[1:], dtype=np.int64))
-                        for name, shape in self.shapes.items()}
-
-    def row_ops(self, names) -> RowOps:
-        return _MeshRows(self, list(names))
-
-    def draw_leaves(self, comp, draws, round_idx, step, tree):
-        names = list(tree)
-        return comp.draw_many(draws, round_idx, step, names,
-                              [self.lengths[name] for name in names],
-                              self.node_ids,
-                              blocks=[self.blocks[name] for name in names])
-
-    def gap_noises(self, comp, draws, round_idx, step, x):
-        """One leaf's noise at a time, each freed after its K2: a block of
-        the full-width tree's draws is gigabytes."""
-        for name in x:
-            yield self.draw_leaves(comp, draws, round_idx, step,
-                                   {name: x[name]})[0]
 
     def node_grads(self, grad_fn, params, batch):
         grads, losses = [], []
@@ -698,43 +755,90 @@ class MeshSubstrate(DenseSubstrate):
         return ({name: torch.cat([g[name] for g in grads])
                  for name in grads[0]}, torch.cat(losses))
 
-    def sum_rows(self, values: Dict[str, torch.Tensor]
-                 ) -> Dict[str, torch.Tensor]:
-        """Each leaf's per-row values (``[N]`` f32 partial sums of this
-        rank's block) summed over the ranks of that leaf's row axes: one
-        collective for the leaves of each set of axes, in the leaves'
-        order."""
-        out = {}
-        by_axes: Dict[tuple, list] = {}
-        for name in values:
-            by_axes.setdefault(self.row_axes[name], []).append(name)
-        for axes, names in by_axes.items():
-            total = self.group.sum_over(
-                torch.stack([values[name] for name in names]), axes)
-            out.update(zip(names, total))
-        return out
 
-    def consensus_sq(self, params: Params) -> torch.Tensor:
-        """``NodeSubstrate.consensus_sq`` with each leaf's per-node sums
-        added over the ranks of its row (``sum_rows``), then the leaves in
-        the reference's leaf order."""
-        mean = self.mean_tree(params)
-        sums = self.sum_rows({name: self.sum_per_node(
-            (params[name].float() - mean[name].float()) ** 2)
-            for name in leaf_order(params)})
-        dev = None
-        for name in leaf_order(params):
-            dev = sums[name] if dev is None else dev + sums[name]
-        return self.mean_over_nodes(dev)
+class NodeMeshSubstrate(_Blocks, ShardedSubstrate):
+    """Gossip-dp on a ``(data, model)`` mesh: the nodes enumerate ``data``
+    (N = the axis's size), and the rank at (data i, model m) holds node
+    i's block m of every leaf, its ``[1, ...]`` row cut by the leaf's spec
+    past the node dim (``specs``: the node dim's entry ``data``;
+    ``shapes``: as ``_Blocks``). ``group`` is the rank's
+    ``core.sharded.ShardGroup``.
 
+    It is the sparse engine (``ShardedSubstrate``'s one-row hooks, node
+    i's draws, participation by ``shift_masks``, ``node_mask_local`` and
+    ``select_nodes``) on blocks, with ``MeshSubstrate``'s row operations
+    over ``model``: a gossip step over a circulant C exchanges this rank's
+    blocks along ``data`` among the ranks of its ``model`` coordinate
+    (``ShardGroup.shift_exchange``) and mixes what it receives with K1's
+    received form (``mixing.mix_shifts``), the terms in the dense order,
+    so a step's block is bitwise ``DenseSubstrate.mix``'s row i, block m.
+    A C that is not circulant, which the dense engine mixes on this mesh,
+    is mixed as the dense port mixes it: every node's block gathered over
+    ``data`` (``ShardGroup.node_rows``), ``DenseSubstrate.mix`` on that
+    ``[N, block]`` stack, and row i kept. TopK's thresholds come from K4's
+    sharded-row form over the leaf's ``model`` ranks, QSGD's norm from the
+    summed f32 sums of squares (then K2). The means over nodes and
+    ``mean_tree`` are sums over the ``data`` ranks divided by N, and the
+    consensus distance sums each leaf over its ``model`` ranks too.
+
+    The local step (``node_grads``) gathers the node's whole weights over
+    ``model``, runs the vmapped gradient on its ``[1, B, ...]`` batch
+    (whole on every ``model`` rank) and keeps this rank's block: the ranks
+    along ``model`` repeat the same step on the same weights, so nothing
+    is reduced. Splitting that compute over ``model`` (tensor parallelism)
+    is not ported. On a data N x model 1 mesh every block is a whole row
+    and the round is bitwise the sparse engine's on N ranks."""
+
+    def __init__(self, topology: Topology, group, specs: Dict[str, tuple],
+                 shapes: Dict[str, Tuple[int, ...]]):
+        mesh = group.mesh
+        n = mesh.shape.get(DATA_AXIS, 1)
+        if topology.num_nodes != n:
+            raise ValueError(f"the topology has {topology.num_nodes} nodes, "
+                             f"the mesh's {DATA_AXIS} axis {n}")
+        for name, spec in specs.items():
+            if not spec or spec[0] != DATA_AXIS:
+                raise ValueError(
+                    f"leaf {name!r}: node dim entry {spec[:1]}, not "
+                    f"{DATA_AXIS!r}: gossip-dp on a single-pod mesh puts a "
+                    f"node on each {DATA_AXIS} coordinate")
+        self.group = group
+        super().__init__(topology, group)
+        self._set_blocks(group, specs, shapes)
+        # the leaves' specs with the node dim whole: what the local step
+        # gathers over and cuts back to
+        self.node_specs = {name: (None,) + spec[1:]
+                           for name, spec in self.specs.items()}
+        self._dense = (None if topology.is_shift_structured()
+                       else DenseSubstrate(topology))
+
+    def node_index(self) -> int:
+        return int(self.group.mesh.coords[DATA_AXIS])
+
+    def mix(self, tree, edge_mask=None):
+        if self._dense is None:
+            return super().mix(tree, edge_mask)
+        names = list(tree)
+        stacked = self.group.node_rows([tree[name] for name in names])
+        i = self.node_index()
+        mixed = self._dense.mix(dict(zip(names, stacked)), edge_mask)
+        return {name: mixed[name][i:i + 1].clone() for name in names}
+
+    def node_grads(self, grad_fn, params, batch):
+        whole = self.group.gather(params, self.node_specs)
+        grads, loss = grad_fn(whole, batch)
+        del whole
+        mesh = self.group.mesh
+        return ({name: take_block(grads.pop(name), self.node_specs[name],
+                                  mesh) for name in list(grads)}, loss)
 
 
 class _MeshRows(RowOps):
-    """``RowOps`` of a ``MeshSubstrate``'s leaves ``names`` (the rows given
+    """``RowOps`` of a ``_Blocks`` substrate's leaves ``names`` (the rows given
     in that order): whole-row lengths, K4's sharded-row form for the leaves
     of each (dtype, row axes), norms from the summed sums of squares."""
 
-    def __init__(self, sub: MeshSubstrate, names):
+    def __init__(self, sub: _Blocks, names):
         self.sub, self.names = sub, names
 
     def part(self, idx):

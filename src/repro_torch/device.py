@@ -1,8 +1,10 @@
 """Device selection for the port's entry points (the card unless asked),
-host-to-device copies that do not block, and the determinism switch."""
+host-to-device copies that do not block, the determinism switch, and the
+host's cores shared among processes that run at once."""
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Iterator
 
 import torch
@@ -26,6 +28,18 @@ def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def share_host_threads(processes: int) -> int:
+    """Set torch's intra-op threads to this process's share of the host's
+    cores when ``processes`` processes run at once (the cores over
+    ``processes``, at least one), and return the share. Left at torch's
+    default, each process takes a thread a core, and the threads of one
+    parallel region spin waiting for those the other processes' threads
+    keep off the cores."""
+    share = max(1, (os.cpu_count() or 1) // processes)
+    torch.set_num_threads(share)
+    return share
 
 
 @contextlib.contextmanager

@@ -11,12 +11,20 @@ an int (every node stacked ``[N, ...]`` on one device, the dense engine),
 this rank's ``core.sharded.NodeGroup`` (one node a process, the sparse
 engine), or a ``launch.mesh.Mesh`` of ranks (``make_host_mesh``), as the
 reference's functions here take one, placing each leaf by the architecture's
-``sharding_mode`` (``launch.sharding``). Of the mesh's modes the port runs
-single-pod gossip-fsdp: the arch's ``fsdp_nodes`` nodes, replicated on
-every rank, each leaf a block of every node over (``data``, ``model``),
-each node's batch split over ``data``; the round is the dense engine's on
-``core.substrate.MeshSubstrate`` (``dfl_setup``, ``select_engine``). Every
-rank of the mesh calls these functions alike.
+``sharding_mode`` (``launch.sharding``). The port runs both modes on a
+single-pod mesh (``dfl_setup``, ``select_engine``), every rank calling
+these functions alike:
+
+  * gossip-fsdp: the arch's ``fsdp_nodes`` nodes, replicated on every
+    rank, each leaf a block of every node over (``data``, ``model``), each
+    node's batch split over ``data``; the round on
+    ``core.substrate.MeshSubstrate``;
+  * gossip-dp: a node a ``data`` coordinate, the rank at (data i, model m)
+    holding node i's block m of every leaf and node i's whole batch; the
+    round on ``core.substrate.NodeMeshSubstrate`` (the shift exchange
+    along ``data``, the rows' reductions over ``model``).
+
+A multi-pod mesh (a ``pod`` axis) raises: it is not ported.
 
   * ``build_local_step``  ONE local SGD step on all of a device's nodes:
                           the roofline's compute unit.
@@ -55,7 +63,7 @@ from repro_torch.core.executor import RoundExecutor, stack_round_batches
 from repro_torch.core.rng import GeneratorDraws
 from repro_torch.core.sharded import NodeGroup, ShardGroup, local_rows
 from repro_torch.core.substrate import (DenseSubstrate, MeshSubstrate,
-                                        ShardedSubstrate)
+                                        NodeMeshSubstrate, ShardedSubstrate)
 from repro_torch.core.topology import fully_connected, ring, torus
 from repro_torch.data.lm import SyntheticLM, lm_batches_for_dfl
 from repro_torch.device import resolve_device
@@ -85,6 +93,7 @@ class Built:
     args: Tuple
     meta: Dict[str, Any]
     executor: Optional[RoundExecutor] = None
+    substrate: Any = None    # the node substrate the step or round runs on
 
     def run(self):
         out = self.fn(*self.args)
@@ -216,18 +225,32 @@ def _params(cfg: ModelConfig, dev: torch.device,
     return init_params(cfg, generator, dev)[0]
 
 
+def _check_single_pod(arch: ArchConfig, mesh: Mesh) -> None:
+    if "pod" in mesh.axis_names:
+        raise ValueError(
+            f"{arch.arch_id}: a multi-pod mesh ({arch.sharding_mode} on axes "
+            f"{mesh.axis_names}, the nodes over "
+            f"{shard_lib.node_axes_for(arch.sharding_mode, mesh)}) is not "
+            "ported (ROADMAP.md queue 1, item 14)")
+
+
+def _node_a_rank(arch: ArchConfig, mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` holds one node a ``data`` coordinate (gossip-dp)."""
+    return mesh is not None and arch.sharding_mode == "gossip-dp"
+
+
 def _mesh_parts(arch: ArchConfig, model: ModelConfig, mesh: Mesh, n: int,
                 dev: torch.device, generator: Optional[torch.Generator],
                 node_chunk: Optional[int], topo):
-    """This rank's blocks of ``n`` copies of one model's initial weights,
-    and the mesh substrate over them (which holds their specs and whole
-    shapes)."""
+    """This rank's part of ``n`` copies of one model's initial weights (its
+    blocks of every node in gossip-fsdp, its block of its node's ``[1,
+    ...]`` row in gossip-dp), and the mesh's substrate over them (which
+    holds their specs and whole shapes)."""
     mode = arch.sharding_mode
-    if mode != "gossip-fsdp" or shard_lib.node_axes_for(mode, mesh):
-        raise ValueError(
-            f"{arch.arch_id}: the port's mesh runs single-pod gossip-fsdp; "
-            f"sharding_mode={mode!r} on axes {mesh.axis_names} is not "
-            "ported (ROADMAP.md queue 1)")
+    _check_single_pod(arch, mesh)
+    if mode == "gossip-dp" and node_chunk is not None:
+        raise ValueError("node_chunk= sets a gossip-fsdp mesh's local step; "
+                         "a gossip-dp rank steps its one node")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     whole, axes = init_params(model, generator, dev)
@@ -235,18 +258,21 @@ def _mesh_parts(arch: ArchConfig, model: ModelConfig, mesh: Mesh, n: int,
     specs = {name: shard_lib.spec_for_param(axes[name], shapes[name], mode,
                                             mesh, node_dim=True)
              for name in whole}
+    rows = 1 if mode == "gossip-dp" else n
     params = {}
     for name in list(whole):
         block = shard_lib.shard_leaf(whole.pop(name), specs[name][1:], mesh)
-        params[name] = block.unsqueeze(0).repeat((n,) + (1,) * block.dim())
-    sub = MeshSubstrate(topo, ShardGroup(mesh, dev), specs, shapes,
-                        chunk=node_chunk)
-    return params, sub
+        params[name] = block.unsqueeze(0).repeat((rows,) + (1,) * block.dim())
+    group = ShardGroup(mesh, dev)
+    if mode == "gossip-dp":
+        return params, NodeMeshSubstrate(topo, group, specs, shapes)
+    return params, MeshSubstrate(topo, group, specs, shapes, chunk=node_chunk)
 
 
 def _mesh_batch(tree, mesh: Mesh, mode: str, lead: int):
-    """This rank's part of batches ``[*lead dims, N, B, ...]``: B split
-    over ``data`` (``sharding.batch_spec``)."""
+    """This rank's part of batches ``[*lead dims, N, B, ...]``
+    (``sharding.batch_spec``): B split over ``data`` in gossip-fsdp, its
+    node's ``[1, B, ...]`` row in gossip-dp."""
     spec = (None,) * lead + shard_lib.batch_spec(mesh, mode,
                                                  has_tau_dim=False)
     return {k: shard_lib.shard_leaf(v, spec, mesh) for k, v in tree.items()}
@@ -266,15 +292,18 @@ def build_local_step(arch: ArchConfig, shape_name: str, nodes: Nodes = 1, *,
     """ONE local SGD step on all of this device's nodes (N stacked, or a
     group's one): ``fn(params, opt_state, batch) -> (params', opt_state',
     mean loss)``, each node's gradient by ``vmap(grad)`` as in the round.
-    ``device="meta"`` gives shape-only arguments, for counting. On a mesh
-    the parameters are this rank's blocks of all N nodes and the batch its
-    part of each node's; the step gathers all N nodes' weights and keeps
-    its block of the gradients' mean over ``data``
-    (``MeshSubstrate.node_grads``)."""
+    ``device="meta"`` gives shape-only arguments, for counting. On a
+    gossip-fsdp mesh the parameters are this rank's blocks of all N nodes
+    and the batch its part of each node's; the step gathers all N nodes'
+    weights and keeps its block of the gradients' mean over ``data``
+    (``MeshSubstrate.node_grads``). On a gossip-dp mesh they are its block
+    of its node and that node's batch; the step gathers the node's weights
+    over ``model`` and keeps its block of the gradient
+    (``NodeMeshSubstrate.node_grads``)."""
     model = _model(arch, reduced, cfg)
     n, group = _split(nodes, arch)
     mesh = nodes if isinstance(nodes, Mesh) else None
-    rows = 1 if group is not None else n
+    rows = 1 if group is not None or _node_a_rank(arch, mesh) else n
     b, s = _batch_shape(arch, shape_name, n, batch, seq)
     if str(device) == "meta":
         if mesh is not None:
@@ -304,7 +333,8 @@ def build_local_step(arch: ArchConfig, shape_name: str, nodes: Nodes = 1, *,
         host = {k: v[0, group.rank:group.rank + 1] if group is not None
                 else v[0] for k, v in host.items()}
         if model.has_memory_input:
-            host["memory"] = _memory(model, lead, 0)
+            host["memory"] = _memory(
+                model, (n, b) if mesh is not None else lead, 0)
         data = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
         if mesh is not None:
             data = _mesh_batch(data, mesh, arch.sharding_mode, 0)
@@ -324,7 +354,8 @@ def build_local_step(arch: ArchConfig, shape_name: str, nodes: Nodes = 1, *,
         "kind": "local", "arch": arch.arch_id, "shape": shape_name,
         "model": model.name, "nodes": n, "rows": rows, "batch": b,
         "seq": s, "device": str(dev),
-        "mode": arch.sharding_mode if mesh is not None else None})
+        "mode": arch.sharding_mode if mesh is not None else None},
+        substrate=sub)
 
 
 def build_gossip_step(arch: ArchConfig, nodes: Nodes = 1, *,
@@ -336,7 +367,8 @@ def build_gossip_step(arch: ArchConfig, nodes: Nodes = 1, *,
     """ONE gossip step over the stacked parameters (plain: ``fn(params)``),
     or one CHOCO-G iteration (``fn(params, hat)``), through the round's own
     ``gossip_phase`` on the dense substrate, the group's sharded one or
-    the mesh's (this rank's blocks of all N nodes)."""
+    the mesh's (this rank's blocks of all N nodes in gossip-fsdp, of its
+    node in gossip-dp)."""
     model = _model(arch, reduced, cfg)
     n, group = _split(nodes, arch)
     dev = group.device if group is not None else resolve_device(device)
@@ -346,6 +378,7 @@ def build_gossip_step(arch: ArchConfig, nodes: Nodes = 1, *,
     if isinstance(nodes, Mesh):
         params, sub = _mesh_parts(arch, model, nodes, n, dev, generator,
                                   None, dcfg.topology)
+        rows = 1 if _node_a_rank(arch, nodes) else n
     elif group is not None:
         sub = ShardedSubstrate(dcfg.topology, group)
         rows = 1
@@ -367,7 +400,8 @@ def build_gossip_step(arch: ArchConfig, nodes: Nodes = 1, *,
     return Built(gossip_step, args, {
         "kind": "gossip", "arch": arch.arch_id, "model": model.name,
         "nodes": n, "rows": rows, "topology": dcfg.topology.name,
-        "compressed": compression is not None, "device": str(dev)})
+        "compressed": compression is not None, "device": str(dev)},
+        substrate=sub)
 
 
 def roofline_cost_inputs(arch: ArchConfig, shape_name: str,
@@ -375,7 +409,8 @@ def roofline_cost_inputs(arch: ArchConfig, shape_name: str,
                          reduced: bool = False,
                          cfg: Optional[ModelConfig] = None,
                          batch: Optional[int] = None,
-                         seq: Optional[int] = None) -> Dict[str, float]:
+                         seq: Optional[int] = None,
+                         device="cuda") -> Dict[str, float]:
     """MEASURED planner cost inputs, the reference's keys and contract.
 
     ``step_flops``: ONE node's local step, counted by
@@ -384,26 +419,34 @@ def roofline_cost_inputs(arch: ArchConfig, shape_name: str,
     divided by the device's node count: the ``ComputeModel.step_flops``
     contract. ``step_hbm_bytes``: the device's local step's eager operand
     and result bytes (``roofline.ByteCounter``). ``gossip_collective_bytes``:
-    the bytes one node sends in one gossip step. On the dense engine one
+    the bytes one device sends in one gossip step. On the dense engine one
     device holds every node and nothing crosses a process: 0.0, and
     ``plan_train_schedule`` then falls back to the analytic wire size, as
-    the reference does on a one-device host mesh. On a ``NodeGroup`` one
-    gossip step runs (every rank must call this) and the group's
-    ``exchange_bytes`` counter reads what it packed and sent."""
-    n, group = _split(nodes)
-    local = build_local_step(arch, shape_name, nodes, reduced=reduced,
-                             cfg=cfg, batch=batch, seq=seq, device="meta")
+    the reference does on a one-device host mesh. On a ``NodeGroup`` or a
+    ``Mesh`` one gossip step runs on ``device`` (the group's own device on
+    a ``NodeGroup``; every rank must call this) and the group's
+    ``exchange_bytes`` counter reads what this rank packed and sent (0 on
+    a gossip-fsdp mesh, whose nodes are all on every rank). On a mesh the
+    local step is counted as N stacked nodes (``nodes=N``): a gossip-dp
+    rank steps one of them, a gossip-fsdp rank all N."""
+    mesh = nodes if isinstance(nodes, Mesh) else None
+    n, group = _split(nodes, arch)
+    local = build_local_step(arch, shape_name, n if mesh else nodes,
+                             reduced=reduced, cfg=cfg, batch=batch, seq=seq,
+                             device="meta")
     la = roof_lib.analyze_step(local.fn, *local.args)
+    rank_rows = 1 if _node_a_rank(arch, mesh) else local.meta["rows"]
     sent = 0.0
-    if group is not None:
-        gossip = build_gossip_step(arch, group, topology=topology,
-                                   reduced=reduced, cfg=cfg)
-        before = group.exchange_bytes
+    if group is not None or mesh is not None:
+        gossip = build_gossip_step(arch, nodes, topology=topology,
+                                   reduced=reduced, cfg=cfg, device=device)
+        counter = gossip.substrate.group
+        before = counter.exchange_bytes
         gossip.run()
-        sent = float(group.exchange_bytes - before)
+        sent = float(counter.exchange_bytes - before)
     return {
         "step_flops": la["flops"] / local.meta["rows"],
-        "step_hbm_bytes": la["bytes"],
+        "step_hbm_bytes": la["bytes"] * rank_rows / local.meta["rows"],
         "gossip_collective_bytes": sent,
         "nodes": n,
     }
@@ -433,6 +476,7 @@ def plan_train_schedule(
     cfg: Optional[ModelConfig] = None,
     batch: Optional[int] = None,
     seq: Optional[int] = None,
+    device="cuda",
 ):
     """Pick (tau1, tau2) for an (arch, shape, nodes) deployment with the
     planner (``repro_torch.planner``) before building anything.
@@ -467,7 +511,8 @@ def plan_train_schedule(
     if use_roofline:
         measured = roofline_cost_inputs(arch, shape_name, nodes,
                                         topology=topology, reduced=reduced,
-                                        cfg=cfg, batch=batch, seq=seq)
+                                        cfg=cfg, batch=batch, seq=seq,
+                                        device=device)
         step_flops = measured["step_flops"]
         copies = mixing_lib.gossip_copies_per_step(topo, wire_engine)
         if (measured["gossip_collective_bytes"] > 0.0 and copies > 0
@@ -520,11 +565,15 @@ def build_train_round(
     place. Every node starts from one model (``generator``, default a CPU
     generator seeded 0), SGD at ``lr``, the seam drawing from seed 1. On
     the card the executor replays CUDA graphs captured in ``warmup()``.
-    On a mesh (single-pod gossip-fsdp, where ``select_engine`` picks the
-    dense engine) the state is this rank's blocks of all N nodes and the
-    batches its part of each node's, and the executor runs eager rounds
-    over ``MeshSubstrate``, whose local step gathers the weights
-    ``node_chunk`` nodes at a time (all N by default)."""
+    On a mesh the executor runs eager rounds over the mesh's substrate:
+    in gossip-fsdp the state is this rank's blocks of all N nodes and the
+    batches its part of each node's (``MeshSubstrate``, whose local step
+    gathers the weights ``node_chunk`` nodes at a time, all N by default);
+    in gossip-dp its block of its node and that node's batches
+    (``NodeMeshSubstrate``; ``node_chunk`` raises). ``meta["engine"]`` is
+    ``select_engine``'s choice for the mesh, the reference's: "sparse" on
+    a data N x model 1 mesh with a circulant C, whose round the gossip-dp
+    substrate runs as the sparse engine does, else "dense"."""
     mesh = nodes if isinstance(nodes, Mesh) else None
     if node_chunk is not None and mesh is None:
         raise ValueError("node_chunk= sets a mesh's local step; nodes= "
@@ -564,6 +613,8 @@ def build_train_round(
     executor = RoundExecutor(dcfg, _loss(model), opt, engine=engine,
                              dynamic=mixing_impl != "dense_power",
                              group=group, substrate=sub)
+    if mesh is not None:
+        engine = select_engine("auto", dcfg, mesh, arch.sharding_mode)
 
     def round_fn(state, batches):
         return executor.dispatch(state, batches, tau1, tau2)
@@ -575,7 +626,7 @@ def build_train_round(
         "engine": engine, "compressed": compression is not None,
         "device": str(dev),
         "mode": arch.sharding_mode if mesh is not None else None},
-        executor=executor)
+        executor=executor, substrate=sub)
 
 
 def build_planned_round(
@@ -601,7 +652,7 @@ def build_planned_round(
     p = plan_train_schedule(
         arch, shape_name, nodes, budget_s=budget_s, topology=topology,
         compression=compression, reduced=reduced, cfg=cfg, batch=batch,
-        seq=seq, **plan_kw)
+        seq=seq, device=device, **plan_kw)
     built = build_train_round(
         arch, shape_name, nodes, tau1=p.tau1, tau2=p.tau2,
         compression=p.compressor, topology=topology, reduced=reduced,

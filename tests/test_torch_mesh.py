@@ -69,7 +69,7 @@ from repro_torch.core.substrate import DenseSubstrate, MeshSubstrate
 from repro_torch.data.lm import SyntheticLM, lm_batches_for_dfl
 from repro_torch.kernels import ops, topk
 from repro_torch.launch import sharding, steps
-from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.launch.mesh import Mesh, make_host_mesh, make_production_mesh
 from repro_torch.models import init_params, train_loss
 from repro_torch.optim import sgd
 
@@ -542,20 +542,19 @@ def test_dense_round_with_its_gossip_leaf_by_leaf_is_bitwise_the_round(
     round bit for bit: parameters, loss and consensus."""
     p0, batches, table = _inputs()
     cfg = _config(label)
-
-    def state():
-        return dfl.init_state({k: torch.from_numpy(v) for k, v in p0.items()},
-                              N, sgd(LR), compressed=cfg.is_compressed,
-                              draws=_draws(label, table))
-
+    state = dfl.init_state({k: torch.from_numpy(v) for k, v in p0.items()},
+                           N, sgd(LR), compressed=cfg.is_compressed,
+                           draws=_draws(label, table))
     batch = {k: torch.from_numpy(v) for k, v in batches[0].items()}
-    want, wm = dfl.make_round_fn(cfg, _loss, sgd(LR))(state(), batch)
-    got, gm = _chip_smoke().dense_round_by_leaf(cfg, _loss, sgd(LR), state(),
+    # the dense round of the module's inputs, one round from the same state
+    want, _, (wm,) = _dense_port(label)
+    got, gm = _chip_smoke().dense_round_by_leaf(cfg, _loss, sgd(LR), state,
                                                 batch)
-    assert torch.equal(gm["loss"], wm["loss"])
-    assert torch.equal(gm["consensus_sq"], wm["consensus_sq"])
-    assert list(got) != [] and set(got) == set(want.params)
-    for name, t in want.params.items():
+    for key in ("loss", "consensus_sq"):
+        assert gm[key].dtype == torch.float32
+        assert float(gm[key]) == wm[key], key
+    assert list(got) != [] and set(got) == set(want)
+    for name, t in want.items():
         assert torch.equal(got[name], t), name
 
 
@@ -617,9 +616,10 @@ def test_mesh_misuse_raises():
                       {"w": (3, 8)})
     with pytest.raises(ValueError, match="no process group"):
         Mesh({"data": 2, "model": 1}).group_of(("data",))
-    with pytest.raises(ValueError, match="single-pod gossip-fsdp"):
-        steps.build_gossip_step(REGISTRY["qwen3-1.7b"], mesh, cfg=_model(),
-                                device="cpu")
+    with pytest.raises(ValueError, match="multi-pod mesh"):
+        steps.build_gossip_step(REGISTRY[ARCH],
+                                make_production_mesh(multi_pod=True),
+                                cfg=_model(), device="cpu")
     with pytest.raises(ValueError, match="not a mesh"):
         steps.build_train_round(REGISTRY[ARCH], "train_4k", N, cfg=_model(),
                                 device="cpu", node_chunk=1)
