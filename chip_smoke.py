@@ -252,9 +252,30 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    version; (b) as phase 18's against the dense port's round, within
    ``MESH_DP.rtol``, with exact launches of K1-received, K4-sharded, K3
    and K2; (c) as phase 18's, with the bytes exchanged a gossip step and
-   the exchange's share of a round, within ``MESH_DP.budget_s``. ``--only
+   the exchange's share of a round, within ``MESH_DP.budget_s``. The same
+   8 ranks also run the plain, TopK and QSGD rounds on a pod 2 x data 2 x
+   model 2 mesh (a node a (pod, data) pair: rank r keeps node r // 2 and
+   model coordinate r % 2), whose every block of the parameters and
+   estimates must be bitwise the single-pod run's, its loss and consensus
+   equal or within ``MESH_TWIN_RTOL``, its launches exact. ``--only
    mesh_dp_calibrate`` prints (b) ungated.
-20. Print the kernels line, the build and total wall times, the card's
+20. The multi-pod mesh, gossip-fsdp on pods (``run_mesh_phase(cell=
+   MESH_POD)``, ``--only mesh_pod``): DeepSeek-Coder-33B as phase 18
+   (1 of 62 layers, bf16), 2 nodes, the pods, on ring(2), a pod 2 x data
+   2 x model 2 mesh of 8 gloo ranks sharing the card, each pod's node
+   split over its data 2 x model 2 ranks, its batch of 2 at seq 256 split
+   over data, tau (1, 2), each round built by ``steps.build_train_round``
+   on the mesh (``NodeMeshSubstrate``, the blocks exchanged along pod a
+   gossip step, deg 1): (a) K4-sharded over (data, model) bitwise its
+   plain version and the unsharded K4 on the gathered rows, K1-received
+   at deg 1 bitwise its plain version; (b) against the dense port's 2-node
+   rounds within ``MESH_POD.rtol``, which the control (the TopK round
+   with one block scaled: ring(2)'s plain gossip step leaves the nodes
+   equal, so its consensus is 0 whatever the weights) must break, exact
+   launches of K1-received, K4-sharded, K3 and K2; (c) as phase 19's,
+   within ``MESH_POD.budget_s``. ``--only mesh_pod_calibrate`` prints (b)
+   ungated.
+21. Print the kernels line, the build and total wall times, the card's
    name and power limit, and the final ``{"ok": true, ...}`` line.
 
 A phase that raises prints ``phase NAME failed: <type>: <message>`` on
@@ -277,7 +298,8 @@ ungated, ``telemetry``, ``lm``, ``lm_calibrate``, ``lm_kernels``: phase
 ``roofline``, ``roofline_calibrate``, ``bench_kernels``: phase 16, every
 kernel's CIFAR reading warm and from DRAM, ``analysis``: phase 17,
 ``mesh``, ``mesh_calibrate``: phase 18, ``mesh_dp``,
-``mesh_dp_calibrate``: phase 19, ...) and prints no result.
+``mesh_dp_calibrate``: phase 19, ``mesh_pod``, ``mesh_pod_calibrate``:
+phase 20, ...) and prints no result.
 """
 import contextlib
 import dataclasses
@@ -5097,30 +5119,45 @@ def run_analysis_phase(K):
 
 
 # ---------------------------------------------------------------------------
-# Phases 18 and 19: the gossip-fsdp mesh, and gossip-dp on a mesh
+# Phases 18, 19 and 20: the gossip-fsdp mesh, gossip-dp on a mesh, and the
+# multi-pod mesh
 # ---------------------------------------------------------------------------
 
 
-# Both mesh phases: a node's batch at seq, taus, SGD at lr, the weights
+# The mesh phases: a node's batch at seq, taus, SGD at lr, the weights
 # from the seed; the runs (label, compressor, its arguments, the dense
-# round it is held to), the control among them the plain round with
-# ``MESH_CONTROL`` = (leaf, rank, factor) applied first (that rank's block
-# of node 0's copy of the leaf scaled); the ranks' time limit
+# round it is held to), the control among them a round with a cell's
+# ``control`` = (leaf, rank, factor) applied first (that rank's block of
+# node 0's copy of the leaf scaled; ``MESH_CONTROL`` by default): the
+# plain round, or on ring(2), whose plain gossip step leaves two equal
+# nodes and so a consensus of 0 whatever the weights, the TopK round; the
+# ranks' time limit
 MESH_BATCH, MESH_SEQ, MESH_TAUS, MESH_LR, MESH_SEED = 2, 256, (1, 2), 0.01, 5
 MESH_RUNS = (("dfl", "", {}, "dfl"),
              ("control", "", {}, "dfl"),
              ("cdfl_topk", "top_k", {"frac": 0.5}, "cdfl_topk"),
              ("cdfl_qsgd", "qsgd", {"levels": 16}, "cdfl_qsgd"))
+MESH_TOPK_CONTROL_RUNS = (
+    ("dfl", "", {}, "dfl"),
+    ("control", "top_k", {"frac": 0.5}, "cdfl_topk"),
+    ("cdfl_topk", "top_k", {"frac": 0.5}, "cdfl_topk"),
+    ("cdfl_qsgd", "qsgd", {"levels": 16}, "cdfl_qsgd"))
 MESH_CONTROL = ("blocks/0/ffn/w_gate", 1, 1.0 + 2.0 ** -4)
 MESH_TIMEOUT_S = 600.0
+MESH_TWIN_RTOL = 1e-6       # the twin mesh's loss and consensus, if not equal
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshCell:
     """One mesh phase: ``arch`` at its published widths, depth cut to
     ``layers``, on a data x model mesh of gloo ranks sharing the card
-    (``grid``), ``chunk`` nodes a gossip-fsdp local step gathers (None on
-    gossip-dp); the phase's budget and the run limits (``rtol``)."""
+    (``grid``), or a pod x data x model one with ``pod`` given, ``chunk``
+    nodes a single-pod gossip-fsdp local step gathers (None elsewhere);
+    the phase's budget, the run limits (``rtol``), its ``runs`` and its
+    ``control``.
+    ``twin``: a pod count, the ranks' rounds run again on a pod x (data /
+    pod) x model mesh of the same ranks, which must be bitwise the cell's
+    own (gossip-dp: each rank keeps its node and ``model`` coordinate)."""
     name: str
     arch: str
     layers: int
@@ -5128,10 +5165,29 @@ class MeshCell:
     chunk: object
     budget_s: float
     rtol: dict
+    pod: object = None
+    twin: object = None
+    runs: tuple = MESH_RUNS
+    control: tuple = MESH_CONTROL
 
     @property
     def world(self):
-        return self.grid[0] * self.grid[1]
+        return self.grid[0] * self.grid[1] * (self.pod or 1)
+
+    @property
+    def shape(self):
+        """The mesh's axes and sizes, in the mesh's order."""
+        lead = {} if self.pod is None else {"pod": self.pod}
+        return {**lead, "data": self.grid[0], "model": self.grid[1]}
+
+    def mesh(self):
+        from repro_torch.launch.mesh import make_host_mesh
+        return make_host_mesh(*self.grid, pod=self.pod)
+
+    def twin_mesh(self):
+        from repro_torch.launch.mesh import make_host_mesh
+        return make_host_mesh(self.grid[0] // self.twin, self.grid[1],
+                              pod=self.twin)
 
 
 # Phase 18: DeepSeek-Coder-33B, depth 62 -> 1, 4 replicated nodes, a data
@@ -5152,10 +5208,31 @@ MESH = MeshCell(
 # sound reading and the control's (``--only mesh_dp_calibrate``, PERF.md
 # §6): sound params 2.4e-5 (TopK), loss 0 (every run), consensus 2.2e-3
 # (TopK); control params 1.54e-3, loss 7.0e-7, consensus 2682
+# Its rounds again on a pod 2 x data 2 x model 2 mesh of the same ranks,
+# bitwise (the twin)
 MESH_DP = MeshCell(
     name="mesh_dp", arch="qwen3-1.7b", layers=2, grid=(4, 2), chunk=None,
-    budget_s=150.0,
-    rtol={"params": 2e-4, "loss": 2e-7, "consensus_sq": 2e-2})
+    budget_s=220.0,
+    rtol={"params": 2e-4, "loss": 2e-7, "consensus_sq": 2e-2}, twin=2)
+# Phase 20: DeepSeek-Coder-33B, depth 62 -> 1, gossip-fsdp on pods
+# (hierarchical DFL): 2 nodes, the pods, on ring(2), each pod's node split
+# over a data 2 x model 2 block of a pod 2 x data 2 x model 2 mesh, its
+# batch split over data; the control the TopK round (ring(2)) with rank 1's
+# block of node 0's ``lm_head`` scaled by 1 + 2^-4: the sound loss reading,
+# 1.3e-5, is the card's bf16 GEMMs at the mesh's one sequence a rank
+# against the dense round's two, and phase 18's control (a block of
+# ``w_gate``) moved the loss by as much (1.5e-5); a block of ``lm_head``
+# moves it 7.7 times as far in the reduced model on the CPU. Its limits,
+# as phase 18's, each between the largest sound reading and the
+# control's (``--only mesh_pod_calibrate``, PERF.md §6): sound params
+# 3.7e-5 (TopK), loss 1.31e-5, consensus 5.9e-4 (TopK); control params
+# 5.8e-3, loss 8.2e-4, consensus 169
+MESH_POD = MeshCell(
+    name="mesh_pod", arch="deepseek-coder-33b", layers=1, grid=(2, 2),
+    chunk=None, budget_s=200.0,
+    rtol={"params": 2e-4, "loss": 3.5e-5, "consensus_sq": 5e-3}, pod=2,
+    runs=MESH_TOPK_CONTROL_RUNS,
+    control=("lm_head", 1, 1.0 + 2.0 ** -4))
 
 
 def mesh_model(cell=MESH):
@@ -5165,12 +5242,14 @@ def mesh_model(cell=MESH):
 
 
 def mesh_nodes(cell):
-    """The cell's node count: the data axis in gossip-dp, the arch's
-    replicated nodes in gossip-fsdp (``sharding.num_nodes_for``)."""
+    """The cell's node count (``sharding.num_nodes_for``): the node axes'
+    size, or gossip-fsdp's replicated nodes on one pod."""
     from repro_torch.configs import REGISTRY
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import num_nodes_for
     arch = REGISTRY[cell.arch]
-    return cell.grid[0] if arch.sharding_mode == "gossip-dp" \
-        else arch.fsdp_nodes
+    return num_nodes_for(arch.sharding_mode, Mesh(cell.shape),
+                         arch.fsdp_nodes)
 
 
 def mesh_cfg(cell, compression, kw):
@@ -5276,7 +5355,7 @@ def mesh_dense_rounds(cell, out_dir):
     cfg = mesh_model(cell)
     out = {}
     try:
-        for label, compression, kw, ref in MESH_RUNS:
+        for label, compression, kw, ref in cell.runs:
             if ref != label:
                 continue
             host, metrics, peak, secs = mesh_dense_round(
@@ -5312,7 +5391,8 @@ def mesh_warmup(cell, cfg, dev, batch, loss):
 
 def mesh_step_launches(sub, compression):
     """One gossip step's launches on a rank: K1 once a 32 leaves of a
-    dtype (its received form on gossip-dp, which exchanges along data);
+    dtype (its received form where the nodes enumerate mesh axes, whose
+    ranks exchange their blocks over them);
     TopK K3 a leaf and K4's sharded form, a count and a pick launch a
     digit, for the leaves of each (dtype, row axes); QSGD K2 a leaf."""
     import collections
@@ -5334,38 +5414,87 @@ def mesh_step_launches(sub, compression):
     return out
 
 
+def mesh_round(cell, arch, mesh, cfg, dev, compression, kw):
+    """The cell's round on ``mesh``, built by ``steps.build_train_round``:
+    this rank's part of the nodes' weights and batches."""
+    from repro_torch.core.compression import make_compressor
+    from repro_torch.launch import steps
+    return steps.build_train_round(
+        arch, "train_4k", mesh, tau1=MESH_TAUS[0], tau2=MESH_TAUS[1],
+        compression=(make_compressor(compression, **kw)
+                     if compression else None),
+        lr=MESH_LR, cfg=cfg, batch=MESH_BATCH, seq=MESH_SEQ, device=dev,
+        generator=mesh_generator(cell, dev), node_chunk=cell.chunk)
+
+
+def mesh_twin_run(cell, arch, twin, cfg, dev, compression, kw, state,
+                  metrics):
+    """The run again on the twin mesh (``cell.twin``): its launches, the
+    round's seconds, builds and captures, and whether every block of its
+    state (parameters, estimates) is bitwise ``state``'s and its metrics
+    ``metrics`` (or within ``MESH_TWIN_RTOL``, printed)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+
+    built = mesh_round(cell, arch, twin, cfg, dev, compression, kw)
+    dist.barrier()
+    ops.reset_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got, m = built.run()
+    torch.cuda.synchronize(dev)
+    out = {"s": time.perf_counter() - t0, "launches": dict(ops.LAUNCHES),
+           "expect": {k: v * MESH_TAUS[1] for k, v in mesh_step_launches(
+               built.substrate, compression).items()},
+           "builds": built.executor.compile_count,
+           "captures": built.executor.capture_count,
+           "metrics": {k: float(v[-1]) for k, v in m.items()}}
+    trees = [(got.params, state.params)]
+    if state.hat_params is not None:
+        trees.append((got.hat_params, state.hat_params))
+    out["bitwise"] = all(
+        g.keys() == w.keys() and all(same_bits(g[k], w[k]) for k in w)
+        for g, w in trees)
+    out["metrics_rel"] = {k: abs(v - metrics[k]) / max(abs(metrics[k]),
+                                                       FIG_CONSENSUS_FLOOR)
+                          for k, v in out["metrics"].items()}
+    del built, got, m, trees
+    return out
+
+
 def mesh_rank(group, cell, out_dir):
     """One rank of a mesh phase: a warm-up step, then, once the phase's
     process has written the dense rounds' leaves to ``out_dir``
     (``mesh_dense_rounds``), per run the mesh's round, built by
     ``steps.build_train_round`` on the mesh and dispatched by its executor
     (launches set to 0 just before), and this rank's blocks held to the
-    dense leaves, read from their file; (a) K4's sharded form on the TopK
-    run's first gossip step's gaps, and on gossip-dp K1's received form on
-    the plain run's first gossip step. Writes ``mesh<r>.pt``."""
+    dense leaves, read from their file; with ``cell.twin`` each run but
+    the control again on the twin mesh (``mesh_twin_run``); (a) K4's
+    sharded form on the TopK run's first gossip step's gaps, and where the
+    nodes enumerate mesh axes K1's received form on the plain run's first
+    gossip step. Writes ``mesh<r>.pt``."""
     import torch.distributed as dist
     from unittest import mock
 
     from repro_torch.configs import REGISTRY
-    from repro_torch.core.compression import make_compressor
     from repro_torch.core.substrate import MeshSubstrate, NodeMeshSubstrate
     from repro_torch.device import deterministic_algorithms
     from repro_torch.kernels import gossip_mix, ops, topk
-    from repro_torch.launch import sharding, steps
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch import sharding
     from repro_torch.models import init_params, train_loss
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_rank = time.perf_counter()
     dev = group.device
-    mesh = make_host_mesh(*cell.grid)
+    mesh = cell.mesh()
+    twin = cell.twin_mesh() if cell.twin else None
     cfg = mesh_model(cell)
     arch = REGISTRY[cell.arch]
     mode = arch.sharding_mode
     n = mesh_nodes(cell)
-    dp = mode == "gossip-dp"
-    sub_cls = NodeMeshSubstrate if dp else MeshSubstrate
+    node_axes = sharding.node_axes_for(mode, mesh)
+    sub_cls = NodeMeshSubstrate if node_axes else MeshSubstrate
     meta, axes = init_params(cfg, None, "meta", abstract=True)
     specs = {k: sharding.spec_for_param(axes[k], (n,) + tuple(v.shape),
                                         mode, mesh, node_dim=True)
@@ -5375,8 +5504,7 @@ def mesh_rank(group, cell, out_dir):
              for k, v in mesh_batches(cell, cfg, n).items()}
     loss = lambda p, b: train_loss(p, b, cfg)  # noqa: E731
     # the ranks that hold the same rows: every axis but the node axes
-    same_rows = tuple(a for a in mesh.axis_names
-                      if a not in sharding.node_axes_for(mode, mesh))
+    same_rows = tuple(a for a in mesh.axis_names if a not in node_axes)
     res = {"rank": mesh.rank, "coords": mesh.coords, "runs": {}}
     real_grads = sub_cls.node_grads
     real_k4 = ops.topk_threshold_sharded_many
@@ -5393,24 +5521,16 @@ def mesh_rank(group, cell, out_dir):
             time.sleep(0.05)
         dist.barrier()
         res["wait_s"] = time.perf_counter() - t0
-        for i, (label, compression, kw, ref) in enumerate(MESH_RUNS):
+        for i, (label, compression, kw, ref) in enumerate(cell.runs):
             path = os.path.join(out_dir, f"dense_{ref}.pt")
-            # the mesh's round through its builder: this rank's part of the
-            # nodes' weights and batches
             t0 = time.perf_counter()
-            built = steps.build_train_round(
-                arch, "train_4k", mesh, tau1=MESH_TAUS[0], tau2=MESH_TAUS[1],
-                compression=(make_compressor(compression, **kw)
-                             if compression else None),
-                lr=MESH_LR, cfg=cfg, batch=MESH_BATCH, seq=MESH_SEQ,
-                device=dev, generator=mesh_generator(cell, dev),
-                node_chunk=cell.chunk)
+            built = mesh_round(cell, arch, mesh, cfg, dev, compression, kw)
             require(built.meta["engine"] == "dense" and all(
                 torch.equal(built.args[1][k][0], batch[k]) for k in batch),
                 f"{cell.name} (b) {label}: the builder's engine or batches "
                 "differ")
-            if label == "control" and mesh.rank == MESH_CONTROL[1]:
-                built.args[0].params[MESH_CONTROL[0]][0].mul_(MESH_CONTROL[2])
+            if label == "control" and mesh.rank == cell.control[1]:
+                built.args[0].params[cell.control[0]][0].mul_(cell.control[2])
             build_s = time.perf_counter() - t0
             # the bytes and seconds of each local step's collectives, and
             # the round's substrate (its group's counters, its leaves)
@@ -5426,14 +5546,15 @@ def mesh_rank(group, cell, out_dir):
                     (sg.gathered_bytes, sg.reduced_bytes, sg.collective_s),
                     before)])
                 return out
-            # (a)'s inputs: the first gossip step's gaps (TopK) or leaves
-            # and received copies (plain, gossip-dp), copied to the host
-            # (the card holds every rank's state); the copies' time is
-            # taken out of the round's
+            # (a)'s inputs: the TopK run's first gossip step's gaps, or the
+            # plain run's leaves and received copies where the nodes
+            # enumerate mesh axes, copied to the host (the card holds every
+            # rank's state); the copies' time is taken out of the round's
             captured, k1_captured, copy_s = [], [], [0.0]
 
             def capture(xs, ks, span):
-                if len(captured) < len(set(built.substrate.row_axes.values())):
+                if label == "cdfl_topk" and len(captured) < len(
+                        set(built.substrate.row_axes.values())):
                     t0 = time.perf_counter()
                     captured.append(([x.cpu() for x in xs], list(ks), span))
                     copy_s[0] += time.perf_counter() - t0
@@ -5481,17 +5602,21 @@ def mesh_rank(group, cell, out_dir):
             want_all = torch.load(path, mmap=True, weights_only=True)
             diffs = {}
             for k in sorted(state.params):
-                mine = state.params.pop(k)
                 want = sharding.shard_leaf(want_all[k], specs[k],
                                            mesh).to(dev)
-                d = mine.float() - want.float()
+                d = state.params[k].float() - want.float()
                 diffs[k] = [float((d * d).sum()),
                             float(want.float().pow(2).sum()),
                             float(d.abs().max())]
-                del d, want, mine
-            del want_all, state
+                del d, want
+            del want_all
             run["diffs"] = diffs
             run["compare_s"] = time.perf_counter() - t0
+            if twin is not None and label != "control":
+                run["twin"] = mesh_twin_run(cell, arch, twin, cfg, dev,
+                                            compression, kw, state,
+                                            run["metrics"])
+            del state
             if captured:
                 t0 = time.perf_counter()
                 run["k4"] = mesh_k4_check(captured, sg, same_rows, topk,
@@ -5506,18 +5631,21 @@ def mesh_rank(group, cell, out_dir):
             del sg
             torch.cuda.empty_cache()
             dist.barrier()
-            if mesh.rank == 0 and all(r[3] != ref for r in MESH_RUNS[i + 1:]):
+            if mesh.rank == 0 and all(r[3] != ref for r in cell.runs[i + 1:]):
                 os.remove(path)      # no later run is held to it
     res["s"] = time.perf_counter() - t_rank
     torch.save(res, os.path.join(out_dir, f"mesh{mesh.rank}.pt"))
 
 
 def mesh_k1_check(captured, gossip_mix, ops, dev):
-    """Phase 19 (a): K1's received form again on this rank's leaves and
-    received copies of the plain run's first gossip step, bitwise its
-    plain version (``plain_received``) on the card; on rank 0 both timed
-    (CUDA events over replays, warm) beside the bound (each operand read
-    once, each output written once)."""
+    """Phase 19 / 20 (a): K1's received form again on this rank's leaves
+    and received copies of the plain run's first gossip step (deg 2 on
+    ring(4), 1 on ring(2)), bitwise its plain version (``plain_received``)
+    on the card; on rank 0 both timed, and one ``torch.addmm`` a leaf (w0
+    x + w[1:] @ recv, the same function), CUDA events over replays, beside
+    the bound (each operand read once, each output written once). A rank's
+    operands are over 1 GB, twenty times the L2 cache and more, so every
+    replay reads them from DRAM."""
     import torch.distributed as dist
     xs, recvs, w = ([t.to(dev) for t in captured[0]],
                     [t.to(dev) for t in captured[1]], captured[2].to(dev))
@@ -5531,11 +5659,16 @@ def mesh_k1_check(captured, gossip_mix, ops, dev):
     del got, plain
     dist.barrier()
     if dist.get_rank() == 0:
+        w0, wr = float(w[0]), w[1:][None].to(xs[0].dtype)
+        out["deg"] = int(w.numel()) - 1
         out["ms"] = device_ms(lambda: ops.gossip_mix_received_many(
             xs, recvs, w), iters=5, reps=3)
         out["plain_ms"] = device_ms(lambda: [
             gossip_mix.plain_received(x, r, w) for x, r in zip(xs, recvs)],
             iters=2, reps=2)
+        out["library_ms"] = device_ms(lambda: [
+            torch.addmm(x.reshape(1, -1), wr, r, beta=w0)
+            for x, r in zip(xs, recvs)], iters=2, reps=2)
     dist.barrier()
     del xs, recvs
     torch.cuda.empty_cache()
@@ -5554,12 +5687,14 @@ def mesh_k4_check(captured, sg, same_rows, topk, ops, dev):
     (the histogram sum replaced by the identity: the same launches over
     the same keys, with no collective between them) on the device clock
     (CUDA events over replays, warm); rank 0's plain version's time (the
-    gather and the select), and the bytes of this rank's keys."""
+    gather and the select) and the library's, one ``torch.topk`` of the
+    gathered rows' magnitudes a leaf on the device clock (CUDA events, the
+    gather not counted), and the bytes of this rank's keys."""
     import torch.distributed as dist
     rank = dist.get_rank()
     out = {"bitwise": True, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-           "collective_ms": 0.0, "device_ms": 0.0, "key_bytes": 0,
-           "rows": 0, "launches": 0}
+           "library_ms": 0.0, "collective_ms": 0.0, "device_ms": 0.0,
+           "key_bytes": 0, "rows": 0, "launches": 0}
     for host, ks, span in captured:
         xs = [x.to(dev) for x in host]
         dist.barrier()
@@ -5607,6 +5742,10 @@ def mesh_k4_check(captured, sg, same_rows, topk, ops, dev):
                 torch.cuda.synchronize(dev)
                 if rank == 0:
                     out["plain_ms"] += (time.perf_counter() - t0) * 1e3
+                    xa = rows.abs()
+                    out["library_ms"] += event_ms(
+                        lambda: torch.topk(xa, k, dim=1), reps=1)
+                    del xa
                 whole = ops.topk_threshold(rows, k)
                 out["bitwise"] &= same_bits(g, plain) and same_bits(g, whole)
                 out["max_abs_err"] = max(out["max_abs_err"],
@@ -5657,28 +5796,38 @@ def run_mesh_phase(K, gate=True, cell=MESH):
     published widths in bf16, depth cut 28 -> 2, 4 nodes on ring(4), one a
     data coordinate of a data 4 x model 2 mesh of 8 gloo ranks sharing the
     card, each node's batch of 2 at seq 256 whole on its two model ranks,
-    a gossip step exchanging the blocks along data. Both: tau (1, 2), each
-    round built by ``steps.build_train_round`` on the mesh and dispatched
-    by its executor. (a) K4's sharded-row form on the TopK run's first
-    gossip step's gaps of every leaf: bitwise its plain version and the
-    unsharded K4 on the gathered rows, its count and pick kernels timed on
-    the device; on gossip-dp also K1's received form on each rank's first
-    plain gossip step, bitwise its plain version. (b) One round each of
-    plain DFL, TopK (frac 0.5) and QSGD (16 levels) from the same weights
-    and batches as the dense port on one process (this one, before any
-    mesh round, while the ranks start and take a warm-up step;
+    a gossip step exchanging the blocks along data; each run but the
+    control again on a pod 2 x data 2 x model 2 mesh of the same ranks (a
+    node a (pod, data) pair), bitwise. Phase 20 (``cell=MESH_POD``),
+    gossip-fsdp on pods (``NodeMeshSubstrate`` with ``pod`` the node axis):
+    DeepSeek-Coder-33B as phase 18, 2 nodes, the pods, on ring(2), a pod 2
+    x data 2 x model 2 mesh of 8 gloo ranks, each pod's node split over
+    its data 2 x model 2 ranks, its batch of 2 split over data, a gossip
+    step exchanging the blocks along pod. All: tau (1, 2), each round
+    built by ``steps.build_train_round`` on the mesh and dispatched by its
+    executor. (a) K4's sharded-row form on the TopK run's first gossip
+    step's gaps of every leaf: bitwise its plain version and the unsharded
+    K4 on the gathered rows, its count and pick kernels timed on the
+    device beside ``torch.topk`` on the gathered rows; where the nodes
+    enumerate mesh axes also K1's received form on each rank's first plain
+    gossip step, bitwise its plain version. (b) One round each of plain
+    DFL, TopK (frac 0.5) and QSGD (16 levels) from the same weights and
+    batches as the dense port on one process (this one, before any mesh
+    round, while the ranks start and take a warm-up step;
     ``mesh_dense_rounds``): the whole leaves within ``cell.rtol`` (the
     tree's relative Frobenius difference), the loss and consensus too; the
-    control, the plain round with node 0's copy of rank 1's block of one
-    leaf scaled first (``MESH_CONTROL``), must break every limit; exact
-    launches of K1 (its received form on gossip-dp), K3, K2 and K4's
-    sharded form on every rank, 1 build and no capture. (c) The phase's
-    seconds, each rank's peak memory, the bytes gathered and reduced a
-    local step and exchanged a gossip step, the collectives' and the
-    exchange's share of a round (host clock). The phase must end within
-    ``cell.budget_s``. ``gate=False`` (``--only mesh_calibrate``,
-    ``mesh_dp_calibrate``) prints the readings and holds none of the run
-    limits."""
+    control, the plain round (phase 20: the TopK round) with node 0's copy
+    of rank 1's block of one leaf scaled first (``cell.control``), must
+    break every limit; exact launches of K1 (its received form where the
+    nodes enumerate mesh axes), K3, K2 and K4's sharded form on every
+    rank, 1 build and no capture. (c) The phase's seconds, each rank's
+    peak memory, the bytes gathered and reduced a local step and exchanged
+    a gossip step, the collectives' and the exchange's share of a round
+    (host clock). The phase must end within ``cell.budget_s``.
+    ``gate=False`` (``--only mesh_calibrate``, ``mesh_dp_calibrate``,
+    ``mesh_pod_calibrate``) prints the readings and holds none of the run
+    limits; the twin's bits, the launches and the kernel checks are held
+    in any case."""
     import shutil
     import tempfile
     import threading
@@ -5743,9 +5892,10 @@ def run_mesh_phase(K, gate=True, cell=MESH):
         k1_bound_ms = k1[0]["bytes"] / HBM_BYTES_PER_S * 1e3
         print(f"{tag} (a) K1-received on each rank's first plain gossip "
               "step, bitwise its plain version; rank 0 " + json.dumps(
-                  {k: k1[0][k] for k in ("ms", "plain_ms", "bytes")})
+                  {k: k1[0][k] for k in ("deg", "ms", "plain_ms",
+                                         "library_ms", "bytes")})
               + f", bound {k1_bound_ms} ms (share "
-              f"{k1_bound_ms / k1[0]['ms']})")
+              f"{k1_bound_ms / k1[0]['ms']}), from DRAM")
         K["gossip_mix_received"].max_abs_err = max(
             K["gossip_mix_received"].max_abs_err,
             max(x["max_abs_err"] for x in k1))
@@ -5758,7 +5908,7 @@ def run_mesh_phase(K, gate=True, cell=MESH):
         den = sum(v[1] for r in runs for v in r["diffs"].values())
         return math.sqrt(num / den)
 
-    for label, compression, _, ref in MESH_RUNS:
+    for label, compression, _, ref in cell.runs:
         runs = [r["runs"][label] for r in ranks]
         want = dense[ref]["metrics"]
         for r in runs:
@@ -5789,7 +5939,7 @@ def run_mesh_phase(K, gate=True, cell=MESH):
             control = got
             if gate:
                 require(all(control[k] > lim for k, lim in cell.rtol.items()),
-                        f"{tag} control {MESH_CONTROL} within a limit "
+                        f"{tag} control {cell.control} within a limit "
                         f"{control}, limits {cell.rtol}")
         else:
             for k, v in got.items():
@@ -5802,6 +5952,32 @@ def run_mesh_phase(K, gate=True, cell=MESH):
             add_launches(K, {k: sum(r["launches"][k] for r in runs)
                              for k in ("gossip_mix_received",)
                              if k in runs[0]["expect"]})
+        if cell.twin and label != "control":
+            twins = [r["twin"] for r in runs]
+            for r, tw in zip(runs, twins):
+                require(tw["launches"] == expect_launches(K, **tw["expect"]),
+                        f"{tag} twin {label}: launches {tw['launches']}, "
+                        f"expected {tw['expect']}")
+                require((tw["builds"], tw["captures"]) == (1, 0),
+                        f"{tag} twin {label}: {tw['builds']} builds, "
+                        f"{tw['captures']} captures; expected 1 and 0")
+            require(all(tw["bitwise"] for tw in twins),
+                    f"{tag} twin {label}: a rank's blocks on the pod "
+                    f"{cell.twin} mesh differ from the single-pod run's")
+            worst_twin = {k: max(tw["metrics_rel"][k] for tw in twins)
+                          for k in twins[0]["metrics_rel"]}
+            require(all(v <= MESH_TWIN_RTOL for v in worst_twin.values()),
+                    f"{tag} twin {label}: metrics rel diffs {worst_twin} "
+                    f"beyond {MESH_TWIN_RTOL}")
+            add_launches(K, {k: sum(tw["launches"][k] for tw in twins)
+                             for k in ("gossip_mix_received",)})
+            print(f"{tag} twin {label}: pod {cell.twin} x data "
+                  f"{cell.grid[0] // cell.twin} x model {cell.grid[1]}, "
+                  "every rank's parameters and estimates bitwise the "
+                  "single-pod run's; metrics " + json.dumps(
+                      twins[0]["metrics"]) + " rel diffs "
+                  + json.dumps(worst_twin) + " round s a rank "
+                  + json.dumps([tw["s"] for tw in twins]))
         # (c): the round's costs on each rank
         print(f"{tag} (c) {label}: round s a rank " + json.dumps(
             [r["s"] for r in runs]) + " collectives' share " + json.dumps(
@@ -5826,10 +6002,15 @@ def run_mesh_phase(K, gate=True, cell=MESH):
     k.launches += sum(r["runs"]["cdfl_topk"]["launches"][
         "topk_threshold_sharded"] for r in ranks)
     k.max_abs_err = max([k.max_abs_err] + [x["max_abs_err"] for x in k4])
+    print(f"{tag} (a) K4-sharded rank 0: count and pick "
+          f"{k4[0]['device_ms']} ms, torch.topk on the gathered rows "
+          f"{k4[0]['library_ms']} ms, bound {k4_bound_ms} ms over "
+          f"{k4[0]['rows']} rows")
     if cell is MESH:
         # the record's time: rank 0's count and pick kernels on the device
         # over its keys, read once, and its thresholds written once (bf16)
         k.ms, k.plain_ms = k4[0]["device_ms"], k4[0]["plain_ms"]
+        k.library_ms = k4[0]["library_ms"]
         k.add_bound(key_bytes, 0)
     secs = time.perf_counter() - t_phase
     print(f"{tag} (c) phase {secs:.1f} s (budget {cell.budget_s} s), ranks "
@@ -5837,8 +6018,8 @@ def run_mesh_phase(K, gate=True, cell=MESH):
           "the dense rounds " + json.dumps([r["wait_s"] for r in ranks])
           + " (a) s "
           + json.dumps(ranks[0]["runs"]["cdfl_topk"]["k4_s"]) + ", backend "
-          + ranks[0]["backend"] + ", mesh data x model "
-          + json.dumps(cell.grid) + f", {free} bytes free for the dense "
+          + ranks[0]["backend"] + ", mesh " + json.dumps(cell.shape)
+          + f", {free} bytes free for the dense "
           "rounds' files; " + card_line())
     require(not gate or secs <= cell.budget_s,
             f"{tag} phase took {secs:.1f} s, over its {cell.budget_s} s")
@@ -5889,7 +6070,7 @@ def main():
                "src/repro/kernels/topk.py:51", True),
         Kernel("topk_threshold_sharded",
                "src/repro_torch/kernels/csrc/topk.cu",
-               "src/repro/kernels/topk.py:51", False),
+               "src/repro/kernels/topk.py:51", True),
         Kernel("topk_mask", "src/repro_torch/kernels/csrc/topk.cu",
                "src/repro/kernels/topk.py:79", False),
         Kernel("qsgd_quantize", "src/repro_torch/kernels/csrc/qsgd.cu",
@@ -5937,7 +6118,8 @@ def main():
         "bench_kernels": run_bench_kernels_phase,
         "analysis": lambda: run_analysis_phase(K),
         "mesh": lambda: run_mesh_phase(K),
-        "mesh_dp": lambda: run_mesh_phase(K, cell=MESH_DP)}
+        "mesh_dp": lambda: run_mesh_phase(K, cell=MESH_DP),
+        "mesh_pod": lambda: run_mesh_phase(K, cell=MESH_POD)}
     # phases run only when named after --only: readings ungated, or a part
     # of a phase above alone
     only = {
@@ -5956,7 +6138,9 @@ def main():
         "sparse_kernels": lambda: received_kernel_phase(K),
         "mesh_calibrate": lambda: run_mesh_phase(K, gate=False),
         "mesh_dp_calibrate": lambda: run_mesh_phase(K, gate=False,
-                                                    cell=MESH_DP)}
+                                                    cell=MESH_DP),
+        "mesh_pod_calibrate": lambda: run_mesh_phase(K, gate=False,
+                                                     cell=MESH_POD)}
     if sys.argv[1:2] == ["--only"]:
         # a subset of the phases, for work on the card; no result line
         print(card_line())

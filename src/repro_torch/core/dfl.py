@@ -42,8 +42,9 @@ substrate=MeshSubstrate(...))``, ``launch.steps``) the dense engine runs
 on every rank over its blocks of all N nodes; the local step reaches the
 weights through the substrate's seam (``NodeSubstrate.node_grads``),
 which gathers them whole and reduces the gradients back to the blocks.
-On a gossip-dp mesh (``substrate=NodeMeshSubstrate(...)``) the same
-round runs on every rank over its block of its own node's row.
+On a mesh whose node axes enumerate the nodes (gossip-dp; gossip-fsdp on
+pods: ``substrate=NodeMeshSubstrate(...)``) the same round runs on every
+rank over its block of its own node's row.
 """
 from __future__ import annotations
 
@@ -399,8 +400,9 @@ def make_round_fn(cfg: DFLConfig, loss_fn: LossFn, opt: Optimizer, *,
     ``substrate``: the round over a mesh's substrate: the gossip-fsdp
     mesh's ``MeshSubstrate`` (every rank its blocks of all N nodes; batch
     leaves ``[tau1, N, B / data, ...]``, this rank's part of each node's
-    batch) or gossip-dp's ``NodeMeshSubstrate`` (its block of its node;
-    batch leaves ``[tau1, 1, B, ...]``, its node's whole batch). Every
+    batch) or ``NodeMeshSubstrate`` (gossip-dp, gossip-fsdp on pods: its
+    block of its node; batch leaves ``[tau1, 1, B', ...]``, its part of
+    its node's batch: whole in gossip-dp, B / data on pods). Every
     rank calls it alike, as on the sparse engine.
     """
     if dynamic_taus and cfg.mixing_impl == "dense_power":

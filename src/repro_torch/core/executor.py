@@ -95,10 +95,10 @@ exchange under gloo goes through the host, which a CUDA graph cannot
 capture. So ``capture_count`` stays 0 there, and ``compile_count`` counts
 the round functions built (1 in the dynamic mode, one per distinct
 (tau1, tau2) in the static fallback). Rounds on a mesh (the gossip-fsdp
-mesh's ``substrate=MeshSubstrate(...)``, gossip-dp's
-``NodeMeshSubstrate``) run the same way, for the same reason,
-in every mode but the batched one and ``overlap="pipeline"`` (not
-ported to the mesh).
+mesh's ``substrate=MeshSubstrate(...)``, the ``NodeMeshSubstrate`` of
+gossip-dp and of gossip-fsdp on pods) run the same way, for the same
+reason, in every mode but the batched one and ``overlap="pipeline"``
+(not ported to the mesh).
 """
 from __future__ import annotations
 
@@ -238,9 +238,9 @@ class RoundExecutor:
       substrate: a mesh's substrate (dense engine): the gossip-fsdp
         mesh's ``core.substrate.MeshSubstrate`` (every rank dispatches its
         blocks of all N nodes and its part of each node's batches) or
-        gossip-dp's ``NodeMeshSubstrate`` (its block of its node, its
-        node's batches), as eager rounds (``EagerRounds``): a collective
-        over gloo cannot be captured. ``overlap="pipeline"`` with a
+        ``NodeMeshSubstrate`` (gossip-dp, gossip-fsdp on pods: its block
+        of its node, its part of the node's batches), as eager rounds
+        (``EagerRounds``): a collective over gloo cannot be captured. ``overlap="pipeline"`` with a
         substrate raises (not ported: ROADMAP item 18).
     """
 

@@ -46,11 +46,14 @@ staged through pinned host memory, as ``shift_exchange``'s are. The
 block arithmetic (``block_spans``, ``take_block``, ``place_blocks``)
 lives here too.
 
-On a gossip-dp mesh (a node a ``data`` coordinate, its weights split over
-``model``) ``ShardGroup`` also carries the sparse engine's exchange:
-``shift_exchange`` along ``data`` among the ranks of one ``model``
-coordinate, each rank sending its block of its node, and ``node_rows``,
-every node's block gathered for a C that is not circulant.
+Where the nodes enumerate mesh axes (``node_axes``: gossip-dp's
+``("data",)`` on one pod or ``("pod", "data")`` on two, gossip-fsdp's
+``("pod",)`` on two pods), ``ShardGroup`` also carries the sparse
+engine's exchange: ``shift_exchange`` along the row-major node index
+over those axes, among the ranks that share this rank's other
+coordinates, each rank sending its block of its node; ``node_rows``,
+every node's block gathered for a C that is not circulant; and
+``all_reduce_sum``, the sum over the nodes.
 """
 from __future__ import annotations
 
@@ -364,20 +367,45 @@ class ShardGroup(_Staged):
     switches backend on a failure. Every rank must make every collective
     in the same order.
 
+    ``node_axes``: the mesh axes the nodes enumerate, in the mesh's order
+    (``launch.sharding.node_axes_for`` of the mode and the mesh; gossip-dp
+    on one pod's ``("data",)`` by default), over which ``shift_exchange``,
+    ``node_rows`` and ``all_reduce_sum`` act; node j is the rank with this
+    rank's other coordinates and the j-th row-major coordinates on them.
+
     Counters for the callers' reports (host clock, waits for the device
     included): ``collective_s`` in all collectives but the shift exchange,
     ``gathered_bytes`` received by ``gather``, ``reduced_bytes`` received
     by the sums and ``reduce_to_shard``; the shift exchange's
-    ``exchange_s``, ``exchange_bytes`` and ``sends``, as ``NodeGroup``'s."""
+    ``exchange_s``, ``exchange_bytes`` and ``sends``, as ``NodeGroup``'s
+    (``sends`` in node indices)."""
 
-    def __init__(self, mesh, device, backend: Optional[str] = None):
+    def __init__(self, mesh, device, backend: Optional[str] = None,
+                 node_axes: Sequence[str] = (DATA_AXIS,)):
+        if mesh.rank is None:
+            raise ValueError(
+                f"no process group: the mesh {mesh.shape} has no ranks (a "
+                "production mesh feeds the placement rules only); make one "
+                "with launch.mesh.make_host_mesh")
         if backend is None and mesh.size > 1:
             backend = dist.get_backend(mesh.group)
         super().__init__(device, backend)
         self.mesh = mesh
+        self.node_axes = mesh.axes_in_order(node_axes)
+        # the mesh ranks of nodes 0 .. N-1 (ascending rank is row-major
+        # over the node axes), and this rank's node
+        self._nodes = mesh.members(self.node_axes)
         self.collective_s = 0.0
         self.gathered_bytes = 0
         self.reduced_bytes = 0
+
+    @property
+    def num_nodes(self) -> int:
+        return len(self._nodes)
+
+    def node_index(self) -> int:
+        """This rank's node: its row-major index over the node axes."""
+        return self._nodes.index(self.mesh.rank)
 
     def span(self, axes: Sequence[str]) -> RowSpan:
         return RowSpan(self, self.mesh.axes_in_order(axes))
@@ -408,31 +436,26 @@ class ShardGroup(_Staged):
         return [got[0] for got in self.all_gather_many([t], axes)]
 
     def shift_exchange(self, leaves: Sequence[torch.Tensor],
-                       shifts: Sequence[int], axis: str = DATA_AXIS
-                       ) -> List[torch.Tensor]:
-        """``NodeGroup.shift_exchange`` along one mesh axis (gossip-dp: a
-        node a ``data`` coordinate): for each shift s this rank's packed
-        ``leaves`` go to the rank at (``axis`` + s) mod N with the same
-        other coordinates, and the rank at (``axis`` - s) mod N's come
-        back; returns each leaf's ``[len(shifts), D]`` received copies.
-        ``sends`` counts the (src, dst) ``axis`` coordinates, so the ranks
-        of one ``model`` coordinate together hold what the sparse engine's
-        ranks would (``analysis.audits.expected_shift_pairs``)."""
-        mesh = self.mesh
-        coords = mesh.coords
-
-        def peer(node):
-            return mesh.global_ranks[mesh.rank_of({**coords, axis: node})]
-        return self._shift_exchange(leaves, shifts, coords[axis],
-                                    mesh.shape[axis], peer)
+                       shifts: Sequence[int]) -> List[torch.Tensor]:
+        """``NodeGroup.shift_exchange`` over the node axes: for each shift s
+        this rank's packed ``leaves`` go to node (i + s) mod N's rank with
+        this rank's other coordinates (i this rank's node), and node
+        (i - s) mod N's come back; returns each leaf's ``[len(shifts), D]``
+        received copies. ``sends`` counts the (src, dst) node indices, so
+        the ranks of one set of other coordinates together hold what the
+        sparse engine's ranks would
+        (``analysis.audits.expected_shift_pairs``)."""
+        nodes, ranks = self._nodes, self.mesh.global_ranks
+        return self._shift_exchange(leaves, shifts, self.node_index(),
+                                    len(nodes), lambda j: ranks[nodes[j]])
 
     def node_rows(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Every node's copy of this rank's ``[1, ...]`` ``leaves`` (the
-        ranks that differ only in ``data``), stacked ``[N, ...]`` in node
-        order, in one all-gather: what a gossip step over a C that is not
-        circulant reads. The bytes this rank sent to the others count in
-        ``exchange_bytes``."""
-        got = self.all_gather_many(leaves, (DATA_AXIS,))
+        ranks that differ only along the node axes), stacked ``[N, ...]``
+        in node order, in one all-gather: what a gossip step over a C that
+        is not circulant reads. The bytes this rank sent to the others
+        count in ``exchange_bytes``."""
+        got = self.all_gather_many(leaves, self.node_axes)
         self.exchange_bytes += (len(got) - 1) * sum(
             x.numel() * x.element_size() for x in leaves)
         if len(got) == 1:
@@ -461,13 +484,13 @@ class ShardGroup(_Staged):
         return self._summed(blocks)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the nodes (the ranks that differ only in
-        ``data``) in one all-reduce (``t`` itself where there is one node):
-        the same bits on every rank of the group, in the backend's order of
-        the sum; ``NodeGroup.all_reduce_sum`` on a gossip-dp mesh, where
-        ``sum_over``'s all-gather would bring every node's block to every
-        rank."""
-        pg, size = self.mesh.group_of((DATA_AXIS,))
+        """``t`` summed over the nodes (the ranks that differ only along
+        the node axes) in one all-reduce (``t`` itself where there is one
+        node): the same bits on every rank of the group, in the backend's
+        order of the sum; ``NodeGroup.all_reduce_sum`` on a mesh of nodes,
+        where ``sum_over``'s all-gather would bring every node's block to
+        every rank."""
+        pg, size = self.mesh.group_of(self.node_axes)
         if size == 1:
             return t
         t0 = time.perf_counter()
@@ -533,17 +556,21 @@ class ShardGroup(_Staged):
         return out
 
     def reduce_to_shard(self, gs: Dict[str, torch.Tensor],
-                        specs: Dict[str, Spec]) -> Dict[str, torch.Tensor]:
-        """This rank's block of the mean over the ``data`` ranks of each
-        whole ``gs`` leaf (each data rank's gradient of its part of the
-        batch): every leaf is cut to the block of each rank of the data
-        group (the ranks differ only along ``data``), each rank sends the
-        others their blocks in one exchange, and sums what it holds in
-        f32 in data-rank order, divides and casts back: what an all-reduce
-        and a cut would give, at (group - 1) / group of the leaves' part
-        on the wire in place of all of it."""
+                        specs: Dict[str, Spec],
+                        axes: Sequence[str] = (DATA_AXIS,)
+                        ) -> Dict[str, torch.Tensor]:
+        """This rank's block of the mean over the ranks of ``axes`` (the
+        axes a node's batch is split over: ``data``) of each whole ``gs``
+        leaf (each such rank's gradient of its part of the batch): every
+        leaf is cut to the block of each rank of the group (the ranks
+        differ only along ``axes``), each rank sends the others their
+        blocks in one exchange, and sums what it holds in f32 in rank
+        order, divides and casts back: what an all-reduce and a cut would
+        give, at (group - 1) / group of the leaves' part on the wire in
+        place of all of it. With no such axis (``axes=()``: a node's batch
+        whole on the rank) it is this rank's block of each leaf."""
         names = list(gs)
-        members = self.mesh.members((DATA_AXIS,))
+        members = self.mesh.members(axes)
         sends = {m: [] for m in members}
         for name in names:
             g = gs.pop(name)

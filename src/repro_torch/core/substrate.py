@@ -66,8 +66,8 @@ import torch
 from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.compression import (QSGD, WHOLE_ROWS, Compressor,
                                           RowOps, TopK, by_dtype)
-from repro_torch.core.sharded import (DATA_AXIS, block_spans, spec_axes,
-                                      take_block)
+from repro_torch.core.sharded import (DATA_AXIS, block_spans, entry_axes,
+                                      spec_axes)
 from repro_torch.core.topology import Topology
 from repro_torch.core.tree import leaf_order, tree_leaves, tree_map
 from repro_torch.device import to_device
@@ -652,6 +652,20 @@ class _Blocks:
     def row_ops(self, names) -> RowOps:
         return _MeshRows(self, list(names))
 
+    def _gathered_step(self, grad_fn, params, batch, specs, batch_axes):
+        """One local step of the nodes ``params`` holds this rank's blocks
+        of (``specs``: their specs with the node dim whole): the whole
+        weights gathered over the row axes, the vmapped gradient on this
+        rank's part of the batch, and this rank's block of the gradients'
+        mean over ``batch_axes``, the axes a node's batch is split over
+        (``ShardGroup.reduce_to_shard``; none: the block of this rank's
+        gradient); the loss is the mean over ``batch_axes``."""
+        whole = self.group.gather(params, specs)
+        g, loss = grad_fn(whole, batch)
+        del whole
+        return (self.group.reduce_to_shard(g, specs, batch_axes),
+                self.group.mean_over(loss, batch_axes))
+
     def draw_leaves(self, comp, draws, round_idx, step, tree):
         names = list(tree)
         return comp.draw_many(draws, round_idx, step, names,
@@ -700,7 +714,8 @@ class MeshSubstrate(_Blocks, DenseSubstrate):
     each leaf the block of every node that its spec gives this rank's
     coordinates on a ``launch.mesh.Mesh`` (``specs``, ``shapes``: as
     ``_Blocks``; the node dim's entry must be None here: a node dim
-    sharded over ``data`` is gossip-dp's placement, ``NodeMeshSubstrate``).
+    sharded over node axes, gossip-dp's placement or gossip-fsdp's on
+    pods, is ``NodeMeshSubstrate``'s).
     ``group`` is the rank's ``core.sharded.ShardGroup``.
 
     The node axis is whole on every rank, so the dense hooks run on the
@@ -716,13 +731,14 @@ class MeshSubstrate(_Blocks, DenseSubstrate):
     (QSGD's ``y_new`` within K2's ulps, the norm being summed in another
     order).
 
-    The local step (``node_grads``) gathers the nodes' whole weights,
-    ``chunk`` nodes at a time (all N by default), runs the vmapped
-    gradient on this rank's part of each node's batch (split over
-    ``data``), and keeps this rank's block of the gradients' mean over the
-    ``data`` ranks; the loss is the mean over the ``data`` ranks. Ranks
-    along ``model`` compute the same step on the same gathered weights:
-    the ``model`` axis splits storage and the gossip work, not compute.
+    The local step (``node_grads``, ``_Blocks._gathered_step``) gathers
+    the nodes' whole weights, ``chunk`` nodes at a time (all N by
+    default), runs the vmapped gradient on this rank's part of each node's
+    batch (split over ``data``), and keeps this rank's block of the
+    gradients' mean over the ``data`` ranks; the loss is the mean over the
+    ``data`` ranks. Ranks along ``model`` compute the same step on the
+    same gathered weights: the ``model`` axis splits storage and the
+    gossip work, not compute.
     On a 1 x 1 mesh every collective is the identity and the round is
     bitwise the dense engine's."""
 
@@ -734,8 +750,8 @@ class MeshSubstrate(_Blocks, DenseSubstrate):
             if spec and spec[0] is not None:
                 raise ValueError(
                     f"leaf {name!r} has its node dim sharded ({spec[0]}): "
-                    "that is gossip-dp's placement, a node a data "
-                    "coordinate (NodeMeshSubstrate); the gossip-fsdp mesh "
+                    "a node a coordinate on those axes is "
+                    "NodeMeshSubstrate's placement; the gossip-fsdp mesh "
                     "substrate holds every node")
         self._set_blocks(group, specs, shapes)
         self.chunk = self.num_nodes if chunk is None else max(1, int(chunk))
@@ -744,12 +760,11 @@ class MeshSubstrate(_Blocks, DenseSubstrate):
         grads, losses = [], []
         for c0 in range(0, self.num_nodes, self.chunk):
             sl = slice(c0, min(self.num_nodes, c0 + self.chunk))
-            whole = self.group.gather({name: p[sl] for name, p in
-                                       params.items()}, self.specs)
-            g, loss = grad_fn(whole, tree_map(lambda b: b[sl], batch))
-            del whole
-            grads.append(self.group.reduce_to_shard(g, self.specs))
-            losses.append(self.group.mean_over(loss, (DATA_AXIS,)))
+            g, loss = self._gathered_step(
+                grad_fn, {name: p[sl] for name, p in params.items()},
+                tree_map(lambda b: b[sl], batch), self.specs, (DATA_AXIS,))
+            grads.append(g)
+            losses.append(loss)
         if len(grads) == 1:
             return grads[0], losses[0]
         return ({name: torch.cat([g[name] for g in grads])
@@ -757,63 +772,79 @@ class MeshSubstrate(_Blocks, DenseSubstrate):
 
 
 class NodeMeshSubstrate(_Blocks, ShardedSubstrate):
-    """Gossip-dp on a ``(data, model)`` mesh: the nodes enumerate ``data``
-    (N = the axis's size), and the rank at (data i, model m) holds node
-    i's block m of every leaf, its ``[1, ...]`` row cut by the leaf's spec
-    past the node dim (``specs``: the node dim's entry ``data``;
+    """A node a set of coordinates on the mesh's node axes, its weights
+    split over the rest: the rank holds its node's block of every leaf, its
+    ``[1, ...]`` row cut by the leaf's spec past the node dim (``specs``:
+    the node dim's entry names the node axes, the same for every leaf;
     ``shapes``: as ``_Blocks``). ``group`` is the rank's
-    ``core.sharded.ShardGroup``.
+    ``core.sharded.ShardGroup``, whose ``node_axes`` must be those axes. N
+    is their size and a rank's node its row-major index over them
+    (``ShardGroup.node_index``). The placements (``launch.sharding``):
+
+    * gossip-dp: nodes over ``data`` on one pod and ``(pod, data)`` on
+      two, rows over ``model``, each node's batch whole on its ranks;
+    * gossip-fsdp on two pods (hierarchical DFL): the nodes are the pods,
+      rows over ``(data, model)``, each node's batch split over ``data``.
 
     It is the sparse engine (``ShardedSubstrate``'s one-row hooks, node
     i's draws, participation by ``shift_masks``, ``node_mask_local`` and
     ``select_nodes``) on blocks, with ``MeshSubstrate``'s row operations
-    over ``model``: a gossip step over a circulant C exchanges this rank's
-    blocks along ``data`` among the ranks of its ``model`` coordinate
-    (``ShardGroup.shift_exchange``) and mixes what it receives with K1's
-    received form (``mixing.mix_shifts``), the terms in the dense order,
-    so a step's block is bitwise ``DenseSubstrate.mix``'s row i, block m.
-    A C that is not circulant, which the dense engine mixes on this mesh,
-    is mixed as the dense port mixes it: every node's block gathered over
-    ``data`` (``ShardGroup.node_rows``), ``DenseSubstrate.mix`` on that
-    ``[N, block]`` stack, and row i kept. TopK's thresholds come from K4's
-    sharded-row form over the leaf's ``model`` ranks, QSGD's norm from the
-    summed f32 sums of squares (then K2). The means over nodes and
-    ``mean_tree`` are sums over the ``data`` ranks divided by N, and the
-    consensus distance sums each leaf over its ``model`` ranks too.
+    over the row axes: a gossip step over a circulant C exchanges this
+    rank's blocks over the node axes among the ranks of its other
+    coordinates (``ShardGroup.shift_exchange``) and mixes what it
+    receives with K1's received form (``mixing.mix_shifts``), the terms in
+    the dense order, so a step's block is bitwise ``DenseSubstrate.mix``'s
+    row i, that block. A C that is not circulant, which the dense engine
+    mixes on this mesh, is mixed as the dense port mixes it: every node's
+    block gathered over the node axes (``ShardGroup.node_rows``),
+    ``DenseSubstrate.mix`` on that ``[N, block]`` stack, and row i kept.
+    TopK's thresholds come from K4's sharded-row form over the leaf's row
+    axes, QSGD's norm from the summed f32 sums of squares (then K2). The
+    means over nodes and ``mean_tree`` are sums over the node axes'
+    ranks divided by N, and the consensus distance sums each leaf over its
+    row axes too.
 
-    The local step (``node_grads``) gathers the node's whole weights over
-    ``model``, runs the vmapped gradient on its ``[1, B, ...]`` batch
-    (whole on every ``model`` rank) and keeps this rank's block: the ranks
-    along ``model`` repeat the same step on the same weights, so nothing
-    is reduced. Splitting that compute over ``model`` (tensor parallelism)
-    is not ported. On a data N x model 1 mesh every block is a whole row
-    and the round is bitwise the sparse engine's on N ranks."""
+    The local step (``node_grads``) is ``MeshSubstrate``'s for one node
+    (``_Blocks._gathered_step``): the node's whole weights gathered over
+    the row axes, the vmapped gradient on this rank's ``[1, B', ...]``
+    part of its batch, and this rank's block of the gradients' mean over
+    ``data`` where ``data`` splits the batch (gossip-fsdp on pods), else
+    of its own gradient (gossip-dp). Ranks along ``model`` repeat the
+    same step on the same weights; splitting that compute over ``model``
+    (tensor parallelism) is not ported. On a data N x model 1 mesh every
+    block is a whole row and the round is bitwise the sparse engine's on N
+    ranks."""
 
     def __init__(self, topology: Topology, group, specs: Dict[str, tuple],
                  shapes: Dict[str, Tuple[int, ...]]):
-        mesh = group.mesh
-        n = mesh.shape.get(DATA_AXIS, 1)
-        if topology.num_nodes != n:
-            raise ValueError(f"the topology has {topology.num_nodes} nodes, "
-                             f"the mesh's {DATA_AXIS} axis {n}")
         for name, spec in specs.items():
-            if not spec or spec[0] != DATA_AXIS:
+            if not spec or entry_axes(spec[0]) != group.node_axes:
                 raise ValueError(
-                    f"leaf {name!r}: node dim entry {spec[:1]}, not "
-                    f"{DATA_AXIS!r}: gossip-dp on a single-pod mesh puts a "
-                    f"node on each {DATA_AXIS} coordinate")
+                    f"leaf {name!r}: node dim entry {spec[:1]}, not the "
+                    f"group's node axes {group.node_axes}: a node is a "
+                    "coordinate on them, the same for every leaf")
+        node_axes = group.node_axes
+        n = group.num_nodes
+        if topology.num_nodes != n:
+            raise ValueError(
+                f"the topology has {topology.num_nodes} nodes, the mesh's "
+                f"{' x '.join(node_axes)} axis"
+                f"{'es' if len(node_axes) > 1 else ''} {n}")
         self.group = group
         super().__init__(topology, group)
         self._set_blocks(group, specs, shapes)
         # the leaves' specs with the node dim whole: what the local step
-        # gathers over and cuts back to
+        # gathers over and cuts back to; the axes a node's batch is split
+        # over
         self.node_specs = {name: (None,) + spec[1:]
                            for name, spec in self.specs.items()}
+        self.batch_axes = (() if DATA_AXIS in node_axes
+                           else group.mesh.axes_in_order((DATA_AXIS,)))
         self._dense = (None if topology.is_shift_structured()
                        else DenseSubstrate(topology))
 
     def node_index(self) -> int:
-        return int(self.group.mesh.coords[DATA_AXIS])
+        return self.group.node_index()
 
     def mix(self, tree, edge_mask=None):
         if self._dense is None:
@@ -825,12 +856,8 @@ class NodeMeshSubstrate(_Blocks, ShardedSubstrate):
         return {name: mixed[name][i:i + 1].clone() for name in names}
 
     def node_grads(self, grad_fn, params, batch):
-        whole = self.group.gather(params, self.node_specs)
-        grads, loss = grad_fn(whole, batch)
-        del whole
-        mesh = self.group.mesh
-        return ({name: take_block(grads.pop(name), self.node_specs[name],
-                                  mesh) for name in list(grads)}, loss)
+        return self._gathered_step(grad_fn, params, batch, self.node_specs,
+                                   self.batch_axes)
 
 
 class _MeshRows(RowOps):

@@ -4,12 +4,14 @@ The reference lays its devices out as a ``jax.make_mesh`` of named axes,
 ``("data", "model")`` on one pod and ``("pod", "data", "model")`` on two.
 The port lays out the ranks of a ``torch.distributed`` process group the
 same way: row-major, the last axis fastest, so rank r of a (data, model)
-mesh sits at ``(r // model, r % model)``. A ``Mesh`` carries the axes'
-sizes (``shape``, a dict, and ``axis_names``, as the reference's), this
-rank's place (``rank``, ``coords``) and one process group for each set of
-axes: the ranks that differ only along those axes
-(``group_of(axes)``), which is what a collective over a leaf's sharded
-axes runs on (``core.sharded.ShardGroup``).
+mesh sits at ``(r // model, r % model)`` and rank r of a (pod, data,
+model) mesh at ``(r // (data * model), (r // model) % data, r % model)``.
+A ``Mesh`` carries the axes' sizes (``shape``, a dict, and
+``axis_names``, as the reference's), this rank's place (``rank``,
+``coords``) and one process group for each set of axes: the ranks that
+differ only along those axes (``group_of(axes)``), which is what a
+collective over a leaf's sharded axes, or over the node axes, runs on
+(``core.sharded.ShardGroup``).
 
 ``make_production_mesh`` builds the reference's 16 x 16 (or 2 x 16 x 16)
 layout with no process group and no rank: it feeds the placement rules
@@ -116,16 +118,22 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank})"
 
 
-def make_host_mesh(data: int = 1, model: int = 1, group=None) -> Mesh:
+def make_host_mesh(data: int = 1, model: int = 1, group=None, *,
+                   pod: Optional[int] = None) -> Mesh:
     """A ``(data, model)`` mesh over the ranks of ``group`` (the default
-    process group when None), row-major as ``jax.make_mesh`` lays devices
-    out. The reference cuts ``data`` and ``model`` to the devices there
-    are; here a mesh that does not cover the group's ranks exactly raises,
-    since a rank outside it would wait on collectives it never joins and a
-    smaller mesh would run as if it were the one asked for. Without an
-    initialised process group only the 1 x 1 mesh (this process alone)
-    can be made."""
-    data, model = int(data), int(model)
+    process group when None), or with ``pod`` given a ``(pod, data,
+    model)`` one, row-major as ``jax.make_mesh`` lays devices out: rank r
+    of a pod mesh sits at ``(r // (data * model), (r // model) % data, r %
+    model)``. ``pod=1`` is a real axis of size 1, as the reference treats
+    one (gossip-fsdp then has one node, the pod). The reference cuts the
+    axes to the devices there are; here a mesh that does not cover the
+    group's ranks exactly raises, since a rank outside it would wait on
+    collectives it never joins and a smaller mesh would run as if it were
+    the one asked for. Without an initialised process group only a mesh
+    of one rank (this process alone) can be made."""
+    sizes = {"data": int(data), "model": int(model)}
+    if pod is not None:
+        sizes = {"pod": int(pod), **sizes}
     if dist.is_available() and dist.is_initialized():
         n = dist.get_world_size(group)
         rank = dist.get_rank(group)
@@ -136,12 +144,14 @@ def make_host_mesh(data: int = 1, model: int = 1, group=None) -> Mesh:
                          "is not initialised")
     else:
         n, rank, global_ranks = 1, 0, [0]
-    if data < 1 or model < 1 or data * model != n:
+    total = int(np.prod(list(sizes.values()), dtype=np.int64))
+    if min(sizes.values()) < 1 or total != n:
         raise ValueError(
-            f"a {data} x {model} mesh over {n} ranks: give data * model == "
-            "ranks" + ("" if n > 1 else " (a mesh of more than one rank "
-                       "needs an initialised process group)"))
-    mesh = Mesh({"data": data, "model": model}, rank, group, global_ranks)
+            f"a {' x '.join(map(str, sizes.values()))} mesh over {n} ranks "
+            f"({' x '.join(sizes)}): give {' * '.join(sizes)} == ranks"
+            + ("" if n > 1 else " (a mesh of more than one rank needs an "
+               "initialised process group)"))
+    mesh = Mesh(sizes, rank, group, global_ranks)
     if n > 1:
         mesh._make_groups()
     return mesh

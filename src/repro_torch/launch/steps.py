@@ -12,19 +12,24 @@ this rank's ``core.sharded.NodeGroup`` (one node a process, the sparse
 engine), or a ``launch.mesh.Mesh`` of ranks (``make_host_mesh``), as the
 reference's functions here take one, placing each leaf by the architecture's
 ``sharding_mode`` (``launch.sharding``). The port runs both modes on a
-single-pod mesh (``dfl_setup``, ``select_engine``), every rank calling
-these functions alike:
+single-pod ``(data, model)`` mesh and on a multi-pod ``(pod, data,
+model)`` one (``make_host_mesh(data, model, pod=)``; ``dfl_setup``,
+``select_engine``), every rank calling these functions alike:
 
-  * gossip-fsdp: the arch's ``fsdp_nodes`` nodes, replicated on every
-    rank, each leaf a block of every node over (``data``, ``model``), each
-    node's batch split over ``data``; the round on
+  * gossip-fsdp on one pod: the arch's ``fsdp_nodes`` nodes, replicated
+    on every rank, each leaf a block of every node over (``data``,
+    ``model``), each node's batch split over ``data``; the round on
     ``core.substrate.MeshSubstrate``;
-  * gossip-dp: a node a ``data`` coordinate, the rank at (data i, model m)
-    holding node i's block m of every leaf and node i's whole batch; the
-    round on ``core.substrate.NodeMeshSubstrate`` (the shift exchange
-    along ``data``, the rows' reductions over ``model``).
+  * gossip-fsdp on pods (hierarchical DFL): a node a pod, the rank holding
+    its pod's block over (``data``, ``model``) of every leaf and its part
+    of the node's batch, split over ``data``;
+  * gossip-dp: a node a ``data`` coordinate (a (``pod``, ``data``) pair on
+    pods), the rank holding its node's block over ``model`` of every leaf
+    and the node's whole batch.
 
-A multi-pod mesh (a ``pod`` axis) raises: it is not ported.
+Where the mesh has node axes (gossip-dp, gossip-fsdp on pods) the round
+runs on ``core.substrate.NodeMeshSubstrate``: the shift exchange over the
+node axes, the rows' reductions over the rest.
 
   * ``build_local_step``  ONE local SGD step on all of a device's nodes:
                           the roofline's compute unit.
@@ -225,32 +230,27 @@ def _params(cfg: ModelConfig, dev: torch.device,
     return init_params(cfg, generator, dev)[0]
 
 
-def _check_single_pod(arch: ArchConfig, mesh: Mesh) -> None:
-    if "pod" in mesh.axis_names:
-        raise ValueError(
-            f"{arch.arch_id}: a multi-pod mesh ({arch.sharding_mode} on axes "
-            f"{mesh.axis_names}, the nodes over "
-            f"{shard_lib.node_axes_for(arch.sharding_mode, mesh)}) is not "
-            "ported (ROADMAP.md queue 1, item 14)")
-
-
 def _node_a_rank(arch: ArchConfig, mesh: Optional[Mesh]) -> bool:
-    """Whether ``mesh`` holds one node a ``data`` coordinate (gossip-dp)."""
-    return mesh is not None and arch.sharding_mode == "gossip-dp"
+    """Whether ``mesh`` has node axes, a rank holding one node's blocks
+    (gossip-dp; gossip-fsdp on pods)."""
+    return mesh is not None and bool(
+        shard_lib.node_axes_for(arch.sharding_mode, mesh))
 
 
 def _mesh_parts(arch: ArchConfig, model: ModelConfig, mesh: Mesh, n: int,
                 dev: torch.device, generator: Optional[torch.Generator],
                 node_chunk: Optional[int], topo):
     """This rank's part of ``n`` copies of one model's initial weights (its
-    blocks of every node in gossip-fsdp, its block of its node's ``[1,
-    ...]`` row in gossip-dp), and the mesh's substrate over them (which
-    holds their specs and whole shapes)."""
+    blocks of every node in gossip-fsdp on one pod, its block of its
+    node's ``[1, ...]`` row where the mesh has node axes), and the mesh's
+    substrate over them (which holds their specs and whole shapes)."""
     mode = arch.sharding_mode
-    _check_single_pod(arch, mesh)
-    if mode == "gossip-dp" and node_chunk is not None:
-        raise ValueError("node_chunk= sets a gossip-fsdp mesh's local step; "
-                         "a gossip-dp rank steps its one node")
+    node_axes = shard_lib.node_axes_for(mode, mesh)
+    group = ShardGroup(mesh, dev, node_axes=node_axes)
+    if node_axes and node_chunk is not None:
+        raise ValueError("node_chunk= sets a single-pod gossip-fsdp mesh's "
+                         f"local step; a rank of nodes over {node_axes} "
+                         "steps its one node")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     whole, axes = init_params(model, generator, dev)
@@ -258,21 +258,21 @@ def _mesh_parts(arch: ArchConfig, model: ModelConfig, mesh: Mesh, n: int,
     specs = {name: shard_lib.spec_for_param(axes[name], shapes[name], mode,
                                             mesh, node_dim=True)
              for name in whole}
-    rows = 1 if mode == "gossip-dp" else n
+    rows = 1 if node_axes else n
     params = {}
     for name in list(whole):
         block = shard_lib.shard_leaf(whole.pop(name), specs[name][1:], mesh)
         params[name] = block.unsqueeze(0).repeat((rows,) + (1,) * block.dim())
-    group = ShardGroup(mesh, dev)
-    if mode == "gossip-dp":
+    if node_axes:
         return params, NodeMeshSubstrate(topo, group, specs, shapes)
     return params, MeshSubstrate(topo, group, specs, shapes, chunk=node_chunk)
 
 
 def _mesh_batch(tree, mesh: Mesh, mode: str, lead: int):
     """This rank's part of batches ``[*lead dims, N, B, ...]``
-    (``sharding.batch_spec``): B split over ``data`` in gossip-fsdp, its
-    node's ``[1, B, ...]`` row in gossip-dp."""
+    (``sharding.batch_spec``): B split over ``data`` in gossip-fsdp (its
+    pod's node's row of that on pods), its node's ``[1, B, ...]`` row in
+    gossip-dp."""
     spec = (None,) * lead + shard_lib.batch_spec(mesh, mode,
                                                  has_tau_dim=False)
     return {k: shard_lib.shard_leaf(v, spec, mesh) for k, v in tree.items()}
@@ -293,12 +293,13 @@ def build_local_step(arch: ArchConfig, shape_name: str, nodes: Nodes = 1, *,
     group's one): ``fn(params, opt_state, batch) -> (params', opt_state',
     mean loss)``, each node's gradient by ``vmap(grad)`` as in the round.
     ``device="meta"`` gives shape-only arguments, for counting. On a
-    gossip-fsdp mesh the parameters are this rank's blocks of all N nodes
-    and the batch its part of each node's; the step gathers all N nodes'
-    weights and keeps its block of the gradients' mean over ``data``
-    (``MeshSubstrate.node_grads``). On a gossip-dp mesh they are its block
-    of its node and that node's batch; the step gathers the node's weights
-    over ``model`` and keeps its block of the gradient
+    single-pod gossip-fsdp mesh the parameters are this rank's blocks of
+    all N nodes and the batch its part of each node's; the step gathers all
+    N nodes' weights and keeps its block of the gradients' mean over
+    ``data`` (``MeshSubstrate.node_grads``). On a mesh with node axes they
+    are its block of its node and its part of that node's batch; the step
+    gathers the node's weights over the row axes and keeps its block of
+    the gradient, averaged over ``data`` on gossip-fsdp's pods
     (``NodeMeshSubstrate.node_grads``)."""
     model = _model(arch, reduced, cfg)
     n, group = _split(nodes, arch)
@@ -367,8 +368,8 @@ def build_gossip_step(arch: ArchConfig, nodes: Nodes = 1, *,
     """ONE gossip step over the stacked parameters (plain: ``fn(params)``),
     or one CHOCO-G iteration (``fn(params, hat)``), through the round's own
     ``gossip_phase`` on the dense substrate, the group's sharded one or
-    the mesh's (this rank's blocks of all N nodes in gossip-fsdp, of its
-    node in gossip-dp)."""
+    the mesh's (this rank's blocks of all N nodes in gossip-fsdp on one
+    pod, of its node where the mesh has node axes)."""
     model = _model(arch, reduced, cfg)
     n, group = _split(nodes, arch)
     dev = group.device if group is not None else resolve_device(device)
@@ -426,9 +427,10 @@ def roofline_cost_inputs(arch: ArchConfig, shape_name: str,
     ``Mesh`` one gossip step runs on ``device`` (the group's own device on
     a ``NodeGroup``; every rank must call this) and the group's
     ``exchange_bytes`` counter reads what this rank packed and sent (0 on
-    a gossip-fsdp mesh, whose nodes are all on every rank). On a mesh the
-    local step is counted as N stacked nodes (``nodes=N``): a gossip-dp
-    rank steps one of them, a gossip-fsdp rank all N."""
+    a single-pod gossip-fsdp mesh, whose nodes are all on every rank). On
+    a mesh the local step is counted as N stacked nodes (``nodes=N``): a
+    rank of a mesh with node axes steps one of them, a single-pod
+    gossip-fsdp rank all N."""
     mesh = nodes if isinstance(nodes, Mesh) else None
     n, group = _split(nodes, arch)
     local = build_local_step(arch, shape_name, n if mesh else nodes,
@@ -566,10 +568,11 @@ def build_train_round(
     generator seeded 0), SGD at ``lr``, the seam drawing from seed 1. On
     the card the executor replays CUDA graphs captured in ``warmup()``.
     On a mesh the executor runs eager rounds over the mesh's substrate:
-    in gossip-fsdp the state is this rank's blocks of all N nodes and the
-    batches its part of each node's (``MeshSubstrate``, whose local step
-    gathers the weights ``node_chunk`` nodes at a time, all N by default);
-    in gossip-dp its block of its node and that node's batches
+    in gossip-fsdp on one pod the state is this rank's blocks of all N
+    nodes and the batches its part of each node's (``MeshSubstrate``,
+    whose local step gathers the weights ``node_chunk`` nodes at a time,
+    all N by default); where the mesh has node axes (gossip-dp, gossip-fsdp
+    on pods) its block of its node and its part of that node's batches
     (``NodeMeshSubstrate``; ``node_chunk`` raises). ``meta["engine"]`` is
     ``select_engine``'s choice for the mesh, the reference's: "sparse" on
     a data N x model 1 mesh with a circulant C, whose round the gossip-dp

@@ -4,10 +4,14 @@ Ported from ``repro.models.policy``. The reference pins the layout of the
 residual stream and of flattened-token tensors on a TPU mesh; the port
 runs a node's forward and backward whole on one device: the dense engine
 stacks every node on one card, the sparse engine gives each rank one
-node, and the gossip-fsdp mesh (``launch.mesh``, ``core.substrate.
-MeshSubstrate``) shards a node's weights over ``(data, model)`` for
+node, and the meshes (``launch.mesh``) shard a node's weights for
 storage and the gossip work only, gathering them whole before each local
-step, so ranks along ``model`` compute the same step. There is nothing
+step: the gossip-fsdp mesh over ``(data, model)`` on one pod
+(``core.substrate.MeshSubstrate``) and on each of two pods, a node a pod
+(``NodeMeshSubstrate``), gossip-dp over ``model``, a node a ``data``
+coordinate, or a ``(pod, data)`` pair on two pods. So ranks along
+``model`` compute the same step (and, in gossip-fsdp, each ``data``
+rank the same step on its part of the batch). There is nothing
 to shard yet: ``activation_sharding`` is a context that sets nothing, and
 ``shard_hidden`` / ``shard_tokens`` return their argument. Splitting the
 compute over ``model`` (tensor-parallel matmuls, the residual stream

@@ -43,10 +43,10 @@ them:
   ``build_train_round`` to rtol 1e-5) and ``roofline_cost_inputs`` on the
   mesh.
 
-In one process: the misuse that raises (a multi-pod mesh, ROADMAP item
-14; ``overlap="pipeline"``, item 18; ``dense_power``; ``node_chunk=``; a
-node dim not on ``data``), and a 1 x 1 mesh's rounds bitwise the dense
-port's.
+In one process: the misuse that raises (the 2-pod production mesh, which
+has no process group; ``overlap="pipeline"``, ROADMAP item 18;
+``dense_power``; ``node_chunk=``; a node dim not on ``data``), and a 1 x
+1 mesh's rounds bitwise the dense port's.
 """
 import dataclasses
 import functools
@@ -590,11 +590,20 @@ def test_roofline_cost_inputs_on_the_dp_mesh(dp_session):
 # --- one process ------------------------------------------------------------
 
 def test_multi_pod_mesh_raises_naming_item_14():
+    """The multi-pod mesh runs (``tests/test_torch_mesh_pod.py``); the
+    reference's 2-pod production mesh has no ranks and no process group,
+    and the builders refuse it in both modes."""
+    mesh = make_production_mesh(multi_pod=True)
     for arch_id in (ARCH, "deepseek-coder-33b"):
-        with pytest.raises(ValueError, match="item 14"):
-            steps.build_gossip_step(REGISTRY[arch_id],
-                                    make_production_mesh(multi_pod=True),
-                                    cfg=_model(), device="cpu")
+        arch = REGISTRY[arch_id]
+        with pytest.raises(ValueError, match="no process group"):
+            steps.build_gossip_step(arch, mesh, cfg=_model(), device="cpu")
+        with pytest.raises(ValueError, match="no process group"):
+            steps.build_local_step(arch, "train_4k", mesh, cfg=_model(),
+                                   batch=B, seq=S, device="cpu")
+        with pytest.raises(ValueError, match="no process group"):
+            steps.build_train_round(arch, "train_4k", mesh, cfg=_model(),
+                                    batch=B, seq=S, device="cpu")
 
 
 def _one_by_one():
